@@ -4,18 +4,26 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout; it needs one CUDA card and the CUDA
-toolkit's nvcc, and imports nothing of JAX. Phases, each printing one line
-and raising on failure (so the exit code is non-zero):
+toolkit's nvcc, and imports nothing of JAX. Phases, each printing lines
+tagged with its name and raising on failure (so the exit code is
+non-zero):
 
   1. device   the card's name; nvidia-smi's name and power limit
-  2. build    nvcc builds kernels K1 and K2 from fastvlm_tpu_torch/csrc/
+  2. build    nvcc builds kernels K1, K2 and K3 from fastvlm_tpu_torch/csrc/,
+              one process per source, all started together
   3. K1       fused_ffn vs ffn_reference at the five FastViTHD stage shapes
               of a 1024 px image (bf16, with ls and with ls=None), a ragged
               row count, and one f32 shape
   4. K2       decode_attention vs decode_attention_reference at the 0.5B and
               1.5B head geometries, S_max = 576, lengths {1, 77, 576}, bf16
               and f32
-  5. main     an Engine at full width (FastViTHD @1024, mlp2x_gelu
+  5. K3       paged_decode_attention vs paged_decode_attention_reference at
+              the 0.5B and 1.5B head geometries, bf16 and f32, pages of 64
+              and 16, B = 8: shuffled pool pages, decoy pages, -1 tails, a
+              pad row, lengths {1, page-1, page, page+1, 77, 1000}, tables
+              as wide as the pool; then the serving call (B = 8, 0.5B
+              heads, bf16, lengths 400-600, page 64) timed kernel vs plain
+  6. main     an Engine at full width (FastViTHD @1024, mlp2x_gelu
               3072->896, Qwen2-0.5B, bf16, random weights from a seed, byte
               tokenizer) answers 3 greedy requests of 32 new tokens; checks
               that the kernels' launch counts are 44 per request (K1) and
@@ -23,13 +31,37 @@ and raising on failure (so the exit code is non-zero):
               requests give identical ids, and that a step-by-step replay
               of a request has finite logits at every step and the
               engine's ids
-  6. small    a small f32 model on the card (kernels) agrees with the same
-              model on the CPU (plain versions), logits and greedy ids
+  7. serve    a BatchScheduler over the same full-width engine (paged pool
+              of 16384 tokens, 64-token pages, 8-token chunks): 4 requests
+              with distinct 1024 px images at once, 32 new tokens, greedy;
+              once they decode, 4 more (an identical pair, one sampled at
+              temperature 0.7) admitted mid-batch, growing it to 8. The
+              traffic runs twice, each time through a fresh scheduler: a
+              warm-up round, then the measured and checked one. Checks
+              every stream's finish reason, the admission and grow counters,
+              K1 = 44 per prefill dispatch, K3 = 24 per decode step, no K2,
+              the pool's pages all back, the identical pair's equal ids, and
+              a teacher-forced replay of two requests (one of the batched
+              prefill, one admitted) through the dense single-request path
+              (K2) that ranks the batch's token within a bf16 tie margin of
+              the maximum at every step, printing each step's top-1/top-2
+              gap. Prints TTFT and queue ms per request, the served tok/s
+              (streamed tokens over the wall time from the first batch's
+              start to the last stream's close), the token-slot rate of the
+              chunks with 8 live rows, and peak memory. Then a steady-state
+              decode profile at the same batch and lengths: step ms on the
+              paged pool and on a dense cache of the same rows, device ops,
+              device ms and K3 (or K2) ms a step
+  8. small    a small f32 model on the card (kernels) agrees with the same
+              model on the CPU (plain versions), logits and greedy ids; the
+              same model through a BatchScheduler on the card and on the CPU
+              gives 3 concurrent greedy requests the serial engine's ids
 
 f32 comparisons run with TF32 off for both matmuls and cuDNN convolutions:
 the script sets torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 to False at start. Kernel times are medians
-of CUDA-event timings over repeated launches on warm inputs.
+of CUDA-event timings over repeated launches on warm inputs (the wrapper's
+host time included); K3's kernel time alone comes from torch.profiler.
 
 The line before last is a JSON object {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -38,11 +70,14 @@ The line before last is a JSON object {"kernels": [...]}; the last line is
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -54,6 +89,18 @@ K1_STAGES = [(65536, 96, 2), (16384, 192, 12), (4096, 384, 24),
              (1024, 768, 4), (256, 1536, 2)]
 K1_TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-4, 1e-4)}
 K2_TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (2e-5, 2e-5)}
+K3_TOL = K2_TOL  # the same formula, the same summation order per split
+# teacher-forced replay: the batch's token must score within this many bf16
+# ulps (of the dense maximum's magnitude) of the dense maximum. The logits
+# are bf16 values, so gaps come in whole ulps. Random bf16 weights put the
+# top logits within a few ulps of each other (the replay prints each step's
+# top-1/top-2 gap: 0-26 ulps, median 2, on an H100), and a batch of 8 may
+# round its products in other places than a batch of 1. The batch's token
+# has read 0 ulps below the maximum at every step replayed so far; 2 ulps
+# leaves room for such a rounding flip and still catches a wrong token
+# wherever the runner-up sits 3 or more ulps down (about half the steps).
+TIE_ULPS = 2
+JOIN_S = 600
 
 
 def log(phase: str, msg: str) -> None:
@@ -108,12 +155,13 @@ def phase_device():
 def phase_build():
     from fastvlm_tpu_torch.ops.cuda import _build
 
+    names = ("ffn", "decode_attention", "paged_decode_attention")
     t0 = time.perf_counter()
-    for name in ("ffn", "decode_attention"):
-        _build.load(name)
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(_build.load, names))
     secs = time.perf_counter() - t0
-    log("build", f"ffn.cu + decode_attention.cu built and loaded in "
-                 f"{secs:.1f} s")
+    log("build", f"{', '.join(n + '.cu' for n in names)} built in parallel "
+                 f"and loaded in {secs:.1f} s")
     return secs
 
 
@@ -199,6 +247,95 @@ def phase_k2(gen):
     plain_ms = time_ms(lambda: decode_attention_reference(q, k, v, ln), reps=50)
     log("K2", f"main-path call (B=1, 14/2/64 bf16, S_max=416, length 400): "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return max_abs, ms, plain_ms
+
+
+def kernel_time_ms(fn, reps: int = 20):
+    """Device time of one call's kernels by torch.profiler (no host time),
+    or None where the trace shows no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / reps / 1000 if us > 0 else None
+
+
+def _k3_case(gen, rng, hq, hkv, d, page, lengths, dtype, pool_pages=None,
+             width=None, pad_rows=()):
+    """q, a pool (P, page, Hkv, D) and (B, width) tables: each row's pages
+    drawn at random from the pool (the rest of the pool decoys), -1 past its
+    length, pad rows all -1. width defaults to P, a table as wide as the
+    pool."""
+    b = len(lengths)
+    needs = [-(-int(n) // page) for n in lengths]
+    p = pool_pages or sum(needs) + 5
+    tables = np.full((b, width or p), -1, np.int32)
+    perm = rng.permutation(p)
+    used = 0
+    for i, n in enumerate(needs):
+        if i not in pad_rows:
+            tables[i, :n] = perm[used:used + n]
+            used += n
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    return (r(b, hq, d), r(p, page, hkv, d), r(p, page, hkv, d),
+            torch.from_numpy(tables).cuda(),
+            torch.tensor(lengths, dtype=torch.int32, device="cuda"))
+
+
+def phase_k3(gen):
+    from fastvlm_tpu_torch.ops.cuda.paged_decode_attention import (
+        paged_decode_attention, paged_decode_attention_reference)
+
+    rng = np.random.RandomState(3)
+    max_abs = 0.0
+    for hq, hkv, d in ((14, 2, 64), (12, 2, 128)):
+        for dtype in (torch.bfloat16, torch.float32):
+            for page in (64, 16):
+                # row 6 is a pad row: table all -1, reads page 0
+                lengths = [1, page - 1, page, page + 1, 77, 1000, 5, 400]
+                args = _k3_case(gen, rng, hq, hkv, d, page, lengths, dtype,
+                                pad_rows=(6,))
+                got = paged_decode_attention(*args)
+                want = paged_decode_attention_reference(*args)
+                torch.cuda.synchronize()
+                err, ratio = compare(got, want, K3_TOL[dtype],
+                                     f"K3 {hq}/{hkv}/{d} {dtype} page {page}")
+                max_abs = max(max_abs, err)
+                log("K3", f"Hq/Hkv/D={hq}/{hkv}/{d} {str(dtype)[6:]} page "
+                          f"{page} B=8 lengths={lengths} (row 6 unmapped), "
+                          f"table {tuple(args[3].shape)} spanning the pool: "
+                          f"max_abs_err {err:.3e} (tol ratio {ratio:.3f} "
+                          f"<= 1)")
+    # the serving call: B=8, 0.5B heads, bf16, lengths 400-600, page 64,
+    # the scheduler's pool (256 pages + the sink) and its watermark table
+    lengths = [int(n) for n in rng.randint(400, 601, size=8)]
+    width = -(-max(lengths) // 64)
+    args = _k3_case(gen, rng, 14, 2, 64, 64, lengths, torch.bfloat16,
+                    pool_pages=257, width=width)
+    ms = time_ms(lambda: paged_decode_attention(*args), reps=50)
+    plain_ms = time_ms(lambda: paged_decode_attention_reference(*args),
+                       reps=50)
+    k_ms = kernel_time_ms(lambda: paged_decode_attention(*args))
+    wide = _k3_case(gen, rng, 14, 2, 64, 64, lengths, torch.bfloat16,
+                    pool_pages=257, width=256)
+    wide_ms = time_ms(lambda: paged_decode_attention(*wide), reps=50)
+    wide_k_ms = kernel_time_ms(lambda: paged_decode_attention(*wide))
+    log("K3", f"serving call (B=8, 14/2/64 bf16, page 64, lengths "
+              f"{min(lengths)}-{max(lengths)}, table {width} columns): "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms by events; "
+              f"kernel time {k_ms} ms (profiler); with a 256-column table "
+              f"spanning the pool: kernel {wide_ms:.4f} ms by events, "
+              f"{wide_k_ms} ms kernel time")
     return max_abs, ms, plain_ms
 
 
@@ -309,13 +446,308 @@ def phase_main(card):
     return {"k1_launches": k1, "k2_launches": k2, "decode_steps": steps,
             "ttft_ms": [s["ttft_ms"] for _, s in results],
             "tok_per_s": [s["tok_per_s"] for _, s in results],
-            "peak_gib": peak_gb}
+            "peak_gib": peak_gb, "engine": engine}
+
+
+class Client:
+    """One request to a BatchScheduler on its own thread; ``decoding`` is
+    set at its second update (a decode chunk landed), ``t_closed`` is the
+    host clock when its stream closed."""
+
+    def __init__(self, sched, engine, prompt, image, cap, sampling=None):
+        self.updates = []
+        self.decoding = threading.Event()
+        self.t_closed = None
+        self.thread = threading.Thread(target=self._run, args=(
+            sched, engine.build_prompt(prompt), image, cap, sampling))
+        self.thread.start()
+
+    def _run(self, sched, prompt, image, cap, sampling):
+        for u in sched.submit(prompt, image, max_new_tokens=cap,
+                              sampling=sampling):
+            self.updates.append(u)
+            if len(self.updates) >= 2:
+                self.decoding.set()
+        self.t_closed = time.perf_counter()
+        self.decoding.set()
+
+    def result(self, what):
+        self.thread.join(timeout=JOIN_S)
+        if self.thread.is_alive() or not self.updates:
+            raise AssertionError(f"{what}: stream did not close")
+        last = self.updates[-1]
+        if "error" in last or last["stats"]["finish_reason"] not in (
+                "stop", "length"):
+            raise AssertionError(f"{what}: {last}")
+        return last
+
+
+def _logit_gaps(row, tok):
+    """(batch token's gap below the maximum, top-1 minus top-2), both in
+    bf16 ulps of the maximum's magnitude."""
+    top2 = row.topk(2).values
+    top = float(top2[0])
+    ulp = 2.0 ** (math.floor(math.log2(max(abs(top), 1e-30))) - 7)
+    return (top - float(row[tok])) / ulp, (top - float(top2[1])) / ulp
+
+
+def _dense_replay(engine, prompt, image, ids):
+    """Teacher-force ``ids`` through the dense single-request path (kernel
+    K2); the (gap, top-1/top-2 gap) of every step, in bf16 ulps."""
+    from fastvlm_tpu_torch.models import vlm
+    from fastvlm_tpu_torch.ops.kv_cache import init_cache
+
+    cfg = engine.cfg
+    gaps = []
+    with torch.inference_mode():
+        inputs = engine.prepare(engine.build_prompt(prompt), image)
+        t = inputs["ids"].shape[1]
+        cache = init_cache(cfg.decoder.num_layers, 1, t + len(ids),
+                           cfg.decoder.num_kv_heads, cfg.decoder.head_dim,
+                           torch.bfloat16, "cuda")
+        logits, cache = vlm.prefill(engine.params, cfg, inputs["images"],
+                                    inputs["ids"], inputs["lens"],
+                                    inputs["starts"], cache)
+        for step, tok in enumerate(ids):
+            row = logits[0].float()
+            if not bool(torch.isfinite(row).all()):
+                raise AssertionError(f"replay step {step}: non-finite logits")
+            gaps.append(_logit_gaps(row, tok))
+            logits, cache = vlm.decode_step(
+                engine.params, cfg,
+                torch.tensor([tok], dtype=torch.int32, device="cuda"), cache)
+    return gaps
+
+
+def _step_profile(engine, rng):
+    """Steady-state decode at the serve phase's batch and lengths: 8 rows
+    of 330-370 tokens, text only, greedy, 8-token chunks; the scheduler's
+    pool (256 pages of 64, each row's pages scattered over it) against a
+    dense cache of the same rows. Step ms by the host clock from dispatch
+    to the host read (the scheduler's own measure), over passes in the
+    order paged, dense, dense, paged; then one profiled pass of each:
+    kernels, device ms and attention-kernel ms a step (K3 paged, K2
+    dense)."""
+    import dataclasses
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fastvlm_tpu_torch.models import vlm
+    from fastvlm_tpu_torch.ops.kv_cache import init_cache, init_paged_cache
+    from fastvlm_tpu_torch.ops.sampling import RowSampling, SamplingParams
+
+    dec = engine.cfg.decoder
+    b, k, page, pool = 8, engine.chunk, 64, 256
+    lengths = rng.randint(330, 371, size=b).astype(np.int32)
+    span = -(-(int(lengths.max()) + 5 * k) // page)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    paged = init_paged_cache(dec.num_layers, b, pool, page, span,
+                             dec.num_kv_heads, dec.head_dim, torch.bfloat16,
+                             "cuda")
+    tables = rng.permutation(pool)[:b * span].reshape(b, span)
+    paged = dataclasses.replace(
+        paged, block_tables=torch.from_numpy(tables.astype(np.int32)).cuda())
+    dense = init_cache(dec.num_layers, b, span * page, dec.num_kv_heads,
+                       dec.head_dim, torch.bfloat16, "cuda")
+    for t in (paged.k_pages, paged.v_pages, dense.k, dense.v):
+        t.normal_(generator=gen)
+    start = torch.from_numpy(lengths).cuda()
+    tok0 = torch.randint(0, dec.vocab_size, (b,), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    rows = RowSampling.build([SamplingParams()] * b, b, "cuda")
+
+    def chunks(cache, n):
+        """Reset the rows, one warm chunk, then n chunks; their ms."""
+        cache = dataclasses.replace(cache, lengths=start.clone())
+        tok, done = tok0, torch.zeros((b,), dtype=torch.bool, device="cuda")
+        out = []
+        for i in range(n + 1):
+            t0 = time.perf_counter()
+            toks, done, tok, cache = vlm.decode_chunk(
+                engine.params, engine.cfg, tok, done, cache, gen, k=k,
+                eos_ids=engine.eos_ids, row_sampling=rows)
+            toks.cpu()
+            if i:
+                out.append((time.perf_counter() - t0) * 1000)
+        return out
+
+    caches = {"paged": paged, "dense": dense}
+    step_ms = {"paged": [], "dense": []}
+    with torch.inference_mode():
+        for name in ("paged", "dense", "dense", "paged"):
+            step_ms[name].append(statistics.median(chunks(caches[name], 4)) / k)
+        prof_out = {}
+        for name, cache in caches.items():
+            chunks(cache, 0)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                chunks(cache, 1)
+                torch.cuda.synchronize()
+            rows_ = [e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA]
+            steps = 2 * k  # the warm chunk and the one after it
+            attn = sum(e.self_device_time_total for e in rows_
+                       if "split_kernel" in e.key or "merge_kernel" in e.key)
+            prof_out[name] = {
+                "kernels": sum(e.count for e in rows_) / steps,
+                "device_ms": sum(e.self_device_time_total
+                                 for e in rows_) / steps / 1000,
+                "attn_ms": attn / steps / 1000}
+    return {"lengths": (int(lengths.min()), int(lengths.max())),
+            "step_ms": step_ms, "profile": prof_out}
+
+
+def phase_serve(card, main_engine):
+    from fastvlm_tpu_torch.engine import Engine
+    from fastvlm_tpu_torch.ops.cuda.decode_attention import decode_attention
+    from fastvlm_tpu_torch.ops.cuda.ffn import fused_ffn
+    from fastvlm_tpu_torch.ops.cuda.paged_decode_attention import (
+        paged_decode_attention)
+    from fastvlm_tpu_torch.ops.sampling import SamplingParams
+    from fastvlm_tpu_torch.serve.batcher import BatchScheduler
+
+    cfg = main_engine.cfg
+    layers = cfg.decoder.num_layers
+    engine = Engine(cfg, main_engine.params, IdTokenizer(), chunk=8)
+    rng = np.random.RandomState(7)
+    images = [rng.randint(0, 256, (1024, 1024, 3), dtype=np.uint8)
+              for _ in range(7)]
+    first = [("Describe the image.", 0), ("What is in the picture?", 1),
+             ("Describe the scene in detail.", 2), ("Read the text.", 3)]
+    late = [("Describe the image.", 4, None), ("Describe the image.", 4, None),
+            ("What colour dominates?", 5, None),
+            ("Write a story about it.", 6, SamplingParams(temperature=0.7))]
+
+    def serve_round(name):
+        """The traffic once, through a fresh scheduler; (scheduler, last
+        updates, K1/K2/K3 launches)."""
+        sched = BatchScheduler(engine, max_batch=8, window_ms=100,
+                               page_size=64, pool_tokens=16384)
+        sched.trace = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused_ffn.launches = 0
+        decode_attention.launches = 0
+        paged_decode_attention.launches = 0
+        try:
+            clients = [Client(sched, engine, p, images[i], 32)
+                       for p, i in first]
+            if not clients[0].decoding.wait(JOIN_S):
+                raise AssertionError(f"{name}: the first batch never decoded")
+            clients += [Client(sched, engine, p, images[i], 32, sp)
+                        for p, i, sp in late]
+            last = [c.result(f"{name} request {n}")
+                    for n, c in enumerate(clients)]
+            launches = (fused_ffn.launches, decode_attention.launches,
+                        paged_decode_attention.launches)
+        finally:
+            sched.shutdown()
+        t_end = max(c.t_closed for c in clients)
+        return sched, last, launches, t_end
+
+    # a first round meets the batch-4 encoder and batch-8 decoder shapes
+    # cold (library set-up); the second is measured and checked
+    t0 = time.perf_counter()
+    serve_round("warm-up")
+    log("serve", f"warm-up round of the same traffic: "
+                 f"{time.perf_counter() - t0:.1f} s")
+    sched, last, (k1, k2, k3), t_end = serve_round("serve")
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    counters = dict(sched.counters)
+    for n, u in enumerate(last):
+        st = u["stats"]
+        log("serve", f"request {n}{' (sampled)' if n == 7 else ''}: ttft "
+                     f"{st['ttft_ms']:.3f} ms, queue {st['queue_ms']:.3f} ms, "
+                     f"{st['decode_tokens']} tokens, {st['finish_reason']}")
+    log("serve", f"counters {counters}")
+    if counters.get("admitted", 0) < 1 or counters.get("grown", 0) < 1:
+        raise AssertionError("no admission or no grow in the serve phase")
+    if k1 != 44 * counters["prefills"]:
+        raise AssertionError(f"K1 launched {k1} times for "
+                             f"{counters['prefills']} prefill dispatches")
+    if k3 == 0 or k3 != layers * counters["decode_steps"]:
+        raise AssertionError(f"K3 launched {k3} times for "
+                             f"{counters['decode_steps']} decode steps")
+    if k2 != 0:
+        raise AssertionError(f"K2 launched {k2} times on the paged path")
+    if sched.pool.free_pages != sched.pool.num_pages:
+        raise AssertionError(f"{sched.pool.free_pages} of "
+                             f"{sched.pool.num_pages} pages free after serving")
+    if last[4]["text"] != last[5]["text"]:
+        raise AssertionError("the identical pair gave different ids")
+    log("serve", f"launch counts: K1 {k1} = 44 x {counters['prefills']} "
+                 f"prefill dispatches; K3 {k3} = {layers} x "
+                 f"{counters['decode_steps']} decode steps; K2 0; pool "
+                 f"{sched.pool.free_pages}/{sched.pool.num_pages} pages free; "
+                 f"identical pair gave identical ids")
+
+    # served rate: every streamed token over the wall time from the first
+    # batch's start to the last stream's close (prefills, admissions and
+    # grows included)
+    t_start = next(e[0] for e in sched.trace if e[1] == "batch_start")
+    served = sum(u["stats"]["decode_tokens"] for u in last)
+    wall_s = t_end - t_start
+    # and the chunks that ran with 8 live rows: k x 8 token slots (slots
+    # past a row's cap or EOS included) over dispatch-to-host-read time
+    disp = [e for e in sched.trace if e[1] == "disp"]
+    at8 = [e for e in disp if e[3] == 8]
+    if not at8:
+        raise AssertionError(f"no decode chunk ran with 8 live rows: {disp}")
+    slots_s = sum(e[4] * e[3] for e in at8) / sum(e[5] for e in at8) * 1000
+    step_ms = statistics.median(e[5] / e[4] for e in at8)
+    log("serve", f"served {served} tokens in {wall_s * 1000:.3f} ms from "
+                 f"the first batch's start to the last stream's close: "
+                 f"{served / wall_s:.3f} tok/s; {len(at8)} chunks with 8 "
+                 f"live rows: {slots_s:.3f} token slots/s, a decode step "
+                 f"{step_ms:.3f} ms (median); peak device memory "
+                 f"{peak_gb:.3f} GiB on {card}")
+
+    # teacher-forced replay through the dense single-request path (kernel
+    # K2) of request 0 (a row of the batched prefill) and request 6 (an
+    # admitted row): every batch token ranks within the tie margin
+    for n, (prompt, img) in ((0, first[0]), (6, late[2][:2])):
+        ids = [int(t) for t in last[n]["text"].split(",") if t]
+        gaps = _dense_replay(engine, prompt, images[img], ids)
+        worst = max(g for g, _ in gaps)
+        log("serve", f"dense replay of request {n}: {len(ids)} steps, batch "
+                     f"tokens within {worst:.2f} bf16 ulps of the dense "
+                     f"maximum (limit {TIE_ULPS}); top-1 minus top-2 per "
+                     f"step, ulps: {[round(t, 2) for _, t in gaps]}")
+        if worst > TIE_ULPS:
+            bad = next(s for s, (g, _) in enumerate(gaps) if g > TIE_ULPS)
+            raise AssertionError(
+                f"replay of request {n}, step {bad}: batch token "
+                f"{ids[bad]} scores {gaps[bad][0]:.1f} bf16 ulps below the "
+                f"dense maximum (limit {TIE_ULPS})")
+
+    prof = _step_profile(engine, rng)
+    lo, hi = prof["lengths"]
+    for name in ("paged", "dense"):
+        p = prof["profile"][name]
+        log("serve", f"steady-state decode, batch 8, lengths {lo}-{hi}, "
+                     f"{name} cache: a step {prof['step_ms'][name][0]:.3f} / "
+                     f"{prof['step_ms'][name][1]:.3f} ms (two passes); "
+                     f"{p['kernels']:.1f} device ops, {p['device_ms']:.4f} "
+                     f"ms of device time, attention kernels "
+                     f"({'K3' if name == 'paged' else 'K2'}) "
+                     f"{p['attn_ms']:.4f} ms a step (profiler)")
+    p = prof["profile"]["paged"]
+    share = p["attn_ms"] / statistics.mean(prof["step_ms"]["paged"])
+    log("serve", f"K3's share of a steady-state paged step: {share:.4f} of "
+                 f"the wall time, {p['attn_ms'] / p['device_ms']:.4f} of the "
+                 f"device time")
+    return {"k3_launches": k3, "tok_s": served / wall_s, "peak_gib": peak_gb}
 
 
 def phase_small():
     from fastvlm_tpu_torch.engine import Engine, tiny_config
     from fastvlm_tpu_torch.models import vlm
+    from fastvlm_tpu_torch.ops.cuda.paged_decode_attention import (
+        paged_decode_attention)
     from fastvlm_tpu_torch.ops.kv_cache import init_cache
+    from fastvlm_tpu_torch.serve.batcher import BatchScheduler
     from fastvlm_tpu_torch.utils.convert import to_device
 
     cfg = tiny_config()
@@ -353,6 +785,30 @@ def phase_small():
                  f"logits max_abs_err {err:.3e} (tol ratio {ratio:.3f} <= 1); "
                  f"24 greedy ids equal: {out['cpu'][1][:50]}...")
 
+    # the same model through the scheduler, on the card and on the CPU:
+    # 3 concurrent greedy requests, the serial engine's ids
+    prompts = ["Describe the image.", "What is in it?", "Name the colours."]
+    batched = {}
+    for dev in ("cuda", "cpu"):
+        engine = Engine(cfg, to_device(cpu_params, dev), IdTokenizer())
+        before = paged_decode_attention.launches
+        sched = BatchScheduler(engine, window_ms=300, page_size=16)
+        try:
+            clients = [Client(sched, engine, p, image, 24) for p in prompts]
+            batched[dev] = [c.result(f"small {dev} request {n}")["text"]
+                            for n, c in enumerate(clients)]
+        finally:
+            sched.shutdown()
+        if dev == "cuda" and paged_decode_attention.launches == before:
+            raise AssertionError("the card's scheduler never launched K3")
+    serial = [engine.generate(engine.build_prompt(p), image,
+                              max_new_tokens=24)[0] for p in prompts]
+    if not batched["cuda"] == batched["cpu"] == serial:
+        raise AssertionError(f"scheduler ids differ: card {batched['cuda']} "
+                             f"CPU {batched['cpu']} serial {serial}")
+    log("small", "scheduler, 3 concurrent greedy requests: card (K3) and "
+                 "CPU batched ids equal the serial engine's")
+
 
 def main() -> int:
     # fail before printing anything without a card or outside a checkout
@@ -371,7 +827,9 @@ def main() -> int:
     phase_build()
     k1_err, k1_ms, k1_plain = phase_k1(gen)
     k2_err, k2_ms, k2_plain = phase_k2(gen)
+    k3_err, k3_ms, k3_plain = phase_k3(gen)
     main_res = phase_main(card)
+    serve_res = phase_serve(card, main_res.pop("engine"))
     phase_small()
 
     kernels = {"kernels": [
@@ -387,6 +845,14 @@ def main() -> int:
          "launches": main_res["k2_launches"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain,
          "timed_as": "one call, B=1, 14/2/64 bf16, S_max 416, length 400"},
+        {"name": "paged_decode_attention", "route": "cuda",
+         "source": "fastvlm_tpu_torch/csrc/paged_decode_attention.cu",
+         "replaces": "fastvlm_tpu/ops/pallas/decode_attention.py:215",
+         "launches": serve_res["k3_launches"], "max_abs_err": k3_err,
+         "ms": k3_ms, "plain_ms": k3_plain,
+         "timed_as": "one call, B=8, 14/2/64 bf16, page 64, lengths "
+                     "400-600, watermark table; launches from the serve "
+                     "phase"},
     ]}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,20 +2,24 @@
 
 Same module paths and function names as the JAX package (``fastvlm_tpu``),
 which stays the reference the port is tested against. Plain tensor code is
-PyTorch; the JAX package's Pallas kernels on the single-image generate path
-are hand-written CUDA C++ for sm_90a under ``csrc/``:
+PyTorch; the JAX package's Pallas kernels are hand-written CUDA C++ for
+sm_90a under ``csrc/``:
 
-    ops/cuda/ffn.py               K1, the fused ConvFFN (encoder)
-    ops/cuda/decode_attention.py  K2, dense-cache decode attention (decoder)
+    ops/cuda/ffn.py                     K1, the fused ConvFFN (encoder)
+    ops/cuda/decode_attention.py        K2, dense-cache decode attention
+    ops/cuda/paged_decode_attention.py  K3, decode attention over the paged
+                                        KV pool (serving)
 
 Each kernel runs for CUDA tensors; CPU tensors take its plain PyTorch
 version. The package imports ``torch`` and never ``jax``.
 
 Layout:
     models/    FastViTHD encoder, projector, Qwen2 decoder, FastVLM glue
-    ops/       conv/norm helpers, KV cache, sampling, splice, CUDA kernels
+    ops/       conv/norm helpers, KV caches (dense, paged), sampling,
+               splice, CUDA kernels
     data/      conversation templates, constants, host preprocessing
     utils/     the weight bridge from the JAX package's parameter tree
+    serve/     the continuous-batching scheduler over the paged pool
     engine.py  host API (prepare / stream / generate), predict.py its CLI
 """
 

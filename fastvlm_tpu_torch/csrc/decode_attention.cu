@@ -29,6 +29,8 @@
 //  * The TPU kernel's block-diagonal lane embedding of the GQA queries was a
 //    VMEM tiling device and is not carried over.
 //  Requires lengths[b] >= 1 (the caller counts the token just written).
+//  Pass 1's body (split_pass) and pass 2 are shared with kernel K3, the
+//  paged variant, which includes this file (csrc/paged_decode_attention.cu).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,22 +79,20 @@ struct SplitSmem {
   static constexpr size_t bytes = (sc + GMAX * SPLIT) * 4;
 };
 
-// q: (B, Hq, D); k, v: (B, S, Hkv, D); lengths: (B,) int32.
-// part_acc: (B, Hq, n_split, D) f32; part_ml: (B, Hq, n_split, 2) f32.
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const int* __restrict__ lengths,
-             float* __restrict__ part_acc, float* __restrict__ part_ml,
-             int hq, int hkv, int s_max, int n_split, float scale) {
+// Pass 1 of one (split, KV head, row) block, shared with kernel K3
+// (csrc/paged_decode_attention.cu), which differs only in where a key row
+// lies: `row_off(j)` is the element offset in k and v of the split's key
+// row j (0 <= j < nvalid). head0 = b * Hq + kvh * G is the block's first
+// query head. part_acc: (B, Hq, n_split, D) f32; part_ml: (B, Hq, n_split,
+// 2) f32.
+template <typename T, int D, typename RowOff>
+__device__ __forceinline__ void split_pass(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    RowOff row_off, int nvalid, size_t head0, int g_count, int split,
+    int n_split, float* __restrict__ part_acc, float* __restrict__ part_ml,
+    float scale) {
   using S = SplitSmem<T, D>;
-  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int g_count = hq / hkv;
-  const int len = min(lengths[b], s_max);
-  const int s0 = split * SPLIT;
-  const int nvalid = min(SPLIT, len - s0);
   const int tid = threadIdx.x;
-  const size_t head0 = (size_t)b * hq + (size_t)kvh * g_count;
 
   if (nvalid <= 0) {  // wholly past the row's length: zero weight, no reads
     for (int e = tid; e < g_count * D; e += THREADS)
@@ -111,16 +111,12 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sc = smem + S::sc;  // [GMAX][SPLIT]
 
   // the split's valid K and V rows, 16 bytes a load, all loads in flight
-  const size_t row_stride = (size_t)hkv * D;
-  const T* kbase = k + ((size_t)b * s_max + s0) * row_stride + (size_t)kvh * D;
-  const T* vbase = v + ((size_t)b * s_max + s0) * row_stride + (size_t)kvh * D;
 #pragma unroll 4
   for (int i = tid; i < nvalid * S::VPR; i += THREADS) {
     const int row = i / S::VPR, vi = i % S::VPR;
-    const uint4 kv4 = *reinterpret_cast<const uint4*>(
-        kbase + row * row_stride + vi * (16 / sizeof(T)));
-    const uint4 vv4 = *reinterpret_cast<const uint4*>(
-        vbase + row * row_stride + vi * (16 / sizeof(T)));
+    const size_t off = row_off(row) + vi * (16 / sizeof(T));
+    const uint4 kv4 = *reinterpret_cast<const uint4*>(k + off);
+    const uint4 vv4 = *reinterpret_cast<const uint4*>(v + off);
     uint32_t* kd = ks + row * S::LD + vi * 4;
     uint32_t* vd = vs + row * S::LD + vi * 4;
     kd[0] = kv4.x; kd[1] = kv4.y; kd[2] = kv4.z; kd[3] = kv4.w;
@@ -176,6 +172,24 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  to_f(reinterpret_cast<const T*>(vs + j * S::LD)[d]), acc);
     part_acc[((head0 + g) * n_split + split) * D + d] = acc;
   }
+}
+
+// q: (B, Hq, D); k, v: (B, S, Hkv, D); lengths: (B,) int32.
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS)
+split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, const int* __restrict__ lengths,
+             float* __restrict__ part_acc, float* __restrict__ part_ml,
+             int hq, int hkv, int s_max, int n_split, float scale) {
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int g_count = hq / hkv;
+  const int len = min(lengths[b], s_max);
+  const int s0 = split * SPLIT;
+  const size_t row_stride = (size_t)hkv * D;
+  const size_t base = ((size_t)b * s_max + s0) * row_stride + (size_t)kvh * D;
+  split_pass<T, D>(q, k, v, [=](int j) { return base + j * row_stride; },
+                   min(SPLIT, len - s0), (size_t)b * hq + (size_t)kvh * g_count,
+                   g_count, split, n_split, part_acc, part_ml, scale);
 }
 
 // One block per (row, query head), one thread per d.

@@ -7,7 +7,7 @@ decode with EOS ids, token-level stop keywords and stop strings. Every
 request gets ``RequestStats``: TTFT (encode + prefill + first token on the
 host) and decode time, both ending in a device synchronise on the card.
 
-Used by: predict CLI, chip_smoke.py.
+Used by: predict CLI, serve/batcher.py, chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -133,7 +133,9 @@ class Engine:
 
     def prepare(self, prompt: str, image=None) -> Dict[str, Optional[torch.Tensor]]:
         """prompt: full template string (may contain <image>); image: PIL,
-        NHWC array/tensor, or None. Returns the prefill inputs on device."""
+        NHWC array/tensor, or None. Returns the prefill inputs on device.
+        ``vision_embeds`` is always None: it carries the anyres and
+        multi-image embeddings in the JAX package, neither ported yet."""
         if isinstance(image, (list, tuple)):
             if len(image) > 1:
                 raise NotImplementedError("multi-image prompts are not yet "
@@ -153,6 +155,7 @@ class Engine:
         ids_a, lens, starts = pad_batch([row], [start], pad_to)
         return {
             "images": images,
+            "vision_embeds": None,
             "ids": torch.as_tensor(ids_a).to(self.device),
             "lens": torch.as_tensor(lens).to(self.device),
             "starts": torch.as_tensor(starts).to(self.device),
@@ -251,6 +254,10 @@ class Engine:
         for last in self.stream(prompt, image, **kw):
             pass
         return last["text"], last["stats"]
+
+    def chat(self, user_prompt: str, image=None, **kw):
+        """Convenience: wraps user_prompt in the conversation template."""
+        return self.generate(self.build_prompt(user_prompt), image, **kw)
 
     # ---------------- internals ----------------
 

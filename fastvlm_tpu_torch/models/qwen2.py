@@ -7,20 +7,23 @@ package stacks them for ``lax.scan``); linears are (in, out) matrices.
 ``forward`` takes embeddings, not ids, so the VLM splice and plain LM share
 one path.
 
-Attention routes:
+Attention routes, over a dense ``KVCache`` or a paged ``PagedKVCache``:
   * prefill over an empty cache attends the prompt's own keys under a
     (B, T, T) mask, with a plain f32 softmax (``_attend``);
-  * a T=1 decode step over the dense cache calls kernel K2
-    (``ops/cuda/decode_attention.py``) when the decoder has no ALiBi bias
-    and no sliding window, as the JAX package's Pallas route does;
-    otherwise ``_attend`` over the whole cache with ``decode_mask``.
+  * a T=1 decode step calls kernel K2 (``ops/cuda/decode_attention.py``) on
+    the dense cache, or kernel K3 (``ops/cuda/paged_decode_attention.py``)
+    on the pool in place, when the decoder has no ALiBi bias and no sliding
+    window, as the JAX package's Pallas routes do;
+  * otherwise ``_attend`` over the whole cache with ``decode_mask`` (the
+    paged cache gathered into each row's virtual order first).
 The cache is updated in place (``ops/kv_cache.py``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -28,7 +31,11 @@ import torch.nn.functional as F
 from fastvlm_tpu_torch.config import Qwen2Config, resolve_dtype
 from fastvlm_tpu_torch.ops.conv import rms_norm
 from fastvlm_tpu_torch.ops.cuda.decode_attention import decode_attention
-from fastvlm_tpu_torch.ops.kv_cache import KVCache, write_prompt, write_token
+from fastvlm_tpu_torch.ops.cuda.paged_decode_attention import (
+    paged_decode_attention)
+from fastvlm_tpu_torch.ops.kv_cache import (
+    KVCache, PagedKVCache, gather_pages, prompt_dest, token_dest, write_paged,
+    write_prompt, write_token)
 
 Params = Dict[str, Any]
 
@@ -203,9 +210,13 @@ def _attend(q, k, v, mask, bias=None):
 
 
 def _layer(x, lp, cfg: Qwen2Config, cos, sin, cache_k, cache_v, mask,
-           lengths, prefill, bias=None, prefill_offset=0):
+           lengths, prefill, bias=None, prefill_offset=0, block_tables=None,
+           dest=None):
     """One decoder layer. cache_k/v: (B, S_max, Hkv, D) views of the dense
-    cache (written in place), or None (no cache: plain causal attention)."""
+    cache, (P + 1, page, Hkv, D) pool slices when ``block_tables`` is given
+    (the paged serving layout; ``dest`` holds the flat pool rows of this
+    forward's writes), both written in place; or None (no cache: plain
+    causal attention)."""
     b, t, d = x.shape
     h = _norm(x, lp["ln1"], cfg)
     if "qkv" in lp:
@@ -221,23 +232,40 @@ def _layer(x, lp, cfg: Qwen2Config, cos, sin, cache_k, cache_v, mask,
         k = apply_rope(k, cos, sin)
 
     attn = None
+    use_kernel = t == 1 and bias is None and cfg.attn_window is None
     if cache_k is None:
         keys, values = k, v
     elif prefill:
-        write_prompt(cache_k, cache_v, k, v, prefill_offset)
+        if block_tables is None:
+            write_prompt(cache_k, cache_v, k, v, prefill_offset)
+        else:
+            write_paged(cache_k, cache_v, k, v, dest)
         if mask.shape[-1] == t:
             # empty-cache prefill: the prompt's own keys are the whole
             # valid cache, so attend them instead of the S_max-wide cache
             keys, values = k, v
-        else:
+        elif block_tables is None:
             keys, values = cache_k, cache_v
-    else:
+        else:
+            keys = gather_pages(cache_k, block_tables)
+            values = gather_pages(cache_v, block_tables)
+    elif block_tables is None:  # dense decode step
         write_token(cache_k, cache_v, k, v, lengths)
         keys, values = cache_k, cache_v
-        if t == 1 and bias is None and cfg.attn_window is None:
+        if use_kernel:
             out = decode_attention(q[:, 0].contiguous(), cache_k.to(q.dtype),
                                    cache_v.to(q.dtype), lengths + 1)
             attn = out.reshape(b, 1, -1)
+    else:  # paged decode step
+        write_paged(cache_k, cache_v, k, v, dest)
+        if use_kernel:
+            out = paged_decode_attention(
+                q[:, 0].contiguous(), cache_k.to(q.dtype), cache_v.to(q.dtype),
+                block_tables, lengths + 1)
+            attn = out.reshape(b, 1, -1)
+        else:
+            keys = gather_pages(cache_k, block_tables)
+            values = gather_pages(cache_v, block_tables)
     if attn is None:
         attn = _attend(q, keys.to(q.dtype), values.to(q.dtype), mask, bias)
     x = x + _project(attn, lp["o"])
@@ -270,16 +298,17 @@ def forward(
     cfg: Qwen2Config,
     inputs_embeds: torch.Tensor,          # (B, T, D)
     positions: torch.Tensor,              # (B, T) int RoPE positions
-    cache: Optional[KVCache] = None,
+    cache: Optional[Union[KVCache, PagedKVCache]] = None,
     mask: Optional[torch.Tensor] = None,  # (B, T, S) bool, True = attend
     prefill: bool = True,
     prefill_offset: int = 0,
-) -> Tuple[torch.Tensor, Optional[KVCache]]:
+) -> Tuple[torch.Tensor, Optional[Union[KVCache, PagedKVCache]]]:
     """Run the decoder stack over embeddings; returns (hidden, cache).
 
-    With a cache: prefill writes rows [offset, offset+T), decode writes at
-    cache.lengths; the returned cache shares the (updated) k/v tensors and
-    carries the advanced lengths. Without a cache: causal self-attention."""
+    With a cache (dense, or paged with S = its virtual capacity): prefill
+    writes rows [offset, offset+T), decode writes at cache.lengths; the
+    returned cache shares the (updated) tensors and carries the advanced
+    lengths. Without a cache: causal self-attention."""
     x = inputs_embeds
     b, t, _ = x.shape
     if mask is None:
@@ -288,16 +317,26 @@ def forward(
         mask = causal.expand(b, t, t)
     cos, sin, bias, mask = pos_terms(cfg, positions, mask)
     lengths = None if cache is None else cache.lengths
+    paged = isinstance(cache, PagedKVCache)
+    tables = dest = None
+    if paged:
+        # the writes' pool rows are the same in every layer
+        tables = cache.block_tables
+        dest = (prompt_dest(tables, t, prefill_offset, cache.page_size,
+                            cache.num_pages) if prefill else
+                token_dest(tables, lengths, cache.page_size, cache.num_pages))
     for i, lp in enumerate(params["layers"]):
         ck = cv = None
-        if cache is not None:
+        if paged:
+            ck, cv = cache.k_pages[i], cache.v_pages[i]
+        elif cache is not None:
             ck, cv = cache.k[i], cache.v[i]
         x = _layer(x, lp, cfg, cos, sin, ck, cv, mask, lengths, prefill, bias,
-                   prefill_offset)
+                   prefill_offset, tables, dest)
     new_cache = None
     if cache is not None:
-        new_cache = KVCache(k=cache.k, v=cache.v,
-                            lengths=lengths + (t if prefill else 1))
+        new_cache = dataclasses.replace(
+            cache, lengths=lengths + (t if prefill else 1))
     return _norm(x, params["final_norm"], cfg), new_cache
 
 

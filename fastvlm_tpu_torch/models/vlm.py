@@ -8,19 +8,23 @@ once per chunk, in the engine).
 
 Prompts are right-padded to a bucket length; the image sentinel is expanded
 host-side to ``num_image_tokens`` placeholder slots (ops/splice.py); the KV
-cache is allocated by the caller and updated in place.
+cache is allocated by the caller and updated in place. ``prefill``,
+``decode_step`` and ``decode_chunk`` take the dense ``KVCache`` or the paged
+``PagedKVCache`` of the serving scheduler (serve/batcher.py) alike.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
+import dataclasses
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
 from fastvlm_tpu_torch.config import FastVLMConfig, resolve_dtype
 from fastvlm_tpu_torch.models import fastvit, projector, qwen2
-from fastvlm_tpu_torch.ops.kv_cache import KVCache, init_cache
-from fastvlm_tpu_torch.ops.sampling import SamplingParams, sample
+from fastvlm_tpu_torch.ops.kv_cache import KVCache, PagedKVCache, init_cache
+from fastvlm_tpu_torch.ops.sampling import (
+    RowSampling, SamplingParams, sample, sample_rows)
 from fastvlm_tpu_torch.ops.splice import overlay_image_embeds
 
 Params = Dict[str, Any]
@@ -66,9 +70,9 @@ def prefill(
     ids: torch.Tensor,               # (B, T) sentinel-expanded, right-padded
     seq_lens: torch.Tensor,          # (B,) int32
     image_starts: torch.Tensor,      # (B,) -1 for text-only rows
-    cache: KVCache,
+    cache: Union[KVCache, PagedKVCache],
     vision_embeds: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, KVCache]:
+) -> Tuple[torch.Tensor, Union[KVCache, PagedKVCache]]:
     """Encode + prefill. Returns (next-token logits (B, V) f32, cache).
 
     The cache is empty, so prefill attends the prompt's own keys under a
@@ -81,7 +85,7 @@ def prefill(
     hidden, cache = qwen2.forward(params["decoder"], cfg.decoder, embeds,
                                   positions, cache=cache, mask=mask,
                                   prefill=True)
-    cache = KVCache(k=cache.k, v=cache.v, lengths=seq_lens.to(torch.int32))
+    cache = dataclasses.replace(cache, lengths=seq_lens.to(torch.int32))
     last = (seq_lens.long() - 1).clamp(0, t - 1)
     last_hidden = hidden[torch.arange(b, device=hidden.device), last][:, None]
     logits = qwen2.logits_from_hidden(params["decoder"], last_hidden,
@@ -90,9 +94,11 @@ def prefill(
 
 
 def decode_step(params: Params, cfg: FastVLMConfig, tokens: torch.Tensor,
-                cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
+                cache: Union[KVCache, PagedKVCache]
+                ) -> Tuple[torch.Tensor, Union[KVCache, PagedKVCache]]:
     """One decode step: embed the last tokens (B,), attend over the cache
-    (kernel K2 on the card), return (logits (B, V), cache)."""
+    (kernel K2 on a dense cache, K3 on a paged one, on the card), return
+    (logits (B, V), cache)."""
     embeds = qwen2.embed(params["decoder"], tokens[:, None]).to(
         resolve_dtype(cfg.decoder.compute_dtype))
     positions = cache.lengths[:, None]
@@ -110,15 +116,18 @@ def decode_chunk(
     cfg: FastVLMConfig,
     last_tok: torch.Tensor,   # (B,) int32
     done: torch.Tensor,       # (B,) bool
-    cache: KVCache,
+    cache: Union[KVCache, PagedKVCache],
     generator: Optional[torch.Generator],
     *,
     k: int = 8,
     eos_ids: Tuple[int, ...] = (151645,),
     sampling: SamplingParams = SamplingParams(),
+    row_sampling: Optional[RowSampling] = None,
 ):
     """Decode k tokens without reading anything back to the host: the
-    streaming unit. Slots after a row's EOS hold 0.
+    streaming unit. Slots after a row's EOS hold 0. ``row_sampling`` (per-row
+    knobs, the continuous-batching scheduler's) replaces ``sampling`` when
+    given.
 
     Returns (tokens (B, k) int32, done (B,), last_tok (B,), cache)."""
     eos = torch.tensor(eos_ids, dtype=torch.int32, device=last_tok.device)
@@ -126,7 +135,10 @@ def decode_chunk(
     tok = last_tok
     for _ in range(k):
         logits, cache = decode_step(params, cfg, tok, cache)
-        new = sample(generator, logits, sampling)
+        if row_sampling is not None:
+            new = sample_rows(generator, logits, row_sampling)
+        else:
+            new = sample(generator, logits, sampling)
         new = torch.where(done, torch.zeros_like(new), new)
         done = done | torch.isin(new, eos)
         toks.append(new)

@@ -7,7 +7,7 @@ Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so
          -Xcompiler -fPIC -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
 The output goes to ``fastvlm_tpu_torch/_build/`` (git-ignored), keyed by a
-hash of the source and the flags, so an edited source rebuilds and an
+hash of the sources and the flags, so an edited source rebuilds and an
 unchanged one is loaded as it is. The compile writes to a temporary name and
 is renamed into place, so two processes building at once do not see a
 half-written library. Nothing here runs when the module is imported.
@@ -44,12 +44,15 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Path of the built library for csrc/<name>.cu at its current hash."""
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        src = f.read()
-    digest = hashlib.sha256(
-        src + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """Path of the built library for csrc/<name>.cu at its current hash.
+    The hash covers every source under csrc/, since one may include another
+    (K3's source includes K2's)."""
+    h = hashlib.sha256(name.encode())
+    for fn in sorted(os.listdir(CSRC)):
+        with open(os.path.join(CSRC, fn), "rb") as f:
+            h.update(fn.encode() + f.read())
+    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(name: str) -> str:
