@@ -12,11 +12,16 @@ non-zero):
   2. build    nvcc builds kernels K1, K2 and K3 from fastvlm_tpu_torch/csrc/,
               one process per source, all started together
   3. K1       fused_ffn vs ffn_reference at the five FastViTHD stage shapes
-              of a 1024 px image (bf16, with ls and with ls=None), a ragged
-              row count, and one f32 shape
-  4. K2       decode_attention vs decode_attention_reference at the 0.5B and
-              1.5B head geometries, S_max = 576, lengths {1, 77, 576}, bf16
-              and f32
+              of a 1024 px image (bf16, with ls and with ls=None), ragged
+              row counts on both routes, and one f32 shape; per stage the
+              kernel's time, TFLOP/s and share of its bound, the plain
+              version's and the bf16 cuBLAS chain's (context)
+  4. K2       decode_attention vs decode_attention_reference at the 0.5B,
+              1.5B and 7B head geometries, bf16 and f32, lengths at the
+              split size's edges (1, split-1, split, split+1, one leaving
+              whole splits empty, S_max); then the main-path call timed:
+              kernel (profiler), per call by events, the wrapper's host us,
+              against scaled_dot_product_attention (library_ms)
   5. K3       paged_decode_attention vs paged_decode_attention_reference at
               the 0.5B and 1.5B head geometries, bf16 and f32, pages of 64
               and 16, B = 8: shuffled pool pages, decoy pages, -1 tails, a
@@ -59,9 +64,13 @@ non-zero):
 
 f32 comparisons run with TF32 off for both matmuls and cuDNN convolutions:
 the script sets torch.backends.cuda.matmul.allow_tf32 and
-torch.backends.cudnn.allow_tf32 to False at start. Kernel times are medians
-of CUDA-event timings over repeated launches on warm inputs (the wrapper's
-host time included); K3's kernel time alone comes from torch.profiler.
+torch.backends.cudnn.allow_tf32 to False at start. K1's times are CUDA
+events around a run of back-to-back calls, over the count; K2's and K3's
+per-call times are medians of CUDA events around each call (the wrapper's
+host time included). Kernel time alone (kernel_ms) comes from
+torch.profiler. Bounds (bound_ms) are computed from this run's shapes: the
+larger of the bytes each kernel must move over 3.35 TB/s and its FLOPs
+over 989 TFLOP/s (bf16 tensor cores; 67 TFLOP/s for f32).
 
 The line before last is a JSON object {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -89,6 +98,8 @@ K1_STAGES = [(65536, 96, 2), (16384, 192, 12), (4096, 384, 24),
              (1024, 768, 4), (256, 1536, 2)]
 K1_TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-4, 1e-4)}
 K2_TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (2e-5, 2e-5)}
+HBM_BPS = 3.35e12      # H100 SXM device memory, bytes/s
+BF16_FLOPS = 989e12    # H100 SXM dense bf16 tensor-core peak
 K3_TOL = K2_TOL  # the same formula, the same summation order per split
 # teacher-forced replay: the batch's token must score within this many bf16
 # ulps (of the dense maximum's magnitude) of the dense maximum. The logits
@@ -119,6 +130,58 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         e.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
+def time_batch_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Device time of one call: CUDA events around reps back-to-back calls,
+    over reps (the queue stays ahead of the card)."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_us(fn, reps: int = 2000) -> float:
+    """Host time of one call: perf_counter over reps calls, one synchronise
+    at the end."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
+def fmt_ms(x) -> str:
+    """A time in ms, or "not measured" where the profiler saw none."""
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
+def ffn_bound_ms(n, c):
+    """K1's bound: 16 N C^2 FLOPs at the bf16 peak, or t, residual, out,
+    W1, W2 and the biases once each over device memory, the larger."""
+    flops = 16 * n * c * c
+    nbytes = 2 * (3 * n * c + 8 * c * c + 4 * c + 2 * c)
+    f_ms, b_ms = flops / BF16_FLOPS * 1e3, nbytes / HBM_BPS * 1e3
+    return max(f_ms, b_ms), ("operations" if f_ms >= b_ms else "bytes")
+
+
+def attn_bound_ms(q, lengths, hkv, elem):
+    """K2's / K3's bound: the valid keys and values, q and the output once
+    each over device memory (the ~4 FLOPs a byte are far below the ridge)."""
+    d = q.shape[-1]
+    kv = 2 * int(lengths.sum()) * hkv * d * elem
+    return (kv + 2 * q.numel() * elem + 4 * lengths.numel()) / HBM_BPS * 1e3
 
 
 def compare(got, want, tol, what):
@@ -178,93 +241,151 @@ def _ffn_inputs(n, c, dtype, gen):
             r(c, scale=0.1, shift=1.0))
 
 
+def _ffn_chain(t, res, w1, b1, w2, b2, ls):
+    """The same function as a bf16 cuBLAS chain (context for K1, not its
+    yardstick: no single PyTorch call computes it)."""
+    o = torch.addmm(b2, torch.nn.functional.gelu(torch.addmm(b1, t, w1)), w2)
+    return res + (o if ls is None else ls * o)
+
+
 def phase_k1(gen):
     from fastvlm_tpu_torch.ops.cuda.ffn import ffn_reference, fused_ffn
 
     cases = [(n, c, torch.bfloat16, use_ls, blocks)
              for n, c, blocks in K1_STAGES for use_ls in (True, False)]
-    cases += [(1000, 192, torch.bfloat16, True, 0),   # ragged rows
+    cases += [(1000, 192, torch.bfloat16, True, 0),   # ragged rows, fused
+              (1000, 768, torch.bfloat16, True, 0),   # ragged rows, two passes
               (4096, 384, torch.float32, True, 0)]
     max_abs = 0.0
-    ms = plain_ms = 0.0  # per 1024 px image: sum over the 44 calls
+    img = dict.fromkeys(("ms", "kernel_ms", "plain_ms", "chain_ms", "bound_ms"), 0.0)
     for n, c, dtype, use_ls, blocks in cases:
         t, res, w1, b1, w2, b2, ls = _ffn_inputs(n, c, dtype, gen)
         ls = ls if use_ls else None
-        got = fused_ffn(t, res, w1, b1, w2, b2, ls)
-        want = ffn_reference(t, res, w1, b1, w2, b2, ls)
+        args = (t, res, w1, b1, w2, b2, ls)
+        got = fused_ffn(*args)
+        want = ffn_reference(*args)
         torch.cuda.synchronize()
         err, ratio = compare(got, want, K1_TOL[dtype],
                              f"K1 N={n} C={c} {dtype} ls={use_ls}")
         max_abs = max(max_abs, err)
-        k_ms = time_ms(lambda: fused_ffn(t, res, w1, b1, w2, b2, ls))
-        p_ms = time_ms(lambda: ffn_reference(t, res, w1, b1, w2, b2, ls))
-        if not use_ls and dtype == torch.bfloat16:  # the folded main path
-            ms += blocks * k_ms
-            plain_ms += blocks * p_ms
-        tflops = 4 * n * c * 4 * c / (k_ms * 1e-3) / 1e12
-        log("K1", f"N={n} C={c} {str(dtype)[6:]} ls={'yes' if use_ls else 'None'}"
-                  f": max_abs_err {err:.3e} (tol ratio {ratio:.3f} <= 1); "
-                  f"kernel {k_ms:.4f} ms ({tflops:.1f} TFLOP/s), "
-                  f"plain {p_ms:.4f} ms")
+        what = (f"N={n} C={c} {str(dtype)[6:]} "
+                f"ls={'yes' if use_ls else 'None'}: max_abs_err {err:.3e} "
+                f"(tol ratio {ratio:.3f} <= 1)")
+        if dtype == torch.float32:
+            k_ms = time_batch_ms(lambda: fused_ffn(*args))
+            p_ms = time_batch_ms(lambda: ffn_reference(*args))
+            log("K1", f"{what}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+            continue
+        if use_ls or not blocks:  # the folded main path is timed below
+            log("K1", what)
+            continue
+        k_ms = time_batch_ms(lambda: fused_ffn(*args))
+        prof_ms = kernel_time_ms(lambda: fused_ffn(*args))
+        p_ms = time_batch_ms(lambda: ffn_reference(*args))
+        c_ms = time_batch_ms(lambda: _ffn_chain(*args))
+        bound, bound_by = ffn_bound_ms(n, c)
+        for key, v in (("ms", k_ms), ("kernel_ms", prof_ms), ("plain_ms", p_ms),
+                       ("chain_ms", c_ms), ("bound_ms", bound)):
+            img[key] = None if v is None or img[key] is None else img[key] + blocks * v
+        tflops = 16 * n * c * c / (k_ms * 1e-3) / 1e12
+        log("K1", f"{what}; kernel {k_ms:.4f} ms ({tflops:.1f} TFLOP/s, "
+                  f"{bound / k_ms:.3f} of its {bound * 1e3:.2f} us bound, "
+                  f"{bound_by}), kernel time {fmt_ms(prof_ms)} (profiler); "
+                  f"plain {p_ms:.4f} ms; bf16 cuBLAS chain {c_ms:.4f} ms")
     log("K1", f"per 1024 px image (44 calls, bf16, ls folded): kernel "
-              f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
-    return max_abs, ms, plain_ms
+              f"{img['ms']:.3f} ms ({fmt_ms(img['kernel_ms'])} kernel time), "
+              f"bound {img['bound_ms']:.3f} ms ({img['bound_ms'] / img['ms']:.3f} "
+              f"reached), plain {img['plain_ms']:.3f} ms, bf16 cuBLAS chain "
+              f"{img['chain_ms']:.3f} ms")
+    return max_abs, img
 
 
 def phase_k2(gen):
     from fastvlm_tpu_torch.ops.cuda.decode_attention import (
-        decode_attention, decode_attention_reference)
+        decode_attention, decode_attention_reference, split_size)
 
-    s_max = 320 + 256
-    lengths = torch.tensor([1, 77, s_max], dtype=torch.int32, device="cuda")
+    def draw(b, hq, hkv, d, s_max, dtype):
+        return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                for shape in ((b, hq, d), (b, s_max, hkv, d), (b, s_max, hkv, d))]
+
+    s_max = 4096
     max_abs = 0.0
-    for hq, hkv, d in ((14, 2, 64), (12, 2, 128)):
+    for hq, hkv, d in ((14, 2, 64), (12, 2, 128), (28, 4, 128)):
         for dtype in (torch.bfloat16, torch.float32):
-            q = torch.randn((3, hq, d), generator=gen, device="cuda").to(dtype)
-            k = torch.randn((3, s_max, hkv, d), generator=gen,
-                            device="cuda").to(dtype)
-            v = torch.randn((3, s_max, hkv, d), generator=gen,
-                            device="cuda").to(dtype)
-            got = decode_attention(q, k, v, lengths)
+            # a row alone takes several splits (one cluster each) at this
+            # cache size; lengths 1 .. 2 split + 7 leave whole splits empty
+            split = split_size(1, hkv, d, s_max, dtype)
+            lens = [1, split - 1, split, split + 1, 2 * split + 7, s_max]
+            q, k, v = draw(len(lens), hq, hkv, d, s_max, dtype)
+            lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
             want = decode_attention_reference(q, k, v, lengths)
+            rows = [decode_attention(q[i:i + 1], k[i:i + 1].contiguous(),
+                                     v[i:i + 1].contiguous(), lengths[i:i + 1].clone())
+                    for i in range(len(lens))]
+            got = decode_attention(q, k, v, lengths)  # all rows: one split each
             torch.cuda.synchronize()
-            err, ratio = compare(got, want, K2_TOL[dtype],
-                                 f"K2 {hq}/{hkv}/{d} {dtype}")
-            max_abs = max(max_abs, err)
-            k_ms = time_ms(lambda: decode_attention(q, k, v, lengths))
-            p_ms = time_ms(lambda: decode_attention_reference(q, k, v, lengths))
-            log("K2", f"Hq/Hkv/D={hq}/{hkv}/{d} {str(dtype)[6:]} B=3 "
-                      f"S_max={s_max} lengths=[1,77,{s_max}]: max_abs_err "
-                      f"{err:.3e} (tol ratio {ratio:.3f} <= 1); kernel "
-                      f"{k_ms:.4f} ms, plain {p_ms:.4f} ms")
+            for name, out in (("one row a call", torch.cat(rows)),
+                              (f"B={len(lens)}", got)):
+                err, ratio = compare(out, want, K2_TOL[dtype],
+                                     f"K2 {hq}/{hkv}/{d} {dtype} {name}")
+                max_abs = max(max_abs, err)
+                log("K2", f"Hq/Hkv/D={hq}/{hkv}/{d} {str(dtype)[6:]} S_max={s_max}, "
+                          f"{name} (a row alone: {-(-s_max // split)} splits of "
+                          f"{split} keys), lengths={lens}: max_abs_err {err:.3e} "
+                          f"(tol ratio {ratio:.3f} <= 1)")
     # the main path's own call: batch 1, 0.5B heads, bf16, a 416-slot cache
     # holding 400 keys
-    q = torch.randn((1, 14, 64), generator=gen, device="cuda").to(torch.bfloat16)
-    k = torch.randn((1, 416, 2, 64), generator=gen, device="cuda").to(torch.bfloat16)
-    v = torch.randn((1, 416, 2, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = draw(1, 14, 2, 64, 416, torch.bfloat16)
     ln = torch.tensor([400], dtype=torch.int32, device="cuda")
-    ms = time_ms(lambda: decode_attention(q, k, v, ln), reps=50)
+    err, ratio = compare(decode_attention(q, k, v, ln),
+                         decode_attention_reference(q, k, v, ln),
+                         K2_TOL[torch.bfloat16], "K2 main-path call")
+    max_abs = max(max_abs, err)
+    call = lambda: decode_attention(q, k, v, ln)
+    ms = time_ms(call, reps=50)
+    k_ms = kernel_time_ms(call, reps=50)
+    h_us = host_us(call)
     plain_ms = time_ms(lambda: decode_attention_reference(q, k, v, ln), reps=50)
-    log("K2", f"main-path call (B=1, 14/2/64 bf16, S_max=416, length 400): "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return max_abs, ms, plain_ms
+    mask = (torch.arange(416, device="cuda")[None, :] < ln[:, None])[:, None, None, :]
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q.view(1, 14, 1, 64), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, enable_gqa=True)
+    lib_ms = time_ms(sdpa, reps=50)
+    lib_k_ms = kernel_time_ms(sdpa, reps=50)
+    bound = attn_bound_ms(q, ln, 2, 2)
+    log("K2", f"main-path call (B=1, 14/2/64 bf16, S_max=416, length 400, "
+              f"split {split_size(1, 2, 64, 416, torch.bfloat16)} keys): "
+              f"max_abs_err {err:.3e}; kernel time {fmt_ms(k_ms)} (profiler, one "
+              f"launch), {ms:.4f} ms a call by events, wrapper host "
+              f"{h_us:.2f} us a call; bound {bound * 1e3:.4f} us (bytes); plain "
+              f"{plain_ms:.4f} ms; scaled_dot_product_attention kernel time "
+              f"{fmt_ms(lib_k_ms)}, {lib_ms:.4f} ms a call by events")
+    return max_abs, dict(ms=ms, kernel_ms=k_ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, library_kernel_ms=lib_k_ms,
+                         bound_ms=bound, host_us=h_us)
 
 
 def kernel_time_ms(fn, reps: int = 20):
     """Device time of one call's kernels by torch.profiler (no host time),
-    or None where the trace shows no device time."""
+    or None where no session shows device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / reps / 1000 if us > 0 else None
+    for _ in range(3):  # a session now and then records no device time
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        # each kernel's mean time, times its launches a call: a session
+        # that drops some records still reads one call's kernel time
+        us = sum(e.self_device_time_total / e.count * max(1, round(e.count / reps))
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and e.count > 0)
+        if us > 0:
+            return us / 1000
+    return None
 
 
 def _k3_case(gen, rng, hq, hkv, d, page, lengths, dtype, pool_pages=None,
@@ -330,13 +451,15 @@ def phase_k3(gen):
                     pool_pages=257, width=256)
     wide_ms = time_ms(lambda: paged_decode_attention(*wide), reps=50)
     wide_k_ms = kernel_time_ms(lambda: paged_decode_attention(*wide))
+    q, lens_t, tables = args[0], args[4], args[3]
+    bound = attn_bound_ms(q, lens_t, 2, 2) + tables.numel() * 4 / HBM_BPS * 1e3
     log("K3", f"serving call (B=8, 14/2/64 bf16, page 64, lengths "
               f"{min(lengths)}-{max(lengths)}, table {width} columns): "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms by events; "
-              f"kernel time {k_ms} ms (profiler); with a 256-column table "
-              f"spanning the pool: kernel {wide_ms:.4f} ms by events, "
-              f"{wide_k_ms} ms kernel time")
-    return max_abs, ms, plain_ms
+              f"kernel time {fmt_ms(k_ms)} (profiler); bound {bound * 1e3:.4f} us "
+              f"(bytes); with a 256-column table spanning the pool: kernel "
+              f"{wide_ms:.4f} ms by events, {fmt_ms(wide_k_ms)} kernel time")
+    return max_abs, dict(ms=ms, kernel_ms=k_ms, plain_ms=plain_ms, bound_ms=bound)
 
 
 class IdTokenizer:
@@ -589,7 +712,8 @@ def _step_profile(engine, rng):
                      if e.device_type == DeviceType.CUDA]
             steps = 2 * k  # the warm chunk and the one after it
             attn = sum(e.self_device_time_total for e in rows_
-                       if "split_kernel" in e.key or "merge_kernel" in e.key)
+                       if any(n in e.key for n in ("split_kernel", "merge_kernel",
+                                                   "decode_kernel")))
             prof_out[name] = {
                 "kernels": sum(e.count for e in rows_) / steps,
                 "device_ms": sum(e.self_device_time_total
@@ -825,9 +949,9 @@ def main() -> int:
     gen.manual_seed(0)
 
     phase_build()
-    k1_err, k1_ms, k1_plain = phase_k1(gen)
-    k2_err, k2_ms, k2_plain = phase_k2(gen)
-    k3_err, k3_ms, k3_plain = phase_k3(gen)
+    k1_err, k1 = phase_k1(gen)
+    k2_err, k2 = phase_k2(gen)
+    k3_err, k3 = phase_k3(gen)
     main_res = phase_main(card)
     serve_res = phase_serve(card, main_res.pop("engine"))
     phase_small()
@@ -837,19 +961,30 @@ def main() -> int:
          "source": "fastvlm_tpu_torch/csrc/ffn.cu",
          "replaces": "fastvlm_tpu/ops/pallas/ffn.py:76",
          "launches": main_res["k1_launches"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain,
-         "timed_as": "44 calls of one 1024 px image, bf16, ls folded"},
+         "ms": k1["ms"], "kernel_ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
+         "bound_ms": k1["bound_ms"], "bound_by": "operations",
+         "library_ms": None, "library_chain_ms": k1["chain_ms"],
+         "timed_as": "44 calls of one 1024 px image, bf16, ls folded; "
+                     "bound_by: the sum is set by the 40 calls of stages "
+                     "1-3; library_chain_ms: addmm-gelu-addmm-add in bf16 "
+                     "cuBLAS, context only"},
         {"name": "decode_attention", "route": "cuda",
          "source": "fastvlm_tpu_torch/csrc/decode_attention.cu",
          "replaces": "fastvlm_tpu/ops/pallas/decode_attention.py:167",
          "launches": main_res["k2_launches"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain,
-         "timed_as": "one call, B=1, 14/2/64 bf16, S_max 416, length 400"},
+         "ms": k2["ms"], "kernel_ms": k2["kernel_ms"], "plain_ms": k2["plain_ms"],
+         "bound_ms": k2["bound_ms"], "bound_by": "bytes",
+         "library_ms": k2["library_ms"],
+         "library_kernel_ms": k2["library_kernel_ms"], "host_us": k2["host_us"],
+         "timed_as": "one call, B=1, 14/2/64 bf16, S_max 416, length 400; "
+                     "ms by events per call; library: "
+                     "scaled_dot_product_attention with enable_gqa"},
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "fastvlm_tpu_torch/csrc/paged_decode_attention.cu",
          "replaces": "fastvlm_tpu/ops/pallas/decode_attention.py:215",
          "launches": serve_res["k3_launches"], "max_abs_err": k3_err,
-         "ms": k3_ms, "plain_ms": k3_plain,
+         "ms": k3["ms"], "kernel_ms": k3["kernel_ms"], "plain_ms": k3["plain_ms"],
+         "bound_ms": k3["bound_ms"], "bound_by": "bytes", "library_ms": None,
          "timed_as": "one call, B=8, 14/2/64 bf16, page 64, lengths "
                      "400-600, watermark table; launches from the serve "
                      "phase"},

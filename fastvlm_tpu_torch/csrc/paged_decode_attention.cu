@@ -32,11 +32,10 @@
 //  Pad and finished rows (table all -1, any length) read page 0 and give a
 //  finite output. Requires lengths[b] >= 1.
 //
-// This file includes K2's source whole for the shared device code, so the
-// library also exports K2's entry points; the wrapper
-// (ops/cuda/paged_decode_attention.py) binds only K3's.
+// The split body (split_pass) and the merge pass are in split_decode.cuh,
+// the device code K2 shared with this kernel before K2 became one launch.
 
-#include "decode_attention.cu"
+#include "split_decode.cuh"
 
 namespace {
 
@@ -117,6 +116,12 @@ cudaError_t paged_dispatch(int d, const void* q, const void* k_pages,
 }  // namespace
 
 extern "C" {
+
+const char* fvlm_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+int fvlm_decode_split(void) { return SPLIT; }
 
 // dtype: 0 float32, 1 bfloat16; head_dim d: 16, 64 or 128; page >= 1.
 // Launches both passes on `stream` and returns the CUDA error code of the

@@ -301,13 +301,19 @@ def tiny_config():
 
 
 def build_engine(model_path: Optional[str] = None, *, random_tiny: bool = False,
-                 device: str = "cpu", seed: int = 0, **engine_kw) -> Engine:
-    """Build an Engine. Only ``random_tiny=True`` (random weights from
-    ``seed``, byte tokenizer) is ported; checkpoint loading waits until
-    weights are in the repository (see ROADMAP.md)."""
+                 device: str = "cuda", seed: int = 0, **engine_kw) -> Engine:
+    """Build an Engine on ``device``: the CUDA card unless the caller asks
+    for "cpu" (the kernels' plain versions). Only ``random_tiny=True``
+    (random weights from ``seed``, byte tokenizer) is ported; checkpoint
+    loading waits until weights are in the repository (see ROADMAP.md)."""
     if not random_tiny:
         raise NotImplementedError(
             "checkpoint loading (--model-path) is not yet ported, see ROADMAP.md")
+    if device not in ("cuda", "cpu"):
+        raise ValueError(f"build_engine: device must be 'cuda' or 'cpu', got {device!r}")
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_engine: no CUDA device is available; pass "
+                           "device='cpu' to run on the CPU")
     from fastvlm_tpu_torch.data.preprocessing import ByteTokenizer
 
     cfg = tiny_config()

@@ -211,12 +211,13 @@ def _attend(q, k, v, mask, bias=None):
 
 def _layer(x, lp, cfg: Qwen2Config, cos, sin, cache_k, cache_v, mask,
            lengths, prefill, bias=None, prefill_offset=0, block_tables=None,
-           dest=None):
+           dest=None, kv_lens=None):
     """One decoder layer. cache_k/v: (B, S_max, Hkv, D) views of the dense
     cache, (P + 1, page, Hkv, D) pool slices when ``block_tables`` is given
     (the paged serving layout; ``dest`` holds the flat pool rows of this
     forward's writes), both written in place; or None (no cache: plain
-    causal attention)."""
+    causal attention). kv_lens: lengths + 1, the valid keys of a decode
+    step once its token is written (computed once per forward)."""
     b, t, d = x.shape
     h = _norm(x, lp["ln1"], cfg)
     if "qkv" in lp:
@@ -254,14 +255,14 @@ def _layer(x, lp, cfg: Qwen2Config, cos, sin, cache_k, cache_v, mask,
         keys, values = cache_k, cache_v
         if use_kernel:
             out = decode_attention(q[:, 0].contiguous(), cache_k.to(q.dtype),
-                                   cache_v.to(q.dtype), lengths + 1)
+                                   cache_v.to(q.dtype), kv_lens)
             attn = out.reshape(b, 1, -1)
     else:  # paged decode step
         write_paged(cache_k, cache_v, k, v, dest)
         if use_kernel:
             out = paged_decode_attention(
                 q[:, 0].contiguous(), cache_k.to(q.dtype), cache_v.to(q.dtype),
-                block_tables, lengths + 1)
+                block_tables, kv_lens)
             attn = out.reshape(b, 1, -1)
         else:
             keys = gather_pages(cache_k, block_tables)
@@ -317,6 +318,9 @@ def forward(
         mask = causal.expand(b, t, t)
     cos, sin, bias, mask = pos_terms(cfg, positions, mask)
     lengths = None if cache is None else cache.lengths
+    # the lengths after this forward's writes: a decode step's attention
+    # counts its own token, and the returned cache carries them
+    new_lengths = None if cache is None else lengths + (t if prefill else 1)
     paged = isinstance(cache, PagedKVCache)
     tables = dest = None
     if paged:
@@ -332,11 +336,10 @@ def forward(
         elif cache is not None:
             ck, cv = cache.k[i], cache.v[i]
         x = _layer(x, lp, cfg, cos, sin, ck, cv, mask, lengths, prefill, bias,
-                   prefill_offset, tables, dest)
+                   prefill_offset, tables, dest, new_lengths)
     new_cache = None
     if cache is not None:
-        new_cache = dataclasses.replace(
-            cache, lengths=lengths + (t if prefill else 1))
+        new_cache = dataclasses.replace(cache, lengths=new_lengths)
     return _norm(x, params["final_norm"], cfg), new_cache
 
 

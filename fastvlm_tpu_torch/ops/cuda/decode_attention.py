@@ -2,14 +2,17 @@
 
 The port of ``fastvlm_tpu/ops/pallas/decode_attention.py::decode_attention``.
 The kernel is hand-written CUDA C++ for sm_90a
-(``csrc/decode_attention.cu``: split-sequence flash decoding plus a merge
-pass), built at first use by ``_build.py`` and called through ctypes.
+(``csrc/decode_attention.cu``: split-sequence flash decoding on mma.sync in
+one launch; a split is a cluster of 8 blocks merged through distributed
+shared memory, and where a row has several splits the last block to finish
+merges them), built at first use by ``_build.py`` and called through
+ctypes.
 ``decode_attention_reference`` is the same formula in plain PyTorch: the CPU
 path and the oracle the kernel is held against on the card.
 
 Routing is by device only: a CPU tensor takes the reference; a CUDA tensor
 launches the kernel or raises. ``decode_attention.launches`` counts kernel
-launches (one per call: the split pass and its merge).
+launches (one per call).
 """
 
 from __future__ import annotations
@@ -81,7 +84,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, Hq, D) single-step queries; k/v: (B, S_max, Hkv, D) cache;
     lengths: (B,) int32 valid key counts, each >= 1 (they include the token
     just written). Returns (B, Hq, D) in q's dtype. On a CUDA device the
-    kernel runs on the current stream, unsynchronised."""
+    kernel runs on the current stream, unsynchronised. Its workspace and
+    arrival counters are kept per (device, stream): calls on one stream run
+    in order and share them, calls on two streams never do."""
     if q.device.type == "cpu":
         return decode_attention_reference(q, k, v, lengths)
     if q.device.type != "cuda":
@@ -89,19 +94,15 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_cuda_args(q, k, v, lengths)
     b, hq, d = q.shape
     s_max, hkv = k.shape[1], k.shape[2]
-    lib, split = _load()
-    n_split = -(-s_max // split)
-    # one f32 workspace: the splits' partial P.V (B, Hq, n_split, D), then
-    # their (max, sum) pairs (B, Hq, n_split, 2)
-    n_acc = b * hq * n_split * d
-    ws = torch.empty(n_acc + b * hq * n_split * 2, dtype=torch.float32,
-                     device=q.device)
+    lib = _load()
+    dtype = _DTYPE_CODES[q.dtype]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ws, counters = _workspace(lib, q.device, stream, b, hq, hkv, d, s_max,
+                              dtype)
     out = torch.empty_like(q)
     err = lib.fvlm_decode_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        ws.data_ptr(), ws.data_ptr() + 4 * n_acc, out.data_ptr(),
-        b, hq, hkv, d, s_max, n_split, _DTYPE_CODES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), ws,
+        counters, out.data_ptr(), b, hq, hkv, d, s_max, dtype, stream)
     _build.check(lib, err, "decode_attention")
     decode_attention.launches += 1
     return out
@@ -109,14 +110,44 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 decode_attention.launches = 0
 
+# (device, stream) -> [f32 workspace, int32 arrival counters], grown on
+# demand and reused by every call on that stream, which runs them in order.
+# The counters are zeroed when made and each call leaves them at zero.
+_BUFFERS: dict = {}
+_WS_ELEMS: dict = {}
+
+
+def _workspace(lib, device, stream, b, hq, hkv, d, s_max, dtype):
+    """(workspace address, counters address) for a call of this shape on
+    this stream."""
+    key = (b, hq, hkv, d, s_max, dtype)
+    elems = _WS_ELEMS.get(key)
+    if elems is None:
+        elems = _WS_ELEMS[key] = lib.fvlm_decode_workspace(b, hq, hkv, d, s_max,
+                                                           dtype)
+    bufs = _BUFFERS.get((device, stream))
+    if bufs is None:
+        bufs = _BUFFERS[(device, stream)] = [None, None]
+    if bufs[0] is None or bufs[0].numel() < elems:
+        bufs[0] = torch.empty(elems, dtype=torch.float32, device=device)
+    if bufs[1] is None or bufs[1].numel() < b * hkv:
+        bufs[1] = torch.zeros(b * hkv, dtype=torch.int32, device=device)
+    return bufs[0].data_ptr(), bufs[1].data_ptr()
+
 
 @functools.cache
 def _load():
-    """(library, keys per split block)."""
     lib = _build.load("decode_attention")
     lib.fvlm_decode_attention.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.fvlm_decode_attention.restype = ctypes.c_int
-    lib.fvlm_decode_split.argtypes = []
+    lib.fvlm_decode_workspace.argtypes = [ctypes.c_int] * 6
+    lib.fvlm_decode_workspace.restype = ctypes.c_longlong
+    lib.fvlm_decode_split.argtypes = [ctypes.c_int] * 5
     lib.fvlm_decode_split.restype = ctypes.c_int
-    return lib, lib.fvlm_decode_split()
+    return lib
+
+
+def split_size(b: int, hkv: int, d: int, s_max: int, dtype: torch.dtype) -> int:
+    """Keys per split block the kernel uses for this shape (card only)."""
+    return _load().fvlm_decode_split(b, hkv, d, s_max, _DTYPE_CODES[dtype])

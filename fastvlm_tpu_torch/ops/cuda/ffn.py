@@ -1,10 +1,12 @@
 """Kernel K1: fused ConvFFN pointwise half, out = residual + ls * (gelu(t@W1+b1)@W2+b2).
 
 The port of ``fastvlm_tpu/ops/pallas/ffn.py``. The kernel is hand-written
-CUDA C++ for sm_90a (``csrc/ffn.cu``: WMMA tensor cores for bf16, plain f32
-FMA tiles for f32), built at first use by ``_build.py`` and called
-through ctypes. ``ffn_reference`` is the same formula in plain PyTorch: the
-CPU path and the oracle the kernel is held against on the card.
+CUDA C++ for sm_90a (``csrc/ffn.cu``: wgmma for bf16, fc1 -> GELU -> fc2 in
+registers up to C = 192 and two passes through an L2-resident bf16 hidden
+above; plain f32 FMA tiles for f32), built at first use by ``_build.py`` and
+called through ctypes. ``ffn_reference`` is the same formula in plain
+PyTorch: the CPU path and the oracle the kernel is held against on the
+card.
 
 Routing is by device only: a CPU tensor takes ``ffn_reference``; a CUDA
 tensor launches the kernel or raises. ``fused_ffn.launches`` counts kernel
@@ -22,6 +24,7 @@ import torch
 from fastvlm_tpu_torch.ops.cuda import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+BF16_WIDTHS = (96, 192, 384, 768, 1536)  # FastViTHD's stage widths
 
 
 def _gelu_erf(x: torch.Tensor) -> torch.Tensor:
@@ -49,9 +52,9 @@ def _check_cuda_args(t, residual, w1, b1, w2, b2, ls):
         expect["ls"] = (ls, (c,))
     if t.dtype not in _DTYPE_CODES:
         raise TypeError(f"fused_ffn: unsupported dtype {t.dtype}")
-    if t.dtype == torch.bfloat16 and (c % 96 or ch % 64):
-        raise ValueError(f"fused_ffn: the bf16 kernel needs C % 96 == 0 and "
-                         f"Ch % 64 == 0, got C={c}, Ch={ch}")
+    if t.dtype == torch.bfloat16 and (c not in BF16_WIDTHS or ch != 4 * c):
+        raise ValueError(f"fused_ffn: the bf16 kernel needs C % 96 == 0, C in "
+                         f"{BF16_WIDTHS} and Ch == 4C, got C={c}, Ch={ch}")
     for name, (x, shape) in {"t": (t, (n, c)), **expect}.items():
         if tuple(x.shape) != shape:
             raise ValueError(f"fused_ffn: {name} has shape {tuple(x.shape)}, "
@@ -70,7 +73,9 @@ def fused_ffn(t: torch.Tensor, residual: torch.Tensor, w1: torch.Tensor,
     """t, residual: (N, C); w1: (C, Ch); w2: (Ch, C); b1: (Ch,); b2, ls: (C,).
 
     Returns residual + ls * fc2(gelu(fc1(t))) as (N, C) in t's dtype; any N.
-    On a CUDA device the kernel runs on the current stream, unsynchronised."""
+    On a CUDA device the kernel runs on the current stream, unsynchronised.
+    The two-pass route's workspace is kept per (device, stream): calls on
+    one stream run in order and share it, calls on two streams never do."""
     if t.device.type == "cpu":
         return ffn_reference(t, residual, w1, b1, w2, b2, ls)
     if t.device.type != "cuda":
@@ -82,22 +87,37 @@ def fused_ffn(t: torch.Tensor, residual: torch.Tensor, w1: torch.Tensor,
         return out
     lib = _load()
     ch, dtype = w1.shape[1], _DTYPE_CODES[t.dtype]
-    # the late stages split the hidden width over the grid and need an f32
-    # workspace for the partial sums (see csrc/ffn.cu)
-    ws_elems = lib.fvlm_ffn_workspace(n, c, ch, dtype)
-    ws = torch.empty(ws_elems, dtype=torch.float32, device=t.device) \
-        if ws_elems else None
+    key = (n, c, ch, dtype)
+    ws_bytes = _WS_BYTES.get(key)
+    if ws_bytes is None:
+        ws_bytes = _WS_BYTES[key] = lib.fvlm_ffn_workspace(*key)
+    if ws_bytes < 0:
+        raise ValueError(f"fused_ffn: no bf16 kernel for C={c}, Ch={ch}")
+    stream = torch.cuda.current_stream(t.device).cuda_stream
+    ws = _workspace(t.device, stream, ws_bytes) if ws_bytes else None
     err = lib.fvlm_fused_ffn(
         t.data_ptr(), residual.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), None if ls is None else ls.data_ptr(),
-        out.data_ptr(), None if ws is None else ws.data_ptr(), n, c, ch, dtype,
-        torch.cuda.current_stream(t.device).cuda_stream)
+        out.data_ptr(), ws, n, c, ch, dtype, stream)
     _build.check(lib, err, "fused_ffn")
     fused_ffn.launches += 1
     return out
 
 
 fused_ffn.launches = 0
+
+_WORKSPACES: dict = {}  # (device, stream) -> uint8 buffer
+_WS_BYTES: dict = {}  # (n, c, ch, dtype) -> the library's answer
+
+
+def _workspace(device: torch.device, stream: int, nbytes: int) -> int:
+    """Address of a device buffer of at least ``nbytes`` for calls on this
+    stream, grown on demand: the two-pass route's hidden and partial sums."""
+    buf = _WORKSPACES.get((device, stream))
+    if buf is None or buf.numel() < nbytes:
+        buf = torch.empty(nbytes, dtype=torch.uint8, device=device)
+        _WORKSPACES[(device, stream)] = buf
+    return buf.data_ptr()
 
 
 @functools.cache

@@ -2,8 +2,9 @@
 
 The port of ``fastvlm_tpu/ops/pallas/decode_attention.py::
 paged_decode_attention``. The kernel is hand-written CUDA C++ for sm_90a
-(``csrc/paged_decode_attention.cu``: K2's split-sequence flash decoding with
-each key row looked up through the block table, plus K2's merge pass), built
+(``csrc/paged_decode_attention.cu``: split-sequence flash decoding with
+each key row looked up through the block table, plus a merge pass; the two
+passes are in ``csrc/split_decode.cuh``), built
 at first use by ``_build.py`` and called through ctypes.
 ``paged_decode_attention_reference`` is the same function in plain PyTorch:
 ``gather_pages`` (-1 clamped to page 0) followed by K2's formula. It is the

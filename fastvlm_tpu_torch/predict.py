@@ -4,8 +4,9 @@ Same flags as ``fastvlm_tpu/predict.py``. What runs today is the smoke mode:
 
   python -m fastvlm_tpu_torch.predict --random-weights --timing
 
-(a tiny random model with the byte tokenizer, on CUDA when a card is
-present). ``--model-path``, ``--num_beams > 1``, ``--spec-decode``,
+(a tiny random model with the byte tokenizer) on the CUDA card, or with
+``--device cpu`` on the CPU; without a card the default exits with an
+error. ``--model-path``, ``--num_beams > 1``, ``--spec-decode``,
 ``--tp > 1`` and ``--verify-checkpoint`` exit with an error: they are not
 yet ported (see ROADMAP.md).
 """
@@ -52,6 +53,8 @@ def main(argv=None) -> int:
     parser.add_argument("--draft-k", type=int, default=8)
     parser.add_argument("--max-new-tokens", type=int, default=256)
     parser.add_argument("--dtype", type=str, default="bfloat16")
+    parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                        help="where the model runs (the JAX engine's platform=)")
     parser.add_argument("--random-weights", action="store_true",
                         help="smoke mode: tiny random model, byte tokenizer")
     parser.add_argument("--timing", action="store_true")
@@ -78,7 +81,11 @@ def main(argv=None) -> int:
     from fastvlm_tpu_torch.engine import build_engine
     from fastvlm_tpu_torch.ops.sampling import SamplingParams
 
-    device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = args.device
+    if device == "cuda" and not torch.cuda.is_available():
+        print("no CUDA device is available; pass --device cpu to run on the "
+              "CPU", file=sys.stderr)
+        return 1
     engine = build_engine(random_tiny=True, device=device,
                           conv_mode=args.conv_mode)
     cfg = engine.cfg

@@ -121,3 +121,29 @@ def test_kernel_argument_checks_raise(case):
     bad = edit(good)
     with pytest.raises((ValueError, TypeError), match=match):
         k2._check_cuda_args(bad["q"], bad["k"], bad["v"], bad["lengths"])
+
+
+class _FakeLib:
+    """Stands in for the built library's workspace query."""
+
+    @staticmethod
+    def fvlm_decode_workspace(*shape):
+        return 64
+
+
+def test_buffers_are_kept_per_stream():
+    """Two streams never share K2's workspace or arrival counters; calls on
+    one stream reuse theirs (the wrapper's bookkeeping, device-independent,
+    so it runs here with CPU buffers)."""
+    dev = torch.device("cpu")
+    shape = (3, 6, 3, 16, 5, 0)  # a key no real call uses
+    try:
+        a = k2._workspace(_FakeLib, dev, 101, *shape)
+        b = k2._workspace(_FakeLib, dev, 102, *shape)
+        assert a == k2._workspace(_FakeLib, dev, 101, *shape)
+        assert a[0] != b[0] and a[1] != b[1]
+        assert int(k2._BUFFERS[(dev, 101)][1].abs().sum()) == 0
+    finally:
+        k2._BUFFERS.pop((dev, 101), None)
+        k2._BUFFERS.pop((dev, 102), None)
+        k2._WS_ELEMS.pop(shape, None)

@@ -267,6 +267,22 @@ def test_predict_refuses_unported_flags(flags, capsys):
 
 
 def test_predict_random_weights_runs(capsys):
-    assert predict.main(["--random-weights", "--max-new-tokens", "3",
-                         "--temperature", "0", "--timing"]) == 0
+    assert predict.main(["--random-weights", "--device", "cpu",
+                         "--max-new-tokens", "3", "--temperature", "0",
+                         "--timing"]) == 0
     assert '"ttft_ms"' in capsys.readouterr().err
+
+
+def test_build_engine_refuses_without_a_card(monkeypatch):
+    """The entry points run on the card unless the caller asks for the CPU:
+    without a card the default raises instead of falling back."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        engine.build_engine(random_tiny=True)
+    assert engine.build_engine(random_tiny=True, device="cpu").device.type == "cpu"
+
+
+def test_predict_refuses_without_a_card(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert predict.main(["--random-weights", "--max-new-tokens", "1"]) != 0
+    assert "no CUDA device" in capsys.readouterr().err

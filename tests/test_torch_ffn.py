@@ -149,3 +149,28 @@ def test_bf16_kernel_refuses_unsupported_widths():
         ffn._check_cuda_args(*(a[k] for k in order))
     a = _good_args(torch.float32, c=32)  # the f32 kernel takes any C
     ffn._check_cuda_args(*(a[k] for k in order))
+
+
+def test_bf16_kernel_refuses_a_hidden_width_other_than_4c():
+    order = ("t", "residual", "w1", "b1", "w2", "b2", "ls")
+    a = _good_args()
+    a["w1"], a["b1"], a["w2"] = a["w1"][:, :192], a["b1"][:192], a["w2"][:192]
+    with pytest.raises(ValueError, match="Ch == 4C"):
+        ffn._check_cuda_args(*(a[k] for k in order))
+
+
+
+def test_workspace_is_kept_per_stream():
+    """Two streams never share the two-pass route's workspace; calls on one
+    stream reuse it, grown on demand (device-independent bookkeeping, run
+    here with CPU buffers)."""
+    dev = torch.device("cpu")
+    try:
+        a = ffn._workspace(dev, 101, 256)
+        assert ffn._workspace(dev, 101, 128) == a
+        assert ffn._workspace(dev, 102, 256) != a
+        ffn._workspace(dev, 101, 4096)
+        assert ffn._WORKSPACES[(dev, 101)].numel() == 4096
+    finally:
+        ffn._WORKSPACES.pop((dev, 101), None)
+        ffn._WORKSPACES.pop((dev, 102), None)
