@@ -23,11 +23,19 @@ non-zero):
               kernel (profiler), per call by events, the wrapper's host us,
               against scaled_dot_product_attention (library_ms)
   5. K3       paged_decode_attention vs paged_decode_attention_reference at
-              the 0.5B and 1.5B head geometries, bf16 and f32, pages of 64
-              and 16, B = 8: shuffled pool pages, decoy pages, -1 tails, a
-              pad row, lengths {1, page-1, page, page+1, 77, 1000}, tables
-              as wide as the pool; then the serving call (B = 8, 0.5B
-              heads, bf16, lengths 400-600, page 64) timed kernel vs plain
+              the 0.5B, 1.5B and 7B head geometries, bf16 and f32, pages of
+              8, 64 and 128: at a 4096-position table, lengths at the split
+              size's edges (1, split-1, split, split+1, 2 split+7, 4096) and
+              a pad row, one row a call (several splits, the counter merge)
+              with each call made twice (the counters reset: bitwise equal)
+              and batched; and B = 8 with shuffled pool pages, decoy pages,
+              -1 tails, a pad row, lengths {1, page-1, page, page+1, 77,
+              1000, 5, 400}, a table as wide as the pool. Then the serving
+              call (B = 8, 0.5B heads, bf16, lengths 400-600, page 64):
+              kernel (profiler, which must show one kernel a call), per
+              call by events, the wrapper's host us, bound and share,
+              plain; K2 on a dense cache of the same rows as context;
+              both at one and at two 64-key tiles a block (equal bytes)
   6. main     an Engine at full width (FastViTHD @1024, mlp2x_gelu
               3072->896, Qwen2-0.5B, bf16, random weights from a seed, byte
               tokenizer) answers 3 greedy requests of 32 new tokens; checks
@@ -56,7 +64,7 @@ non-zero):
               chunks with 8 live rows, and peak memory. Then a steady-state
               decode profile at the same batch and lengths: step ms on the
               paged pool and on a dense cache of the same rows, device ops,
-              device ms and K3 (or K2) ms a step
+              device ms and K3 (or K2) ms and launches a step
   8. small    a small f32 model on the card (kernels) agrees with the same
               model on the CPU (plain versions), logits and greedy ids; the
               same model through a BatchScheduler on the card and on the CPU
@@ -165,6 +173,11 @@ def host_us(fn, reps: int = 2000) -> float:
 def fmt_ms(x) -> str:
     """A time in ms, or "not measured" where the profiler saw none."""
     return "not measured" if x is None else f"{x:.4f} ms"
+
+
+def fmt_us(x) -> str:
+    """A time given in ms, written in us, or "not measured"."""
+    return "not measured" if x is None else f"{x * 1e3:.3f} us"
 
 
 def ffn_bound_ms(n, c):
@@ -365,9 +378,10 @@ def phase_k2(gen):
                          bound_ms=bound, host_us=h_us)
 
 
-def kernel_time_ms(fn, reps: int = 20):
-    """Device time of one call's kernels by torch.profiler (no host time),
-    or None where no session shows device time."""
+def kernel_profile(fn, reps: int = 20):
+    """(device time of one call's kernels, {kernel: launches a call}) by
+    torch.profiler (no host time), or (None, {}) where no session shows
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -378,14 +392,20 @@ def kernel_time_ms(fn, reps: int = 20):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.count > 0]
         # each kernel's mean time, times its launches a call: a session
         # that drops some records still reads one call's kernel time
         us = sum(e.self_device_time_total / e.count * max(1, round(e.count / reps))
-                 for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA and e.count > 0)
+                 for e in rows)
         if us > 0:
-            return us / 1000
-    return None
+            return us / 1000, {e.key: e.count / reps for e in rows}
+    return None, {}
+
+
+def kernel_time_ms(fn, reps: int = 20):
+    """Device time of one call's kernels by torch.profiler, or None."""
+    return kernel_profile(fn, reps)[0]
 
 
 def _k3_case(gen, rng, hq, hkv, d, page, lengths, dtype, pool_pages=None,
@@ -414,52 +434,122 @@ def _k3_case(gen, rng, hq, hkv, d, page, lengths, dtype, pool_pages=None,
 
 
 def phase_k3(gen):
+    from fastvlm_tpu_torch.ops.cuda.decode_attention import decode_attention
     from fastvlm_tpu_torch.ops.cuda.paged_decode_attention import (
-        paged_decode_attention, paged_decode_attention_reference)
+        paged_decode_attention, paged_decode_attention_reference, split_size)
+    from fastvlm_tpu_torch.ops.kv_cache import gather_pages
 
     rng = np.random.RandomState(3)
     max_abs = 0.0
-    for hq, hkv, d in ((14, 2, 64), (12, 2, 128)):
+
+    def check(got, want, dtype, what):
+        nonlocal max_abs
+        err, ratio = compare(got, want, K3_TOL[dtype], f"K3 {what}")
+        max_abs = max(max_abs, err)
+        return f"{err:.3e} (ratio {ratio:.3f})"
+
+    s_cap = 4096
+    for hq, hkv, d in ((14, 2, 64), (12, 2, 128), (28, 4, 128)):
         for dtype in (torch.bfloat16, torch.float32):
-            for page in (64, 16):
-                # row 6 is a pad row: table all -1, reads page 0
-                lengths = [1, page - 1, page, page + 1, 77, 1000, 5, 400]
-                args = _k3_case(gen, rng, hq, hkv, d, page, lengths, dtype,
-                                pad_rows=(6,))
-                got = paged_decode_attention(*args)
+            for page in (8, 64, 128):
+                geo = f"{hq}/{hkv}/{d} {str(dtype)[6:]} page {page}"
+                # the split's edges at a capacity where a row alone takes
+                # several splits (one cluster each); lengths 1 .. 2 split + 7
+                # leave whole splits empty; row 6 is a pad row (table all
+                # -1, reads page 0)
+                split = split_size(1, hkv, d, s_cap, dtype)
+                lens = [1, split - 1, split, split + 1, 2 * split + 7, s_cap, 5]
+                args = _k3_case(gen, rng, hq, hkv, d, page, lens, dtype,
+                                width=s_cap // page, pad_rows=(6,))
+                q, kp, vp, tables, lengths = args
                 want = paged_decode_attention_reference(*args)
+                # one row a call (several splits, the counter merge), each
+                # call made twice in a row on the stream: the second finds
+                # the counters the first left at zero
+                first, again = [], []
+                for i in range(len(lens)):
+                    row = (q[i:i + 1], kp, vp, tables[i:i + 1], lengths[i:i + 1])
+                    first.append(paged_decode_attention(*row))
+                    again.append(paged_decode_attention(*row))
+                batched = paged_decode_attention(*args)
                 torch.cuda.synchronize()
-                err, ratio = compare(got, want, K3_TOL[dtype],
-                                     f"K3 {hq}/{hkv}/{d} {dtype} page {page}")
-                max_abs = max(max_abs, err)
-                log("K3", f"Hq/Hkv/D={hq}/{hkv}/{d} {str(dtype)[6:]} page "
-                          f"{page} B=8 lengths={lengths} (row 6 unmapped), "
-                          f"table {tuple(args[3].shape)} spanning the pool: "
-                          f"max_abs_err {err:.3e} (tol ratio {ratio:.3f} "
-                          f"<= 1)")
+                first, again = torch.cat(first), torch.cat(again)
+                errs = [check(out, want, dtype, f"{geo} {name}") for name, out in
+                        (("one row a call", first), ("second call", again),
+                         ("batched", batched))]
+                if not torch.equal(first, again):
+                    raise AssertionError(f"K3 {geo}: a second call on the "
+                                         f"stream gave another result")
+                # the batch at the page's edges, a table as wide as the pool
+                plens = [1, page - 1, page, page + 1, 77, 1000, 5, 400]
+                pargs = _k3_case(gen, rng, hq, hkv, d, page, plens, dtype,
+                                 pad_rows=(6,))
+                pool_err = check(paged_decode_attention(*pargs),
+                                 paged_decode_attention_reference(*pargs),
+                                 dtype, f"{geo} pool-wide table")
+                log("K3", f"Hq/Hkv/D={geo}: capacity {s_cap} ({-(-s_cap // split)} "
+                          f"splits of {split} for a row alone), lengths {lens} "
+                          f"(row 6 unmapped): max_abs_err one row a call "
+                          f"{errs[0]}, the same again {errs[1]} (bitwise equal), "
+                          f"B=7 {errs[2]}; B=8 lengths {plens} (row 6 "
+                          f"unmapped), table {tuple(pargs[3].shape)} spanning "
+                          f"the pool: {pool_err}; tol ratios <= 1")
     # the serving call: B=8, 0.5B heads, bf16, lengths 400-600, page 64,
     # the scheduler's pool (256 pages + the sink) and its watermark table
     lengths = [int(n) for n in rng.randint(400, 601, size=8)]
     width = -(-max(lengths) // 64)
     args = _k3_case(gen, rng, 14, 2, 64, 64, lengths, torch.bfloat16,
                     pool_pages=257, width=width)
-    ms = time_ms(lambda: paged_decode_attention(*args), reps=50)
-    plain_ms = time_ms(lambda: paged_decode_attention_reference(*args),
-                       reps=50)
-    k_ms = kernel_time_ms(lambda: paged_decode_attention(*args))
+    call_err = check(paged_decode_attention(*args),
+                     paged_decode_attention_reference(*args), torch.bfloat16,
+                     "serving call")
+    call = lambda: paged_decode_attention(*args)
+    ms = time_ms(call, reps=50)
+    k_ms, names = kernel_profile(call, reps=50)
+    launches = sum(round(n) for n in names.values())
+    if launches != 1 or any("merge_kernel" in k for k in names):
+        raise AssertionError(f"K3 serving call: the profiler shows {names} "
+                             f"a call, expected one kernel")
+    h_us = host_us(call)
+    plain_ms = time_ms(lambda: paged_decode_attention_reference(*args), reps=50)
+    q, kp, vp, tables, lens_t = args
+    # context: K2 on a dense cache of the same rows
+    kd, vd = gather_pages(kp, tables), gather_pages(vp, tables)
+    dense_k_ms = kernel_time_ms(lambda: decode_attention(q, kd, vd, lens_t), reps=50)
     wide = _k3_case(gen, rng, 14, 2, 64, 64, lengths, torch.bfloat16,
                     pool_pages=257, width=256)
-    wide_ms = time_ms(lambda: paged_decode_attention(*wide), reps=50)
     wide_k_ms = kernel_time_ms(lambda: paged_decode_attention(*wide))
-    q, lens_t, tables = args[0], args[4], args[3]
+    # where the body's time goes at this batch: the same bytes (lengths
+    # 400-512) with one 64-key tile a block (a 512-position table) and with
+    # two (640 positions), K3 and K2 on a dense cache of the same rows
+    tiles = {}
+    short = [int(n) for n in rng.randint(400, 513, size=8)]
+    for n_tiles, cols in ((1, 8), (2, 10)):
+        a = _k3_case(gen, rng, 14, 2, 64, 64, short, torch.bfloat16,
+                     pool_pages=257, width=cols)
+        kd2, vd2 = gather_pages(a[1], a[3]), gather_pages(a[2], a[3])
+        tiles[n_tiles] = (kernel_time_ms(lambda: paged_decode_attention(*a), reps=50),
+                          kernel_time_ms(lambda: decode_attention(a[0], kd2, vd2, a[4]),
+                                         reps=50))
+    log("K3", f"lengths {min(short)}-{max(short)}, B=8, 14/2/64 bf16: one tile a "
+              f"block K3 {fmt_us(tiles[1][0])}, K2 dense {fmt_us(tiles[1][1])}; two "
+              f"tiles a block K3 {fmt_us(tiles[2][0])}, K2 dense "
+              f"{fmt_us(tiles[2][1])} (kernel time, profiler)")
     bound = attn_bound_ms(q, lens_t, 2, 2) + tables.numel() * 4 / HBM_BPS * 1e3
+    share = "not measured" if k_ms is None else f"{bound / k_ms:.4f}"
     log("K3", f"serving call (B=8, 14/2/64 bf16, page 64, lengths "
-              f"{min(lengths)}-{max(lengths)}, table {width} columns): "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms by events; "
-              f"kernel time {fmt_ms(k_ms)} (profiler); bound {bound * 1e3:.4f} us "
-              f"(bytes); with a 256-column table spanning the pool: kernel "
-              f"{wide_ms:.4f} ms by events, {fmt_ms(wide_k_ms)} kernel time")
-    return max_abs, dict(ms=ms, kernel_ms=k_ms, plain_ms=plain_ms, bound_ms=bound)
+              f"{min(lengths)}-{max(lengths)}, table {width} columns, split "
+              f"{split_size(8, 2, 64, width * 64, torch.bfloat16)}): max_abs_err "
+              f"{call_err}; kernel time {fmt_us(k_ms)} (profiler: "
+              f"{'; '.join(f'{k[:60]} x{n:g}' for k, n in names.items())} a "
+              f"call), {ms:.4f} ms a call by events, wrapper host {h_us:.2f} "
+              f"us a call; bound {bound * 1e3:.4f} us (bytes), share of the "
+              f"bound {share}; plain {plain_ms:.4f} ms; context: K2 on a dense "
+              f"cache of the same rows {fmt_us(dense_k_ms)} kernel time; with "
+              f"a 256-column table spanning the pool {fmt_us(wide_k_ms)} "
+              f"kernel time")
+    return max_abs, dict(ms=ms, kernel_ms=k_ms, plain_ms=plain_ms, bound_ms=bound,
+                         host_us=h_us, dense_k2_kernel_ms=dense_k_ms)
 
 
 class IdTokenizer:
@@ -711,11 +801,12 @@ def _step_profile(engine, rng):
             rows_ = [e for e in prof.key_averages()
                      if e.device_type == DeviceType.CUDA]
             steps = 2 * k  # the warm chunk and the one after it
-            attn = sum(e.self_device_time_total for e in rows_
-                       if any(n in e.key for n in ("split_kernel", "merge_kernel",
-                                                   "decode_kernel")))
+            # K3's paged_decode_kernel, K2's decode_kernel
+            attn_rows = [e for e in rows_ if "decode_kernel" in e.key]
+            attn = sum(e.self_device_time_total for e in attn_rows)
             prof_out[name] = {
                 "kernels": sum(e.count for e in rows_) / steps,
+                "attn_ops": sum(e.count for e in attn_rows) / steps,
                 "device_ms": sum(e.self_device_time_total
                                  for e in rows_) / steps / 1000,
                 "attn_ms": attn / steps / 1000}
@@ -856,12 +947,15 @@ def phase_serve(card, main_engine):
                      f"{p['kernels']:.1f} device ops, {p['device_ms']:.4f} "
                      f"ms of device time, attention kernels "
                      f"({'K3' if name == 'paged' else 'K2'}) "
-                     f"{p['attn_ms']:.4f} ms a step (profiler)")
-    p = prof["profile"]["paged"]
+                     f"{p['attn_ms']:.4f} ms in {p['attn_ops']:.1f} launches a "
+                     f"step (profiler)")
+    p, dn = prof["profile"]["paged"], prof["profile"]["dense"]
     share = p["attn_ms"] / statistics.mean(prof["step_ms"]["paged"])
+    ratio = p["attn_ms"] / dn["attn_ms"] if dn["attn_ms"] else float("nan")
     log("serve", f"K3's share of a steady-state paged step: {share:.4f} of "
                  f"the wall time, {p['attn_ms'] / p['device_ms']:.4f} of the "
-                 f"device time")
+                 f"device time; K3 over K2 a step (paged / dense attention "
+                 f"ms): {ratio:.4f}")
     return {"k3_launches": k3, "tok_s": served / wall_s, "peak_gib": peak_gb}
 
 
@@ -985,9 +1079,11 @@ def main() -> int:
          "launches": serve_res["k3_launches"], "max_abs_err": k3_err,
          "ms": k3["ms"], "kernel_ms": k3["kernel_ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": "bytes", "library_ms": None,
+         "host_us": k3["host_us"], "dense_k2_kernel_ms": k3["dense_k2_kernel_ms"],
          "timed_as": "one call, B=8, 14/2/64 bf16, page 64, lengths "
-                     "400-600, watermark table; launches from the serve "
-                     "phase"},
+                     "400-600, watermark table; ms by events per call; "
+                     "launches from the serve phase; dense_k2_kernel_ms: K2 "
+                     "on a dense cache of the same rows, context only"},
     ]}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

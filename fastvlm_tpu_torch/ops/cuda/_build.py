@@ -46,7 +46,7 @@ def _nvcc() -> str:
 def library_path(name: str) -> str:
     """Path of the built library for csrc/<name>.cu at its current hash.
     The hash covers every source under csrc/, since one may include another
-    (K3's source includes csrc/split_decode.cuh)."""
+    (K2's and K3's sources include csrc/decode_body.cuh)."""
     h = hashlib.sha256(name.encode())
     for fn in sorted(os.listdir(CSRC)):
         with open(os.path.join(CSRC, fn), "rb") as f:

@@ -123,15 +123,21 @@ def _workspace(lib, device, stream, b, hq, hkv, d, s_max, dtype):
     key = (b, hq, hkv, d, s_max, dtype)
     elems = _WS_ELEMS.get(key)
     if elems is None:
-        elems = _WS_ELEMS[key] = lib.fvlm_decode_workspace(b, hq, hkv, d, s_max,
-                                                           dtype)
-    bufs = _BUFFERS.get((device, stream))
+        elems = _WS_ELEMS[key] = lib.fvlm_decode_workspace(*key)
+    return stream_buffers(_BUFFERS, device, stream, elems, b * hkv)
+
+
+def stream_buffers(buffers: dict, device, stream, elems: int, groups: int):
+    """(workspace address, counters address) from ``buffers``, a map of
+    (device, stream) -> [f32 workspace, int32 arrival counters], each grown
+    to at least ``elems`` and ``groups`` elements (K2's and K3's layout)."""
+    bufs = buffers.get((device, stream))
     if bufs is None:
-        bufs = _BUFFERS[(device, stream)] = [None, None]
+        bufs = buffers[(device, stream)] = [None, None]
     if bufs[0] is None or bufs[0].numel() < elems:
         bufs[0] = torch.empty(elems, dtype=torch.float32, device=device)
-    if bufs[1] is None or bufs[1].numel() < b * hkv:
-        bufs[1] = torch.zeros(b * hkv, dtype=torch.int32, device=device)
+    if bufs[1] is None or bufs[1].numel() < groups:
+        bufs[1] = torch.zeros(groups, dtype=torch.int32, device=device)
     return bufs[0].data_ptr(), bufs[1].data_ptr()
 
 

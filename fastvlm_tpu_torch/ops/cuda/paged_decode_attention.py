@@ -2,17 +2,22 @@
 
 The port of ``fastvlm_tpu/ops/pallas/decode_attention.py::
 paged_decode_attention``. The kernel is hand-written CUDA C++ for sm_90a
-(``csrc/paged_decode_attention.cu``: split-sequence flash decoding with
-each key row looked up through the block table, plus a merge pass; the two
-passes are in ``csrc/split_decode.cuh``), built
-at first use by ``_build.py`` and called through ctypes.
+(``csrc/paged_decode_attention.cu``): K2's one-launch flash-decoding body
+(``csrc/decode_body.cuh``: a split is a cluster of 8 blocks merged through
+distributed shared memory, and where a row has several splits the last
+block to finish merges them) with each warp's keys located through the
+block table once a tile, ahead of the copies. Like K2 it is bound by
+device-memory bytes in principle and by latency in practice (a serving
+call reads ~2 MB); one launch and one table trip ahead of the first copies
+are what the design spends. It is built at first use by ``_build.py`` and
+called through ctypes.
 ``paged_decode_attention_reference`` is the same function in plain PyTorch:
 ``gather_pages`` (-1 clamped to page 0) followed by K2's formula. It is the
 CPU path and the oracle the kernel is held against on the card.
 
 Routing is by device only: a CPU tensor takes the reference; a CUDA tensor
 launches the kernel or raises. ``paged_decode_attention.launches`` counts
-kernel launches (one per call: the split pass and its merge).
+kernel launches (one per call).
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import torch
 
 from fastvlm_tpu_torch.ops.cuda import _build
 from fastvlm_tpu_torch.ops.cuda.decode_attention import (
-    _DTYPE_CODES, decode_attention_reference)
+    _DTYPE_CODES, decode_attention_reference, stream_buffers)
 from fastvlm_tpu_torch.ops.kv_cache import gather_pages
 
 PAGE_SIZES = (8, 16, 32, 64, 128)
@@ -96,7 +101,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     the token just written). Returns (B, Hq, D) in q's dtype. On a CUDA
     device the kernel runs on the current stream, unsynchronised; its grid
     spans pages_per_seq * page positions, so callers pass tables cut to the
-    pages in flight."""
+    pages in flight. Its workspace and arrival counters are kept per
+    (device, stream), as K2's are."""
     if q.device.type == "cpu":
         return paged_decode_attention_reference(q, k_pages, v_pages,
                                                 block_tables, lengths)
@@ -107,20 +113,16 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     b, hq, d = q.shape
     num_pages, page, hkv = k_pages.shape[:3]
     pps = block_tables.shape[1]
-    lib, split = _load()
-    n_split = -(-(pps * page) // split)
-    # one f32 workspace, K2's layout: the splits' partial P.V
-    # (B, Hq, n_split, D), then their (max, sum) pairs (B, Hq, n_split, 2)
-    n_acc = b * hq * n_split * d
-    ws = torch.empty(n_acc + b * hq * n_split * 2, dtype=torch.float32,
-                     device=q.device)
+    lib = _load()
+    dtype = _DTYPE_CODES[q.dtype]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ws, counters = _workspace(lib, q.device, stream, b, hq, hkv, d, pps * page,
+                              dtype)
     out = torch.empty_like(q)
     err = lib.fvlm_paged_decode_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        block_tables.data_ptr(), lengths.data_ptr(), ws.data_ptr(),
-        ws.data_ptr() + 4 * n_acc, out.data_ptr(),
-        b, hq, hkv, d, page, pps, num_pages, n_split, _DTYPE_CODES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        block_tables.data_ptr(), lengths.data_ptr(), ws, counters,
+        out.data_ptr(), b, hq, hkv, d, page, pps, num_pages, dtype, stream)
     _build.check(lib, err, "paged_decode_attention")
     paged_decode_attention.launches += 1
     return out
@@ -128,14 +130,36 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 paged_decode_attention.launches = 0
 
+# (device, stream) -> [f32 workspace, int32 arrival counters], as K2 keeps
+# its own; the counters are zeroed when made and each call leaves them zero.
+_BUFFERS: dict = {}
+_WS_ELEMS: dict = {}
+
+
+def _workspace(lib, device, stream, b, hq, hkv, d, s_cap, dtype):
+    """(workspace address, counters address) for a call of this shape on
+    this stream; s_cap = pages_per_seq * page."""
+    key = (b, hq, hkv, d, s_cap, dtype)
+    elems = _WS_ELEMS.get(key)
+    if elems is None:
+        elems = _WS_ELEMS[key] = lib.fvlm_paged_decode_workspace(*key)
+    return stream_buffers(_BUFFERS, device, stream, elems, b * hkv)
+
 
 @functools.cache
 def _load():
-    """(library, keys per split block)."""
     lib = _build.load("paged_decode_attention")
     lib.fvlm_paged_decode_attention.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     lib.fvlm_paged_decode_attention.restype = ctypes.c_int
-    lib.fvlm_decode_split.argtypes = []
-    lib.fvlm_decode_split.restype = ctypes.c_int
-    return lib, lib.fvlm_decode_split()
+    lib.fvlm_paged_decode_workspace.argtypes = [ctypes.c_int] * 6
+    lib.fvlm_paged_decode_workspace.restype = ctypes.c_longlong
+    lib.fvlm_paged_decode_split.argtypes = [ctypes.c_int] * 5
+    lib.fvlm_paged_decode_split.restype = ctypes.c_int
+    return lib
+
+
+def split_size(b: int, hkv: int, d: int, s_cap: int, dtype: torch.dtype) -> int:
+    """Keys per split the kernel uses for this shape, s_cap = pages_per_seq
+    * page (card only)."""
+    return _load().fvlm_paged_decode_split(b, hkv, d, s_cap, _DTYPE_CODES[dtype])

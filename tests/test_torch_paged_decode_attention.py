@@ -2,8 +2,10 @@
 (fastvlm_tpu_torch/ops/cuda/paged_decode_attention.py) against the JAX
 package's Pallas kernel run in interpret mode, in f32: the shapes of
 tests/test_decode_attention.py's paged test (shuffled pool pages, decoy
-pages, unmapped tails), page 8, a table as wide as the pool, and pad rows
-whose table is all -1.
+pages, unmapped tails), pages 8 to 128, the 0.5B, 1.5B and 7B head
+geometries (the shapes the kernel takes on the card, where it is held
+against this plain version), a table as wide as the pool, lengths past the
+table's capacity, and pad rows whose table is all -1.
 
 Tolerance rtol=atol=2e-5, the JAX package's own bar for its kernels against
 a dense reference: the two differ only in summation order (page-blocked
@@ -53,6 +55,10 @@ def _both(q, kp, vp, tables, lengths):
     (3, 8, 2, 32, 16, 4),   # more rows than a pow2, small pages
     (1, 4, 4, 16, 64, 2),   # MHA (g=1)
     (3, 14, 2, 64, 8, 6),   # page 8, the 0.5B head geometry (G = 7)
+    (2, 12, 2, 128, 16, 3),  # the 1.5B head geometry (G = 6)
+    (2, 28, 4, 128, 16, 2),  # the 7B head geometry (G = 7, 4 KV heads)
+    (2, 4, 2, 16, 128, 2),   # page 128
+    (1, 28, 4, 128, 128, 2),  # the 7B heads at page 128
 ])
 def test_reference_matches_pallas(b, hq, hkv, d, page, pps):
     lengths = [page + 3, pps * page, 1][:b]
@@ -78,6 +84,19 @@ def test_pad_rows_are_finite():
     got, want = _both(q, kp, vp, tables, lengths)
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_length_past_the_capacity_counts_as_the_capacity():
+    """A length past pages_per_seq * page reads every mapped position, as
+    the Pallas kernel's grid (one step per table column) does."""
+    page, pps = 16, 3
+    q, kp, vp, tables, _ = _case(2, 8, 2, 16, page, pps, [pps * page] * 2,
+                                 seed=8)
+    lengths = np.asarray([pps * page + 5, 4 * pps * page], np.int32)
+    got, want = _both(q, kp, vp, tables, lengths)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    at_cap, _ = _both(q, kp, vp, tables, np.full(2, pps * page, np.int32))
+    np.testing.assert_array_equal(got, at_cap)
 
 
 def test_length_one_reads_the_first_slot():
@@ -146,3 +165,39 @@ def test_kernel_argument_checks_raise(case):
     edit, match = BAD_ARGS[case]
     with pytest.raises((ValueError, TypeError), match=match):
         k3._check_cuda_args(**edit(good))
+
+
+class _FakeLib:
+    """Stands in for the built library's workspace query."""
+
+    @staticmethod
+    def fvlm_paged_decode_workspace(*shape):
+        return 64
+
+
+def test_buffers_are_kept_per_stream():
+    """Two streams never share K3's workspace or arrival counters, nor does
+    K3 share K2's; calls on one stream reuse theirs (the wrapper's
+    bookkeeping, device-independent, so it runs here with CPU buffers)."""
+    from fastvlm_tpu_torch.ops.cuda import decode_attention as k2
+
+    dev = torch.device("cpu")
+    shape = (3, 6, 3, 16, 5, 0)  # a key no real call uses
+    try:
+        a = k3._workspace(_FakeLib, dev, 101, *shape)
+        b = k3._workspace(_FakeLib, dev, 102, *shape)
+        assert a == k3._workspace(_FakeLib, dev, 101, *shape)
+        assert a[0] != b[0] and a[1] != b[1]
+        ws, counters = k3._BUFFERS[(dev, 101)]
+        assert ws.numel() >= 64 and counters.numel() >= 9
+        assert int(counters.abs().sum()) == 0
+        assert (dev, 101) not in k2._BUFFERS
+        # a larger call on the stream grows its buffers in place of the old
+        big = k3._workspace(_FakeLib, dev, 101, 5, 6, 3, 16, 5, 0)
+        assert k3._BUFFERS[(dev, 101)][1].numel() >= 15
+        assert big != a
+    finally:
+        k3._BUFFERS.pop((dev, 101), None)
+        k3._BUFFERS.pop((dev, 102), None)
+        k3._WS_ELEMS.pop(shape, None)
+        k3._WS_ELEMS.pop((5, 6, 3, 16, 5, 0), None)
