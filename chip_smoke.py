@@ -65,7 +65,41 @@ non-zero):
               decode profile at the same batch and lengths: step ms on the
               paged pool and on a dense cache of the same rows, device ops,
               device ms and K3 (or K2) ms and launches a step
-  8. small    a small f32 model on the card (kernels) agrees with the same
+  8. serve-1.5b  a BatchScheduler at the JAX scheduler's defaults for a
+              1.5B decoder (prefix cache on, 256-token chunked admission,
+              2 rows mid-prefill at most) over a full-width engine:
+              FastViTHD @1024, mlp2x_gelu 3072->1536, Qwen2-1.5B (28
+              layers, 12/2/128), bf16, random weights from a seed; pool
+              16384 tokens, 64-token pages, 8-token chunks. Every request
+              carries one system prompt that puts 4 full pages before the
+              image slot. Wave A: 4 requests with distinct images at once
+              (prefix misses); wave B: 4 more once A decodes, admitted mid-
+              batch (prefix hits; suffixes of ~300 tokens, so chunked
+              admissions); wave C: 4 at once after A and B close (one
+              batched suffix prefill over the cached prefix). 32 new tokens
+              each, greedy, after a warm-up round through a fresh scheduler.
+              Checks every finish reason, prefix hits >= 8, chunked
+              admissions >= 1, prefill chunks >= 2, K3 = 28 per decode step,
+              no K2, K1 = 44 per prefill dispatch that encodes images, every
+              page back but those the prefix registry pins, and a dense
+              teacher-forced replay (K2) of a chunked wave-B request and a
+              wave-C request within the tie margin. Prints TTFT and queue ms
+              per request by wave, the live rows' step time and token
+              interval with and without a row mid-prefill, served tok/s,
+              peak memory. Then chunked against single-shot admission of
+              one late prefix hit into 5 live rows at batch 8, through
+              fresh schedulers in turns (chunked, single, single, chunked):
+              its TTFT and the live rows' step and token interval
+  9. video    VideoQA on phase 6's engine: a fixed question over 6 uint8
+              1080x1920 camera frames (resized on the card), 32 new tokens,
+              greedy. Checks K1 = 44 per frame and K2 = 24 per decode step,
+              that qa_over_stream(pipelined=True) gives the sequential ids,
+              and that each frame's answer, replayed teacher-forced through
+              the engine's full-prefill path, stays within the tie margin.
+              Prints each frame's TTFT (suffix prefill) beside a full
+              prefill of the same prompt and frame on the same engine, and
+              per-frame total ms, sequential and pipelined
+ 10. small    a small f32 model on the card (kernels) agrees with the same
               model on the CPU (plain versions), logits and greedy ids; the
               same model through a BatchScheduler on the card and on the CPU
               gives 3 concurrent greedy requests the serial engine's ids
@@ -667,12 +701,13 @@ class Client:
     set at its second update (a decode chunk landed), ``t_closed`` is the
     host clock when its stream closed."""
 
-    def __init__(self, sched, engine, prompt, image, cap, sampling=None):
+    def __init__(self, sched, engine, prompt, image, cap, sampling=None,
+                 system=None):
         self.updates = []
         self.decoding = threading.Event()
         self.t_closed = None
         self.thread = threading.Thread(target=self._run, args=(
-            sched, engine.build_prompt(prompt), image, cap, sampling))
+            sched, engine.build_prompt(prompt, system), image, cap, sampling))
         self.thread.start()
 
     def _run(self, sched, prompt, image, cap, sampling):
@@ -704,16 +739,17 @@ def _logit_gaps(row, tok):
     return (top - float(row[tok])) / ulp, (top - float(top2[1])) / ulp
 
 
-def _dense_replay(engine, prompt, image, ids):
-    """Teacher-force ``ids`` through the dense single-request path (kernel
-    K2); the (gap, top-1/top-2 gap) of every step, in bf16 ulps."""
+def _dense_replay(engine, prompt, image, ids, system=None):
+    """Teacher-force ``ids`` through the dense single-request path (full
+    prefill, kernel K2); the (gap, top-1/top-2 gap) of every step, in bf16
+    ulps."""
     from fastvlm_tpu_torch.models import vlm
     from fastvlm_tpu_torch.ops.kv_cache import init_cache
 
     cfg = engine.cfg
     gaps = []
     with torch.inference_mode():
-        inputs = engine.prepare(engine.build_prompt(prompt), image)
+        inputs = engine.prepare(engine.build_prompt(prompt, system), image)
         t = inputs["ids"].shape[1]
         cache = init_cache(cfg.decoder.num_layers, 1, t + len(ids),
                            cfg.decoder.num_kv_heads, cfg.decoder.head_dim,
@@ -730,6 +766,27 @@ def _dense_replay(engine, prompt, image, ids):
                 engine.params, cfg,
                 torch.tensor([tok], dtype=torch.int32, device="cuda"), cache)
     return gaps
+
+
+def _check_replay(phase, what, engine, prompt, image, text, system=None):
+    """Replay the ids of ``text`` through the dense full-prefill path and
+    fail unless each scores within TIE_ULPS of the dense maximum."""
+    ids = [int(t) for t in text.split(",") if t]
+    if not ids:  # the first token was EOS: nothing to replay
+        log(phase, f"dense replay of {what}: no tokens")
+        return
+    gaps = _dense_replay(engine, prompt, image, ids, system)
+    worst = max(g for g, _ in gaps)
+    log(phase, f"dense replay of {what}: {len(ids)} steps, tokens within "
+               f"{worst:.2f} bf16 ulps of the dense maximum (limit "
+               f"{TIE_ULPS}); top-1 minus top-2 per step, ulps: "
+               f"{[round(t, 2) for _, t in gaps]}")
+    if worst > TIE_ULPS:
+        bad = next(s for s, (g, _) in enumerate(gaps) if g > TIE_ULPS)
+        raise AssertionError(
+            f"replay of {what}, step {bad}: token {ids[bad]} scores "
+            f"{gaps[bad][0]:.1f} bf16 ulps below the dense maximum (limit "
+            f"{TIE_ULPS})")
 
 
 def _step_profile(engine, rng):
@@ -879,9 +936,10 @@ def phase_serve(card, main_engine):
     log("serve", f"counters {counters}")
     if counters.get("admitted", 0) < 1 or counters.get("grown", 0) < 1:
         raise AssertionError("no admission or no grow in the serve phase")
-    if k1 != 44 * counters["prefills"]:
+    if k1 != 44 * counters["image_prefills"]:
         raise AssertionError(f"K1 launched {k1} times for "
-                             f"{counters['prefills']} prefill dispatches")
+                             f"{counters['image_prefills']} prefill "
+                             f"dispatches that encode images")
     if k3 == 0 or k3 != layers * counters["decode_steps"]:
         raise AssertionError(f"K3 launched {k3} times for "
                              f"{counters['decode_steps']} decode steps")
@@ -892,7 +950,7 @@ def phase_serve(card, main_engine):
                              f"{sched.pool.num_pages} pages free after serving")
     if last[4]["text"] != last[5]["text"]:
         raise AssertionError("the identical pair gave different ids")
-    log("serve", f"launch counts: K1 {k1} = 44 x {counters['prefills']} "
+    log("serve", f"launch counts: K1 {k1} = 44 x {counters['image_prefills']} "
                  f"prefill dispatches; K3 {k3} = {layers} x "
                  f"{counters['decode_steps']} decode steps; K2 0; pool "
                  f"{sched.pool.free_pages}/{sched.pool.num_pages} pages free; "
@@ -923,19 +981,8 @@ def phase_serve(card, main_engine):
     # K2) of request 0 (a row of the batched prefill) and request 6 (an
     # admitted row): every batch token ranks within the tie margin
     for n, (prompt, img) in ((0, first[0]), (6, late[2][:2])):
-        ids = [int(t) for t in last[n]["text"].split(",") if t]
-        gaps = _dense_replay(engine, prompt, images[img], ids)
-        worst = max(g for g, _ in gaps)
-        log("serve", f"dense replay of request {n}: {len(ids)} steps, batch "
-                     f"tokens within {worst:.2f} bf16 ulps of the dense "
-                     f"maximum (limit {TIE_ULPS}); top-1 minus top-2 per "
-                     f"step, ulps: {[round(t, 2) for _, t in gaps]}")
-        if worst > TIE_ULPS:
-            bad = next(s for s, (g, _) in enumerate(gaps) if g > TIE_ULPS)
-            raise AssertionError(
-                f"replay of request {n}, step {bad}: batch token "
-                f"{ids[bad]} scores {gaps[bad][0]:.1f} bf16 ulps below the "
-                f"dense maximum (limit {TIE_ULPS})")
+        _check_replay("serve", f"request {n}", engine, prompt, images[img],
+                      last[n]["text"])
 
     prof = _step_profile(engine, rng)
     lo, hi = prof["lengths"]
@@ -956,7 +1003,357 @@ def phase_serve(card, main_engine):
                  f"the wall time, {p['attn_ms'] / p['device_ms']:.4f} of the "
                  f"device time; K3 over K2 a step (paged / dense attention "
                  f"ms): {ratio:.4f}")
-    return {"k3_launches": k3, "tok_s": served / wall_s, "peak_gib": peak_gb}
+    return {"k1_launches": k1, "k3_launches": k3, "tok_s": served / wall_s,
+            "peak_gib": peak_gb}
+
+
+# one system prompt for every serve-1.5b request: 5 full 64-token pages
+# before the image slot (the default template has less than one)
+SYSTEM_15B = ("<|im_start|>system\n" + "You are a careful visual assistant: "
+              "describe only what the image shows, name every object you "
+              "can see, and keep each answer short and plain. " * 2)
+WAVES_15B = {
+    "A": ["Describe the image.", "What is in the picture?",
+          "Describe the scene in detail.", "Read the text."],
+    "B": ["What colour dominates?", "Count the objects.",
+          "Where was this taken?", "Describe the lighting."],
+    "C": ["Describe the image.", "What is unusual here?",
+          "Name three objects.", "What time of day is it?"]}
+
+
+def _median(xs):
+    return statistics.median(xs) if xs else float("nan")
+
+
+def _live_row_timing(trace):
+    """The live rows' decode while a row is mid-prefill and while none is,
+    by batch size: {(batch, kind): (step ms, token interval ms, chunks)},
+    medians. A step is a chunk's dispatch-to-host-read time over k; the
+    token interval is the time from one chunk's host read to the next's
+    over k, so it includes what the boundary between them did. Kinds:
+    "pending" (a prefill chunk ran at the boundary, or a row was
+    mid-prefill during the chunk), "admit" (a single-shot admission ran at
+    the boundary), "quiet" (neither). Pairs across a grow or a shrink are
+    left out."""
+    disp = [(n, e) for n, e in enumerate(trace) if e[1] == "disp"]
+    out = {}
+    for (n0, e0), (n1, e1) in zip(disp, disp[1:]):
+        between = {e[1] for e in trace[n0 + 1:n1]}
+        if e1[2] != e0[2] or "batch_end" in between:
+            continue
+        kind = ("pending" if "pchunk" in between or e1[6] > 0 else
+                "admit" if "admit" in between else "quiet")
+        steps, gaps = out.setdefault((e1[2], kind), ([], []))
+        steps.append(e1[5] / e1[4])
+        gaps.append((e1[0] - e0[0]) * 1000 / e1[4])
+    return {key: (_median(s), _median(g), len(s))
+            for key, (s, g) in sorted(out.items())}
+
+
+def phase_serve_15b(card):
+    from fastvlm_tpu_torch import config as C
+    from fastvlm_tpu_torch.engine import Engine
+    from fastvlm_tpu_torch.models import qwen2, vlm
+    from fastvlm_tpu_torch.ops.cuda.decode_attention import decode_attention
+    from fastvlm_tpu_torch.ops.cuda.ffn import fused_ffn
+    from fastvlm_tpu_torch.ops.cuda.paged_decode_attention import (
+        paged_decode_attention)
+    from fastvlm_tpu_torch.serve.batcher import BatchScheduler
+
+    decoder = C.qwen2_1_5b(param_dtype="bfloat16", compute_dtype="bfloat16")
+    vision = C.FastViTConfig(image_size=1024, param_dtype="bfloat16",
+                             compute_dtype="bfloat16")
+    cfg = C.FastVLMConfig(
+        vision=vision, decoder=decoder,
+        projector=C.ProjectorConfig(mm_hidden_size=vision.out_channels,
+                                    hidden_size=decoder.hidden_size))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    t0 = time.perf_counter()
+    params = vlm.init(gen, cfg, "cuda")
+    params["decoder"] = qwen2.fuse_decoder_params(params["decoder"], decoder)
+    engine = Engine(cfg, params, IdTokenizer(), chunk=8)
+    torch.cuda.synchronize()
+    layers = decoder.num_layers
+    log("serve-1.5b", f"1.5B engine ({layers} layers, "
+                      f"{decoder.num_heads}/{decoder.num_kv_heads}/"
+                      f"{decoder.head_dim} heads) built at full width on the "
+                      f"card in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.RandomState(15)
+    images = [rng.randint(0, 256, (1024, 1024, 3), dtype=np.uint8)
+              for _ in range(12)]
+    waves = {w: [(p, 4 * n + i) for i, p in enumerate(ps)]
+             for n, (w, ps) in enumerate(WAVES_15B.items())}
+    prep = engine.prepare(engine.build_prompt(WAVES_15B["B"][0], SYSTEM_15B),
+                          images[4])
+    start0, plen = int(prep["starts"][0]), prep["prompt_tokens"]
+    cached = start0 // 64 * 64
+    if cached < 256 or plen - cached <= 256:
+        raise AssertionError(f"prompt geometry: image slot at {start0}, "
+                             f"{plen} tokens; no 4-page prefix or no suffix "
+                             f"past one 256-token chunk")
+    log("serve-1.5b", f"prompts: image slot at token {start0}, ~{plen} "
+                      f"tokens; a prefix hit reuses {cached} and prefills "
+                      f"~{plen - cached}")
+
+    def serve_round(name):
+        sched = BatchScheduler(engine, max_batch=8, window_ms=100,
+                               page_size=64, pool_tokens=16384)
+        if (sched.prefix is None or sched.prefill_chunk != 256
+                or sched.max_pending != 2):
+            raise AssertionError("BatchScheduler(engine) at 1.5B does not "
+                                 "take the JAX scheduler's defaults")
+        sched.trace = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused_ffn.launches = 0
+        decode_attention.launches = 0
+        paged_decode_attention.launches = 0
+        clients = {}
+        try:
+            def wave(w):
+                clients[w] = [Client(sched, engine, p, images[i], 32,
+                                     system=SYSTEM_15B) for p, i in waves[w]]
+
+            wave("A")
+            if not clients["A"][0].decoding.wait(JOIN_S):
+                raise AssertionError(f"{name}: wave A never decoded")
+            wave("B")
+            last = {w: [c.result(f"{name} wave {w} request {n}")
+                        for n, c in enumerate(clients[w])] for w in "AB"}
+            # wave C opens a new batch: wait until the first one has ended
+            deadline = time.perf_counter() + JOIN_S
+            while not any(e[1] == "batch_end" for e in list(sched.trace)):
+                if time.perf_counter() > deadline:
+                    raise AssertionError(f"{name}: the batch never ended")
+                time.sleep(0.01)
+            wave("C")
+            last["C"] = [c.result(f"{name} wave C request {n}")
+                         for n, c in enumerate(clients["C"])]
+            launches = (fused_ffn.launches, decode_attention.launches,
+                        paged_decode_attention.launches)
+        finally:
+            sched.shutdown()
+        t_end = max(c.t_closed for cs in clients.values() for c in cs)
+        return sched, last, launches, t_end
+
+    t0 = time.perf_counter()
+    serve_round("warm-up")
+    log("serve-1.5b", f"warm-up round of the same traffic: "
+                      f"{time.perf_counter() - t0:.1f} s")
+    sched, last, (k1, k2, k3), t_end = serve_round("serve-1.5b")
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    counters = dict(sched.counters)
+    for w, ups in last.items():
+        for n, u in enumerate(ups):
+            st = u["stats"]
+            log("serve-1.5b", f"wave {w} request {n}: ttft "
+                              f"{st['ttft_ms']:.3f} ms, queue "
+                              f"{st['queue_ms']:.3f} ms, cached "
+                              f"{st['cached_tokens']} tokens, "
+                              f"{st['prefill_chunks']} prefill chunks, "
+                              f"{st['decode_tokens']} tokens, "
+                              f"{st['finish_reason']}")
+    log("serve-1.5b", f"counters {counters}")
+    if counters.get("prefix_hits", 0) < 8:
+        raise AssertionError(f"{counters.get('prefix_hits', 0)} prefix hits, "
+                             f"expected >= 8")
+    if counters.get("chunked_admissions", 0) < 1 or \
+            counters.get("prefill_chunks", 0) < 2:
+        raise AssertionError("no chunked admission of two chunks or more")
+    if any(u["stats"]["cached_tokens"] != cached for u in last["C"]):
+        raise AssertionError("wave C did not reuse the cached prefix")
+    if k1 != 44 * counters["image_prefills"]:
+        raise AssertionError(f"K1 launched {k1} times for "
+                             f"{counters['image_prefills']} prefill "
+                             f"dispatches that encode images")
+    if k3 == 0 or k3 != layers * counters["decode_steps"]:
+        raise AssertionError(f"K3 launched {k3} times for "
+                             f"{counters['decode_steps']} decode steps")
+    if k2 != 0:
+        raise AssertionError(f"K2 launched {k2} times on the paged path")
+    pinned = {p for pages in sched.prefix.entries.values() for p in pages}
+    if sched.pool.free_pages + len(pinned) != sched.pool.num_pages:
+        raise AssertionError(f"{sched.pool.free_pages} free + {len(pinned)} "
+                             f"pinned by the registry of "
+                             f"{sched.pool.num_pages} pages after serving")
+    sched.prefix.clear()
+    if sched.pool.free_pages != sched.pool.num_pages:
+        raise AssertionError("pages still held after clearing the registry")
+    log("serve-1.5b", f"launch counts: K1 {k1} = 44 x "
+                      f"{counters['image_prefills']} prefill dispatches that "
+                      f"encode images (of {counters['prefills']}); K3 {k3} = "
+                      f"{layers} x {counters['decode_steps']} decode steps; "
+                      f"K2 0; pool {sched.pool.num_pages - len(pinned)} pages "
+                      f"free + {len(pinned)} pinned by the prefix registry, "
+                      f"all free once it clears")
+
+    ttft = {w: [u["stats"]["ttft_ms"] for u in ups] for w, ups in last.items()}
+    chunked = [u for u in last["B"] if u["stats"]["prefill_chunks"]]
+    single = [u for u in last["B"] if not u["stats"]["prefill_chunks"]]
+    log("serve-1.5b", f"TTFT, prefix miss (wave A, one batched prefill of 4 "
+                      f"full prompts): {ttft['A'][0]:.3f} ms; prefix hit "
+                      f"(wave C, one batched prefill of 4 suffixes after "
+                      f"{cached} cached tokens): {ttft['C'][0]:.3f} ms; wave B "
+                      f"hits, single-shot 1-row suffix prefill "
+                      f"{[round(u['stats']['ttft_ms'], 3) for u in single]} "
+                      f"ms, chunked admission (admission to first token, "
+                      f"decode chunks between) "
+                      f"{[round(u['stats']['ttft_ms'], 3) for u in chunked]} "
+                      f"ms; on {card}")
+    timing = _live_row_timing(sched.trace)
+    log("serve-1.5b", "live rows, median decode step / token interval "
+                      "(chunks), by batch and what the boundary before the "
+                      "chunk did: " + "; ".join(
+                          f"b={b} {kind} {s:.3f} / {g:.3f} ms ({n})"
+                          for (b, kind), (s, g, n) in timing.items())
+        + " (pending: a row mid-prefill, a prefill chunk at the boundary; "
+          "admit: a single-shot admission at the boundary)")
+    log("serve-1.5b", "what a boundary holds the live rows for: prefill "
+                      "chunks [c0, c1) ms " + str(
+                          [(e[3], e[4], round(e[5], 3)) for e in sched.trace
+                           if e[1] == "pchunk"])
+        + "; single-shot suffix admissions ms "
+        + str([round(e[4], 3) for e in sched.trace if e[1] == "admit"]))
+    t_start = next(e[0] for e in sched.trace if e[1] == "batch_start")
+    served = sum(u["stats"]["decode_tokens"] for ups in last.values()
+                 for u in ups)
+    wall_s = t_end - t_start
+    log("serve-1.5b", f"served {served} tokens in {wall_s * 1000:.3f} ms "
+                      f"from the first batch's start to the last stream's "
+                      f"close: {served / wall_s:.3f} tok/s; peak device "
+                      f"memory {peak_gb:.3f} GiB on {card}")
+
+    n = next((n for n, u in enumerate(last["B"])
+              if u["stats"]["prefill_chunks"]), None)
+    if n is None:
+        raise AssertionError("no wave-B request took a chunked admission")
+    for what, (prompt, img), u in (
+            (f"chunked wave-B request {n}", waves["B"][n], last["B"][n]),
+            ("wave-C request 0", waves["C"][0], last["C"][0])):
+        _check_replay("serve-1.5b", what, engine, prompt, images[img],
+                      u["text"], SYSTEM_15B)
+    _admission_ab(engine, images, card)
+    return {"k1_launches": k1, "k3_launches": k3,
+            "decode_steps": counters["decode_steps"],
+            "ttft_ms": ttft, "tok_s": served / wall_s, "peak_gib": peak_gb}
+
+
+def _admission_ab(engine, images, card):
+    """Chunked (256-token chunks) against single-shot admission of one late
+    prefix-hit request (~320 suffix tokens) into 5 live rows at batch 8,
+    through fresh schedulers in turns: chunked, single, single, chunked.
+    Logs each run's late TTFT and the live rows' decode step and token
+    interval by what the boundary before the chunk did."""
+    from fastvlm_tpu_torch.serve.batcher import BatchScheduler
+
+    prompts = WAVES_15B["A"] + WAVES_15B["B"][:1]
+    for mode in ("chunked", "single", "single", "chunked"):
+        sched = BatchScheduler(engine, max_batch=8, window_ms=100,
+                               page_size=64, pool_tokens=16384,
+                               prefill_chunk=256 if mode == "chunked" else 0)
+        sched.trace = []
+        try:
+            anchors = [Client(sched, engine, p, images[i], 96,
+                              system=SYSTEM_15B)
+                       for i, p in enumerate(prompts)]
+            if not anchors[0].decoding.wait(JOIN_S):
+                raise AssertionError("admission A/B: the anchors never "
+                                     "decoded")
+            late = Client(sched, engine, WAVES_15B["B"][1], images[5], 8,
+                          system=SYSTEM_15B).result("admission A/B late")
+            for n, c in enumerate(anchors):
+                c.result(f"admission A/B anchor {n}")
+        finally:
+            sched.shutdown()
+        st = late["stats"]
+        if (st["prefill_chunks"] > 0) != (mode == "chunked") or \
+                not st["cached_tokens"]:
+            raise AssertionError(f"admission A/B {mode}: the late request "
+                                 f"took {st['prefill_chunks']} chunks, "
+                                 f"{st['cached_tokens']} cached tokens")
+        timing = _live_row_timing(sched.trace)
+        log("serve-1.5b", f"admission A/B, {mode}: late request (cached "
+                          f"{st['cached_tokens']}, {st['prefill_chunks']} "
+                          f"chunks) TTFT {st['ttft_ms']:.3f} ms; 5 live rows, "
+                          f"median decode step / token interval (chunks): "
+            + "; ".join(f"b={b} {kind} {s:.3f} / {g:.3f} ms ({n})"
+                        for (b, kind), (s, g, n) in timing.items())
+            + f"; on {card}")
+
+
+def phase_video(card, engine):
+    from fastvlm_tpu_torch.ops.cuda.decode_attention import decode_attention
+    from fastvlm_tpu_torch.ops.cuda.ffn import fused_ffn
+    from fastvlm_tpu_torch.video import VideoQA, qa_over_stream
+
+    question = "What is happening in this frame?"
+    layers = engine.cfg.decoder.num_layers
+    rng = np.random.RandomState(9)
+    frames = [rng.randint(0, 256, (1080, 1920, 3), dtype=np.uint8)
+              for _ in range(6)]
+    vq = VideoQA(engine, question, max_new_tokens=32)
+    vq.ask(frames[0])  # the resize's first call at this size
+    torch.cuda.synchronize()
+    fused_ffn.launches = 0
+    decode_attention.launches = 0
+    seq = [vq.ask(f) for f in frames]
+    k1, k2 = fused_ffn.launches, decode_attention.launches
+    steps = sum(s["decode_steps"] for _, s in seq)
+    if k1 != 44 * len(frames):
+        raise AssertionError(f"K1 launched {k1} times for {len(frames)} "
+                             f"frames, expected 44 a frame")
+    if steps == 0 or k2 != layers * steps:
+        raise AssertionError(f"K2 launched {k2} times for {steps} decode "
+                             f"steps, expected {layers} a step")
+    t0 = time.perf_counter()
+    piped = list(qa_over_stream(vq, frames, latest_only=False,
+                                pipelined=True))
+    pipe_ms = (time.perf_counter() - t0) * 1000
+    if [t for t, _ in piped] != [t for t, _ in seq]:
+        raise AssertionError("pipelined frames gave other ids than the "
+                             "sequential ones")
+    log("video", f"launch counts: K1 {k1} = 44 x {len(frames)} frames; K2 "
+                 f"{k2} = {layers} x {steps} decode steps; pipelined ids "
+                 f"equal the sequential ones")
+    # each frame's TTFT, suffix prefill (a VideoQA that stops at its first
+    # token) beside a full prefill of the same prompt and frame (both from
+    # the image on the card to the first token on the host), in turns:
+    # suffix, full, full, suffix on even frames, the other way on odd ones;
+    # and the frame's upload + resize on the card
+    first_only = VideoQA(engine, question, max_new_tokens=1)
+    prompt = engine.build_prompt(question)
+    ttft = {"suffix": [], "full": []}
+    resize_ms = []
+    for n, f in enumerate(frames):
+        order = ("suffix", "full") if n % 2 == 0 else ("full", "suffix")
+        for how in order + order[::-1]:
+            if how == "suffix":
+                ttft[how].append(first_only.ask(f)[1]["ttft_ms"])
+            else:
+                ttft[how].append(engine.generate(prompt, f, max_new_tokens=1)
+                                 [1]["ttft_ms"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.prepare_array_image(f)
+        torch.cuda.synchronize()
+        resize_ms.append((time.perf_counter() - t0) * 1000)
+    sfx, full = ttft["suffix"], ttft["full"]
+    log("video", f"6 frames of 1080x1920 uint8: TTFT suffix prefill after "
+                 f"{vq.prefix_len} cached tokens {sfx} ms (median "
+                 f"{_median(sfx):.3f}); full prefill of the same prompt "
+                 f"{[round(x, 3) for x in full]} ms (median "
+                 f"{_median(full):.3f}), two of each a frame in turns; "
+                 f"upload + resize {_median(resize_ms):.3f} ms a frame "
+                 f"(median); 32 new tokens: TTFT "
+                 f"{[s['ttft_ms'] for _, s in seq]} ms and total "
+                 f"{[s['total_ms'] for _, s in seq]} ms a frame sequential, "
+                 f"{pipe_ms / len(frames):.3f} ms a frame pipelined; on "
+                 f"{card}")
+    for n, ((text, _), f) in enumerate(zip(seq, frames)):
+        _check_replay("video", f"frame {n}", engine, question, f, text)
+    return {"k1_launches": k1, "k2_launches": k2, "decode_steps": steps,
+            "ttft_ms": sfx, "full_ttft_ms": full}
 
 
 def phase_small():
@@ -1047,14 +1444,22 @@ def main() -> int:
     k2_err, k2 = phase_k2(gen)
     k3_err, k3 = phase_k3(gen)
     main_res = phase_main(card)
-    serve_res = phase_serve(card, main_res.pop("engine"))
+    engine = main_res.pop("engine")
+    serve_res = phase_serve(card, engine)
+    serve15_res = phase_serve_15b(card)
+    video_res = phase_video(card, engine)
     phase_small()
 
     kernels = {"kernels": [
         {"name": "fused_ffn", "route": "cuda",
          "source": "fastvlm_tpu_torch/csrc/ffn.cu",
          "replaces": "fastvlm_tpu/ops/pallas/ffn.py:76",
-         "launches": main_res["k1_launches"], "max_abs_err": k1_err,
+         "launches": main_res["k1_launches"],
+         "launches_by_path": {"main": main_res["k1_launches"],
+                              "serve": serve_res["k1_launches"],
+                              "serve-1.5b": serve15_res["k1_launches"],
+                              "video": video_res["k1_launches"]},
+         "max_abs_err": k1_err,
          "ms": k1["ms"], "kernel_ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": "operations",
          "library_ms": None, "library_chain_ms": k1["chain_ms"],
@@ -1065,7 +1470,10 @@ def main() -> int:
         {"name": "decode_attention", "route": "cuda",
          "source": "fastvlm_tpu_torch/csrc/decode_attention.cu",
          "replaces": "fastvlm_tpu/ops/pallas/decode_attention.py:167",
-         "launches": main_res["k2_launches"], "max_abs_err": k2_err,
+         "launches": main_res["k2_launches"],
+         "launches_by_path": {"main": main_res["k2_launches"],
+                              "video": video_res["k2_launches"]},
+         "max_abs_err": k2_err,
          "ms": k2["ms"], "kernel_ms": k2["kernel_ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": "bytes",
          "library_ms": k2["library_ms"],
@@ -1076,7 +1484,10 @@ def main() -> int:
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "fastvlm_tpu_torch/csrc/paged_decode_attention.cu",
          "replaces": "fastvlm_tpu/ops/pallas/decode_attention.py:215",
-         "launches": serve_res["k3_launches"], "max_abs_err": k3_err,
+         "launches": serve_res["k3_launches"],
+         "launches_by_path": {"serve": serve_res["k3_launches"],
+                              "serve-1.5b": serve15_res["k3_launches"]},
+         "max_abs_err": k3_err,
          "ms": k3["ms"], "kernel_ms": k3["kernel_ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": "bytes", "library_ms": None,
          "host_us": k3["host_us"], "dense_k2_kernel_ms": k3["dense_k2_kernel_ms"],

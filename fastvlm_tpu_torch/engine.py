@@ -7,7 +7,7 @@ decode with EOS ids, token-level stop keywords and stop strings. Every
 request gets ``RequestStats``: TTFT (encode + prefill + first token on the
 host) and decode time, both ending in a device synchronise on the card.
 
-Used by: predict CLI, serve/batcher.py, chip_smoke.py.
+Used by: predict CLI, serve/batcher.py, video.py, chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from fastvlm_tpu_torch.data.preprocessing import (
     ImageProcessor, process_images, tokenizer_image_token)
 from fastvlm_tpu_torch.models import vlm
 from fastvlm_tpu_torch.models.fastvit import fold_layer_scale
+from fastvlm_tpu_torch.ops import image_ops
 from fastvlm_tpu_torch.ops.kv_cache import init_cache
 from fastvlm_tpu_torch.ops.sampling import SamplingParams, sample
 from fastvlm_tpu_torch.ops.splice import expand_image_ids, pad_batch
@@ -110,26 +111,30 @@ class Engine:
         return conv.get_prompt()
 
     def prepare_array_image(self, image) -> torch.Tensor:
-        """(H, W, 3) / (B, H, W, 3) array or tensor at the model's native
-        size -> (B, S, S, 3) model-dtype images on the engine's device. uint8
-        is rescaled by 1/255; float numpy input whose max exceeds 1.5 is
-        taken as [0, 255] and rescaled. Other sizes raise: the on-device
-        resize (ops/image_ops.py) is not ported yet."""
+        """(H, W, 3) / (B, H, W, 3) array or tensor of any size -> (B, S, S,
+        3) model-dtype images on the engine's device. uint8 is rescaled by
+        1/255; float numpy input whose max exceeds 1.5 is taken as [0, 255]
+        and rescaled; other float input is taken as [0, 1]. The array goes
+        to the device as it is (a uint8 frame in a quarter of f32's bytes);
+        a non-native size is then padded / resized there
+        (``ops/image_ops.preprocess``), so the encoder always emits
+        ``num_image_tokens`` tokens."""
         scale255 = (isinstance(image, np.ndarray) and image.dtype.kind == "f"
                     and image.size > 0 and float(image.max()) > 1.5)
         arr = torch.as_tensor(np.asarray(image) if isinstance(image, np.ndarray)
                               else image)
         if arr.dim() == 3:
             arr = arr[None]
+        arr = arr.to(self.device)
+        if scale255:
+            arr = arr.float() / 255.0
         s = self.cfg.vision.image_size
         if tuple(arr.shape[-3:-1]) != (s, s):
-            raise NotImplementedError(
-                f"image size {tuple(arr.shape[-3:-1])} != native {(s, s)}: "
-                "resizing arrays is not yet ported, see ROADMAP.md")
-        arr = arr.to(self.device)
-        if arr.dtype == torch.uint8 or scale255:
-            arr = arr.float() / 255.0
-        return arr.float().to(self._dtype)
+            mode = "pad" if self.cfg.image_aspect_ratio == "pad" else "none"
+            arr = image_ops.preprocess(arr, s, mode)
+        else:
+            arr = image_ops.rescale(arr)
+        return arr.to(self._dtype)
 
     def prepare(self, prompt: str, image=None) -> Dict[str, Optional[torch.Tensor]]:
         """prompt: full template string (may contain <image>); image: PIL,
@@ -258,6 +263,14 @@ class Engine:
     def chat(self, user_prompt: str, image=None, **kw):
         """Convenience: wraps user_prompt in the conversation template."""
         return self.generate(self.build_prompt(user_prompt), image, **kw)
+
+    def prefill_suffix(self, images, ids, lens, starts, offset: int, cache):
+        """Suffix prefill after ``offset`` cached prefix tokens
+        (``vlm.prefill_continue``): the scheduler's prefix-cache hits and
+        admission chunks, and the video path's frames. Returns (logits,
+        cache)."""
+        return vlm.prefill_continue(self.params, self.cfg, images, ids, lens,
+                                    starts, offset, cache)
 
     # ---------------- internals ----------------
 

@@ -9,7 +9,10 @@ one path.
 
 Attention routes, over a dense ``KVCache`` or a paged ``PagedKVCache``:
   * prefill over an empty cache attends the prompt's own keys under a
-    (B, T, T) mask, with a plain f32 softmax (``_attend``);
+    (B, T, T) mask, with a plain f32 softmax (``_attend``); a prefill that
+    continues after ``prefill_offset`` cached tokens (``vlm.
+    prefill_continue``) attends the whole cache the same way, the paged
+    one gathered into each row's order first;
   * a T=1 decode step calls kernel K2 (``ops/cuda/decode_attention.py``) on
     the dense cache, or kernel K3 (``ops/cuda/paged_decode_attention.py``)
     on the pool in place, when the decoder has no ALiBi bias and no sliding
@@ -241,9 +244,11 @@ def _layer(x, lp, cfg: Qwen2Config, cos, sin, cache_k, cache_v, mask,
             write_prompt(cache_k, cache_v, k, v, prefill_offset)
         else:
             write_paged(cache_k, cache_v, k, v, dest)
-        if mask.shape[-1] == t:
+        if mask.shape[-1] == t and prefill_offset == 0:
             # empty-cache prefill: the prompt's own keys are the whole
             # valid cache, so attend them instead of the S_max-wide cache
+            # (a continuation whose suffix is as wide as the cache attends
+            # the cache: its prefix lies there)
             keys, values = k, v
         elif block_tables is None:
             keys, values = cache_k, cache_v

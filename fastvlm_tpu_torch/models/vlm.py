@@ -9,8 +9,10 @@ once per chunk, in the engine).
 Prompts are right-padded to a bucket length; the image sentinel is expanded
 host-side to ``num_image_tokens`` placeholder slots (ops/splice.py); the KV
 cache is allocated by the caller and updated in place. ``prefill``,
-``decode_step`` and ``decode_chunk`` take the dense ``KVCache`` or the paged
-``PagedKVCache`` of the serving scheduler (serve/batcher.py) alike.
+``prefill_continue`` (a suffix after cached prefix tokens: video frames,
+prefix-cache hits, chunked admissions), ``decode_step`` and
+``decode_chunk`` take the dense ``KVCache`` or the paged ``PagedKVCache``
+of the serving scheduler (serve/batcher.py) alike.
 """
 
 from __future__ import annotations
@@ -88,6 +90,46 @@ def prefill(
     cache = dataclasses.replace(cache, lengths=seq_lens.to(torch.int32))
     last = (seq_lens.long() - 1).clamp(0, t - 1)
     last_hidden = hidden[torch.arange(b, device=hidden.device), last][:, None]
+    logits = qwen2.logits_from_hidden(params["decoder"], last_hidden,
+                                      cfg.decoder)
+    return logits[:, 0], cache
+
+
+def prefill_continue(
+    params: Params,
+    cfg: FastVLMConfig,
+    images: Optional[torch.Tensor],
+    suffix_ids: torch.Tensor,     # (B, T') sentinel-expanded suffix tokens
+    suffix_lens: torch.Tensor,    # (B,) real suffix lengths (<= T')
+    image_starts: torch.Tensor,   # (B,) start WITHIN the suffix; -1 if none
+    offset: int,                  # tokens already cached (the prefix)
+    cache: Union[KVCache, PagedKVCache],
+) -> Tuple[torch.Tensor, Union[KVCache, PagedKVCache]]:
+    """Continue a prefill after ``offset`` cached prefix tokens: the video
+    path's per-frame suffix, a prefix-cache hit's suffix, or one chunk of a
+    chunked admission. The suffix is written at [offset, offset + T') and
+    attends the whole cache under ``k <= offset + i`` (the plain attention
+    over the dense cache, or over the paged rows gathered into order).
+    Returns (next-token logits (B, V) f32 at each row's last real suffix
+    token, cache with lengths offset + suffix_lens)."""
+    embeds = _spliced_prompt_embeds(params, cfg, images, suffix_ids,
+                                    image_starts)
+    b, t, _ = embeds.shape
+    dev = embeds.device
+    positions = offset + torch.arange(t, device=dev)[None, :].expand(b, t)
+    q_pos = offset + torch.arange(t, device=dev)[:, None]
+    k_pos = torch.arange(cache.max_len, device=dev)[None, :]
+    mask = k_pos <= q_pos
+    if cfg.decoder.attn_window is not None:
+        mask = mask & (q_pos - k_pos < cfg.decoder.attn_window)
+    mask = mask[None].expand(b, t, cache.max_len)
+    hidden, cache = qwen2.forward(params["decoder"], cfg.decoder, embeds,
+                                  positions, cache=cache, mask=mask,
+                                  prefill=True, prefill_offset=offset)
+    cache = dataclasses.replace(
+        cache, lengths=(offset + suffix_lens).to(torch.int32))
+    last = (suffix_lens.long() - 1).clamp(0, t - 1)
+    last_hidden = hidden[torch.arange(b, device=dev), last][:, None]
     logits = qwen2.logits_from_hidden(params["decoder"], last_hidden,
                                       cfg.decoder)
     return logits[:, 0], cache

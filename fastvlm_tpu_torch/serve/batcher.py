@@ -18,38 +18,58 @@ tokens stream to its own queue:
   * per-row sampling (``ops.sampling.RowSampling``): greedy and sampled
     requests share one batch.
 
+  * prefix caching (``PrefixCache``): full pages of prompt KV before the
+    first image slot are registered by their token ids; an admission or a
+    gathered batch whose prompts extend a cached prefix maps those pages
+    read-only and prefills only the suffix (``vlm.prefill_continue``
+    through ``Engine.prefill_suffix``);
+  * chunked admission prefill: an admission whose suffix is longer than
+    ``prefill_chunk`` tokens, while other rows are live, reserves its slot
+    and pages and prefills one chunk per boundary (``advance_pending``),
+    the image span always in one chunk, so the live rows keep decoding.
+
+Both are on by default from 1e9 decoder parameters (1.5B and up:
+``prefix_cache=None`` and ``prefill_chunk=None`` resolve as in the JAX
+scheduler), off below.
+
 Decode: every chunk is one ``vlm.decode_chunk`` over the ``PagedKVCache``,
 whose T=1 steps run kernel K3 (``ops/cuda/paged_decode_attention.py``) on
-the pool in place: 24 launches a step at 0.5B. This is how the JAX
+the pool in place: one launch a layer a step. This is how the JAX
 scheduler serves with ``paged=True, chunk_view=False, persist_view=False``
 and ``attn_backend="pallas"``. Its dense working views (chunk view,
-persistent view) exist because XLA cannot fuse the page gather into
-attention; a hand-written paged kernel reads the pages where they lie.
+persistent view, with ``flush_view`` and the stale-row set) exist because
+XLA cannot fuse the page gather into attention; a hand-written paged
+kernel reads the pages where they lie, and a suffix prefill reads the pool
+in place too.
 
 Held back (constructor knobs; setting one on raises NotImplementedError):
-``prefix_cache`` (with ``prefill_continue``), ``prefill_chunk`` (chunked
-admission prefill), ``spec`` (speculative chunks and their rate tuner),
-``chunk_view`` / ``persist_view`` / ``pipeline_depth``, and ``warmup()``.
-``prefix_cache=None`` resolves to off. Left out with the serial path for
-requests that cannot join a batch (anyres, multi-image; the port's engine
-serves neither): ``fairness_s``, the drain that keeps such a request from
-starving, and ``continuous=False``, the window-batching baseline of the JAX
-benchmark. Left out as well: ``paged=False``, the JAX scheduler's dense
-per-batch cache, and its fallback to it when the pool cannot hold a
-gathered batch's prompts. Here the requests that do not fit wait for the
-next admission, and a prompt larger than the whole pool fails alone.
+``spec`` (speculative chunks and their rate tuner), ``chunk_view`` /
+``persist_view`` / ``pipeline_depth``, and ``warmup()``. Left out with the
+serial path for requests that cannot join a batch (anyres, multi-image;
+the port's engine serves neither): ``fairness_s``, the drain that keeps
+such a request from starving, and ``continuous=False``, the window-batching
+baseline of the JAX benchmark. Left out as well: ``paged=False``, the JAX
+scheduler's dense per-batch cache, and its fallback to it when the pool
+cannot hold a gathered batch's prompts. Here the requests that do not fit
+wait for the next admission, and a prompt larger than the whole pool fails
+alone.
 
 Where the port differs without changing an output:
   * the device sees the block tables cut to the page watermark (the widest
     row's mapped pages); the JAX tables span the pool, a width XLA compiles
     against. K3's grid then follows the pages in flight, not the pool;
-  * prompts pad to the engine's bucket (64 tokens), not to 256, and an
-    admission's 1-row view maps only its prompt's pages;
+  * prompts, suffixes and admission chunks pad to the engine's bucket (64
+    tokens), not to 256, and an admission's 1-row view maps only its
+    prompt's pages (the JAX widths are canonical so that ``warmup()`` can
+    compile them all; eager torch compiles nothing);
   * a request whose ``prepare`` fails is failed alone, where the JAX
     scheduler fails the gathered batch;
-  * ``counters`` add "prefills" (prefill dispatches), "chunks" and
+  * ``counters`` add "prefills" (prefill dispatches, each admission chunk
+    one), "image_prefills" (those that encode images), "chunks" and
     "decode_steps" (k a chunk); ``trace`` "disp" events carry (batch, live
-    rows, k, ms from dispatch to the host read).
+    rows, k, ms from dispatch to the host read, rows mid-prefill); update
+    stats add "cached_tokens" (prefix tokens the request reused) and
+    "prefill_chunks" (its admission chunks, 0 when single-shot).
 
 Threads: ``submit()`` from any thread; one scheduler thread runs the loop
 under its own ``torch.inference_mode()`` (the mode is per thread) and reads
@@ -93,10 +113,25 @@ class _Request:
     # client-side cancellation: once set, the scheduler aborts the row at
     # the next chunk boundary and releases its pages and slot
     cancel: Optional[threading.Event] = None
+    # prefix tokens reused from the registry, and admission chunks run
+    # (0: prefilled in one dispatch); set by the scheduler thread
+    cached_tokens: int = 0
+    prefill_chunks: int = 0
 
     @property
     def cancelled(self) -> bool:
         return self.cancel is not None and self.cancel.is_set()
+
+
+def _decoder_param_count(dec) -> int:
+    """Rough decoder parameter count from the config, for the scale-aware
+    defaults (only the 0.5B vs 1.5B-and-up split matters)."""
+    h, n_layers = dec.hidden_size, dec.num_layers
+    qh = dec.num_heads * dec.head_dim
+    kvh = dec.num_kv_heads * dec.head_dim
+    per_layer = h * qh + 2 * h * kvh + qh * h + 3 * h * dec.intermediate_size
+    embed = dec.vocab_size * h * (1 if dec.tie_word_embeddings else 2)
+    return n_layers * per_layer + embed
 
 
 def _round_batch(n: int, caps=(1, 2, 4, 8)) -> int:
@@ -104,6 +139,29 @@ def _round_batch(n: int, caps=(1, 2, 4, 8)) -> int:
         if n <= c:
             return c
     return caps[-1]
+
+
+def _prefill_chunk_bounds(lo: int, hi: int, w: int,
+                          img_s: int, img_e: int) -> List[int]:
+    """Chunk boundaries [lo, ..., hi] of a chunked admission prefill: every
+    ``w`` tokens, but never strictly inside the image span [img_s, img_e),
+    which the vision embeddings overlay as one block, so one chunk covers
+    it. That chunk is exactly [img_s, min(img_e, hi)): a boundary is forced
+    at img_s even where the running chunk could take the whole span.
+    img_s < 0: no image (text-only requests still carry sentinel slots,
+    which may split freely)."""
+    bounds = [lo]
+    p = lo
+    while p < hi:
+        n = min(p + w, hi)
+        if 0 <= img_s < img_e:
+            if p < img_s < n:
+                n = img_s          # a boundary at the span's start
+            elif p == img_s:
+                n = min(img_e, hi)  # the image chunk
+        bounds.append(n)
+        p = n
+    return bounds
 
 
 class PagePool:
@@ -154,6 +212,92 @@ class PagePool:
                 self._free.append(p)
 
 
+class PrefixCache:
+    """Page-aligned prompt-prefix reuse over the shared page pool.
+
+    A full page of prompt KV never changes once written (a row writes only
+    at positions >= its prompt length, and a suffix prefill starts at the
+    cached boundary), so rows whose prompts share a token prefix can map
+    the same pool pages read-only. Entries are keyed by the exact token ids
+    of each full-page prefix; a hit maps its pages into the new row's table
+    and only the suffix is prefilled. Causal attention and absolute RoPE
+    positions make the reuse exact: the prefix's KV depends only on the
+    ids before it. Image prompts take part up to their first image slot
+    (image KV depends on pixels, not ids).
+
+    The registry holds one pool reference per entry page; when the pool
+    cannot satisfy an allocation, least recently used entries go first."""
+
+    def __init__(self, pool: PagePool, page_size: int,
+                 max_entries: int = 256):
+        self.pool = pool
+        self.page = page_size
+        self.max_entries = max_entries
+        self.entries: "collections.OrderedDict[bytes, List[int]]" = \
+            collections.OrderedDict()
+        self.hits = 0
+        self.misses = 0
+
+    @staticmethod
+    def _key(ids, n: int) -> bytes:
+        return np.asarray(ids[:n], np.int32).tobytes()
+
+    def peek(self, ids) -> int:
+        """Length of the longest cached full-page prefix of ``ids``, taking
+        no references (a gathered batch plans one offset for all rows
+        before mapping any)."""
+        for j in range(len(ids) // self.page, 0, -1):
+            if self._key(ids, j * self.page) in self.entries:
+                return j * self.page
+        return 0
+
+    def lookup(self, ids) -> Tuple[int, List[int]]:
+        """Longest cached full-page prefix of ``ids`` -> (cached_len,
+        pages), with one pool reference a page taken FOR THE CALLER (the
+        row releases them like its own pages); (0, []) on a miss."""
+        for j in range(len(ids) // self.page, 0, -1):
+            key = self._key(ids, j * self.page)
+            pages = self.entries.get(key)
+            if pages is not None:
+                self.entries.move_to_end(key)
+                self.pool.share(pages)
+                self.hits += 1
+                return j * self.page, list(pages)
+        self.misses += 1
+        return 0, []
+
+    def publish(self, ids, pages: List[int]) -> None:
+        """Register every full-page prefix of ``ids``, whose KV lies in
+        ``pages`` (one a page, in order). A new entry takes pool references
+        on its pages; an existing one is left alone (its pages hold the
+        same KV)."""
+        n_full = min(len(ids) // self.page, len(pages))
+        for j in range(1, n_full + 1):
+            key = self._key(ids, j * self.page)
+            if key in self.entries:
+                self.entries.move_to_end(key)
+                continue
+            entry = list(pages[:j])
+            self.pool.share(entry)
+            self.entries[key] = entry
+        while len(self.entries) > self.max_entries:
+            _, old = self.entries.popitem(last=False)
+            self.pool.release(old)
+
+    def evict_for(self, n: int) -> bool:
+        """Drop least recently used entries until the pool could satisfy
+        an ``n``-page allocation. True if it can."""
+        while self.pool.free_pages < n and self.entries:
+            _, pages = self.entries.popitem(last=False)
+            self.pool.release(pages)
+        return self.pool.free_pages >= n
+
+    def clear(self) -> None:
+        for pages in self.entries.values():
+            self.pool.release(pages)
+        self.entries.clear()
+
+
 class BatchScheduler:
     """Wraps an Engine; submit() returns an iterator of cumulative-text
     updates like Engine.stream's, each with its stats and finish reason."""
@@ -162,12 +306,16 @@ class BatchScheduler:
                  page_size: int = 64,
                  pool_tokens: int = 16384,
                  prefix_cache: Optional[bool] = None,
-                 prefill_chunk: Optional[int] = None, spec: bool = False,
-                 chunk_view: bool = False, persist_view: bool = False,
-                 pipeline_depth: int = 1):
-        held = {"prefix_cache": bool(prefix_cache),
-                "prefill_chunk": bool(prefill_chunk), "spec": spec,
-                "chunk_view": chunk_view, "persist_view": persist_view,
+                 prefill_chunk: Optional[int] = None, max_pending: int = 2,
+                 spec: bool = False, chunk_view: bool = False,
+                 persist_view: bool = False, pipeline_depth: int = 1):
+        """``prefix_cache`` / ``prefill_chunk``: None picks the JAX
+        scheduler's scale-aware default, on (256-token chunks) from 1e9
+        decoder parameters and off below; False / 0 turns one off.
+        ``max_pending`` bounds the rows mid-prefill (their pages are held
+        but produce no tokens yet)."""
+        held = {"spec": spec, "chunk_view": chunk_view,
+                "persist_view": persist_view,
                 "pipeline_depth": pipeline_depth > 1}
         for name, on in held.items():
             if on:
@@ -181,6 +329,17 @@ class BatchScheduler:
         self.window_s = window_ms / 1000.0
         self.page_size = page_size
         self.pool = PagePool(max(1, pool_tokens // page_size))
+        # a suffix prefill skips the prefix's compute, which pays for the
+        # host bookkeeping only where prefill is expensive: 1.5B and up
+        large = _decoder_param_count(engine.cfg.decoder) >= 1e9
+        if prefix_cache is None:
+            prefix_cache = large
+        self.prefix = PrefixCache(self.pool, page_size) if prefix_cache \
+            else None
+        if prefill_chunk is None:
+            prefill_chunk = 256 if large else 0
+        self.prefill_chunk = int(prefill_chunk or 0)
+        self.max_pending = max(1, max_pending)
         self.queue: "queue.Queue[_Request]" = queue.Queue()
         self._stop = False
         self._pool_kv = None  # lazy (k_pages, v_pages) device tensors
@@ -270,6 +429,18 @@ class BatchScheduler:
                     for r in batch:
                         r.out.put({"error": str(e)})
                         r.out.put(_SENTINEL)
+                if self.trace is not None:
+                    self.trace.append((time.perf_counter(), "batch_end"))
+
+    def _alloc_pages(self, n: int) -> Optional[List[int]]:
+        """pool.alloc with prefix-cache eviction: pages the registry pins
+        are a cache, not a reservation; live rows win."""
+        got = self.pool.alloc(n)
+        if got is None and self.prefix is not None \
+                and self.prefix.evict_for(n):
+            self.counters["prefix_evicted_for_rows"] += 1
+            got = self.pool.alloc(n)
+        return got
 
     def _device_tables(self, tables: np.ndarray,
                        row_pages: List[List[int]]) -> torch.Tensor:
@@ -295,7 +466,7 @@ class BatchScheduler:
                     f"pool ({self.pool.num_pages} pages of {self.page_size})")})
                 r.out.put(_SENTINEL)
                 continue
-            got = None if waiting else self.pool.alloc(need)
+            got = None if waiting else self._alloc_pages(need)
             if got is None:
                 waiting.append(r)
                 continue
@@ -329,7 +500,7 @@ class BatchScheduler:
         return cache, tables
 
     def _grow_pages(self, cache, tables, row_pages, cur_len, finished, slots,
-                    k, reasons, force=False, budget=None):
+                    k, reasons, force=False, budget=None, pending=()):
         """Chunk-boundary page accounting: free straggler pages of finished
         rows, map pages covering the next k tokens of each active row
         (``cur_len[i]`` = row i's current device length). Exhaustion
@@ -337,11 +508,14 @@ class BatchScheduler:
         stalling the batch. ``force`` pushes the host tables to the device
         even with no new mappings (a just-closed row zeroed its table so its
         later writes drop instead of landing in pages the pool may
-        re-issue)."""
+        re-issue). ``pending``: rows mid-prefill, which hold their prompt's
+        pages already and whose table row stays -1 until activation."""
         page = self.page_size
         pps = tables.shape[1]
         changed = force
         for i in range(len(finished)):
+            if i in pending:
+                continue
             if finished[i] or slots[i] is None:
                 if row_pages[i]:
                     self.pool.release(row_pages[i])
@@ -359,7 +533,7 @@ class BatchScheduler:
             delta = need - len(row_pages[i])
             if delta <= 0:
                 continue
-            got = self.pool.alloc(delta)
+            got = self._alloc_pages(delta)
             if got is None:
                 logger.warning(
                     "page pool exhausted (%d rows in flight); truncating row %d",
@@ -380,6 +554,69 @@ class BatchScheduler:
             cache = dataclasses.replace(
                 cache, block_tables=self._device_tables(tables, row_pages))
         return cache
+
+    def _count_prefill(self, encodes_images: bool) -> None:
+        self.counters["prefills"] += 1
+        if encodes_images:
+            self.counters["image_prefills"] += 1
+
+    def _prefill_suffix(self, images, ids_row, start: int, c0: int, c1: int,
+                        view):
+        """Prefill prompt tokens [c0, c1) of a 1-row pool view after c0
+        tokens already there (a prefix-cache hit's suffix, or one admission
+        chunk), padded to the engine's bucket. The image goes in only when
+        [c0, c1) covers its start. Returns (logits, view)."""
+        engine = self.engine
+        dev = engine.device
+        w = c1 - c0
+        sids = np.zeros((1, -(-w // engine.bucket) * engine.bucket), np.int32)
+        sids[0, :w] = ids_row[c0:c1]
+        has_img = images is not None and c0 <= start < c1
+        logits, view = engine.prefill_suffix(
+            images if has_img else None, torch.from_numpy(sids).to(dev),
+            torch.tensor([w], dtype=torch.int32, device=dev),
+            torch.tensor([start - c0 if has_img else -1], dtype=torch.int32,
+                         device=dev), c0, view)
+        self._count_prefill(has_img)
+        return logits, view
+
+    def _reuse_batch_prefix(self, rows, starts_l, n_real, row_pages,
+                            tables) -> int:
+        """Batch-level prefix reuse: where EVERY gathered row extends one
+        cached prefix (a burst of prompts sharing a template), map its pages
+        into every row in place of the row's own first pages. One offset
+        serves the batch, the longest prefix common to all rows, each row
+        bounded by its first image slot and its last prompt token (whose
+        logits give the first token). Returns that offset, 0 for none."""
+        if self.prefix is None:
+            return 0
+        bounds = [min(starts_l[i] if starts_l[i] >= 0 else len(rows[i]),
+                      len(rows[i]) - 1) for i in range(n_real)]
+        # peek(ids[:bound]) is page-aligned and <= bound: the min is a valid
+        # common offset for every row
+        cached = min(self.prefix.peek(rows[i][:max(bounds[i], 0)])
+                     for i in range(n_real))
+        if not cached:
+            return 0
+        n_shared = cached // self.page_size
+        taken = []
+        for i in range(n_real):
+            ln, shared = self.prefix.lookup(rows[i][:cached])
+            # the exact entry may be gone while a longer one stays (the LRU
+            # bound evicts each prefix length apart): no common offset
+            if ln != cached:
+                self.pool.release(shared)
+                for _, pgs in taken:
+                    self.pool.release(pgs)
+                return 0
+            taken.append((i, shared))
+        for i, shared in taken:
+            self.pool.release(row_pages[i][:n_shared])
+            row_pages[i][:n_shared] = shared
+            tables[i, :n_shared] = shared
+        self.counters["prefix_hits"] += n_real
+        self.counters["prefix_hit_tokens"] += cached * n_real
+        return cached
 
     def _run_batch(self, batch: List[_Request]):
         engine = self.engine
@@ -428,6 +665,11 @@ class BatchScheduler:
             zero = torch.zeros((s, s, 3), dtype=engine._dtype, device=dev)
             images = torch.stack([zero if x is None else x for x in imgs])
             cache, tables = self._batch_cache(b, row_pages)
+            batch_cached = self._reuse_batch_prefix(rows, starts_l, n_real,
+                                                    row_pages, tables)
+            if batch_cached:
+                cache = dataclasses.replace(
+                    cache, block_tables=self._device_tables(tables, row_pages))
         except BaseException:
             for pgs in row_pages:
                 self.pool.release(pgs)
@@ -454,6 +696,15 @@ class BatchScheduler:
         ttfts = [0.0] * b
         queue_ms = [0.0] * b
         tables_dirty = False  # host tables changed; push at next boundary
+        for r in batch:
+            r.cached_tokens = batch_cached
+        # chunked admission: slot index -> mid-prefill state. A pending row
+        # holds its slot (which keeps the loop alive and the slot taken) and
+        # its pages (row_pages[i]), but its host table row stays -1 until
+        # activation: the device never sees its pages before then, so the
+        # decode writes of the row (a free slot's, done on the device) drop
+        # into the sink
+        pending: Dict[int, dict] = {}
 
         # per-row sampling knobs, rebuilt only when the slots' mix changes
         _rs_cache = {"sig": None, "rs": None}
@@ -490,7 +741,9 @@ class BatchScheduler:
                                  "queue_ms": queue_ms[i],
                                  "decode_tokens": len(texts[i]),
                                  "batch_size": n_active(),
-                                 "finish_reason": reasons[i]}})
+                                 "finish_reason": reasons[i],
+                                 "cached_tokens": r.cached_tokens,
+                                 "prefill_chunks": r.prefill_chunks}})
             if finished[i]:
                 r.out.put(_SENTINEL)
                 if row_pages[i]:
@@ -552,6 +805,11 @@ class BatchScheduler:
             queue_ms = moved(queue_ms, lambda: 0.0)
             cur_len = moved(cur_len, lambda: 0)
             row_pages = moved(row_pages, list)
+            # mid-prefill rows move with their slots (ascending order cannot
+            # collide: compaction maps every index down or onto itself)
+            remap = {i: j for j, i in enumerate(mapping)}
+            for old_i in sorted(pending):
+                pending[remap[old_i]] = pending.pop(old_i)
             b = new_b
             tables = new_tables
             tables_dirty = False  # pushed below
@@ -614,28 +872,88 @@ class BatchScheduler:
                 if plen + r.max_new_tokens > tables.shape[1] * self.page_size:
                     self._deferred.append(r)  # more than the pool: next batch
                     break
+                ids_row = prep["ids"][0, :plen].cpu().numpy()
+                start0 = int(prep["starts"][0])
+                cached_len, shared = 0, []
+                if self.prefix is not None and prep["vision_embeds"] is None:
+                    # reuse ends before the first image slot (image KV
+                    # depends on pixels, not ids) and before the last prompt
+                    # token (its logits give the first token)
+                    bound = min(start0 if start0 >= 0 else plen, plen - 1)
+                    cached_len, shared = self.prefix.lookup(
+                        ids_row[:max(bound, 0)])
                 need = -(-plen // self.page_size)
-                got = self.pool.alloc(need)
+                got = self._alloc_pages(need - len(shared))
                 if got is None:
+                    self.pool.release(shared)  # hand back the row's refs
                     self._deferred.append(r)  # pool full; retry next boundary
                     break
+                row_pgs = shared + got
                 i = slots.index(None)
-                tables[i, :] = -1
-                tables[i, :need] = got
-                row_pages[i] = got
-                view = PagedKVCache(
-                    k_pages=cache.k_pages, v_pages=cache.v_pages,
-                    block_tables=torch.tensor([got], dtype=torch.int32,
-                                              device=dev),
-                    lengths=torch.zeros((1,), dtype=torch.int32, device=dev))
+                r.cached_tokens = cached_len
+                if cached_len:
+                    self.counters["prefix_hits"] += 1
+                    self.counters["prefix_hit_tokens"] += cached_len
                 wait_ms = (time.perf_counter() - r.t_submit) * 1000
                 t0 = time.perf_counter()
+                if (self.prefill_chunk and prep["vision_embeds"] is None
+                        and plen - cached_len > self.prefill_chunk
+                        and len(pending) < self.max_pending
+                        and n_active() > len(pending)):
+                    # chunked admission, worth it only while another row is
+                    # live: reserve the slot and pages now, prefill a chunk
+                    # a boundary (advance_pending); the table row stays -1
+                    # until activation. Text-only requests carry sentinel
+                    # slots but no pixels: their chunks may split the slots
+                    img_s = start0 if (start0 >= 0
+                                       and prep["images"] is not None) else -1
+                    img_e = img_s + cfg.num_image_tokens if img_s >= 0 else -1
+                    row_pages[i] = row_pgs
+                    tables[i, :] = -1
+                    pending[i] = {
+                        "r": r, "ids": ids_row, "plen": plen, "start": start0,
+                        "images": prep["images"],
+                        "bounds": _prefill_chunk_bounds(
+                            cached_len, plen, self.prefill_chunk, img_s,
+                            img_e),
+                        "bi": 0, "t0": t0, "wait_ms": wait_ms,
+                        "table": torch.tensor([row_pgs], dtype=torch.int32,
+                                              device=dev)}
+                    slots[i] = r
+                    batch.append(r)
+                    texts[i] = []
+                    finished[i] = False
+                    reasons[i] = None
+                    caps[i] = r.max_new_tokens
+                    budget_tok[i] = plen + r.max_new_tokens
+                    emitted[i] = 0
+                    cur_len[i] = 0
+                    self.counters["chunked_admissions"] += 1
+                    if self.trace is not None:
+                        self.trace.append((time.perf_counter(), "padmit", i,
+                                           plen))
+                    continue
+                tables[i, :] = -1
+                tables[i, :need] = row_pgs
+                row_pages[i] = row_pgs
+                view = PagedKVCache(
+                    k_pages=cache.k_pages, v_pages=cache.v_pages,
+                    block_tables=torch.tensor([row_pgs], dtype=torch.int32,
+                                              device=dev),
+                    lengths=torch.zeros((1,), dtype=torch.int32, device=dev))
                 try:
-                    logits, view = vlm.prefill(
-                        engine.params, cfg, prep["images"], prep["ids"],
-                        prep["lens"], prep["starts"], view,
-                        vision_embeds=prep["vision_embeds"])
-                    self.counters["prefills"] += 1
+                    if cached_len:
+                        # prefill only the suffix, attending the shared
+                        # prefix pages read-only
+                        logits, view = self._prefill_suffix(
+                            prep["images"], ids_row, start0, cached_len, plen,
+                            view)
+                    else:
+                        logits, view = vlm.prefill(
+                            engine.params, cfg, prep["images"], prep["ids"],
+                            prep["lens"], prep["starts"], view,
+                            vision_embeds=prep["vision_embeds"])
+                        self._count_prefill(prep["images"] is not None)
                     t_new = int(sample(self._gen, logits, r.sampling)[0])
                 except Exception as e:
                     # fail this request alone and keep the batch alive
@@ -665,6 +983,11 @@ class BatchScheduler:
                 budget_tok[i] = plen + r.max_new_tokens
                 emitted[i] = 0
                 cur_len[i] = plen
+                if self.prefix is not None and prep["vision_embeds"] is None:
+                    # the row's full prompt pages before its image hold
+                    # reusable KV now
+                    self.prefix.publish(
+                        ids_row[:start0 if start0 >= 0 else plen], row_pgs)
                 ttfts[i] = (time.perf_counter() - t0) * 1000
                 queue_ms[i] = wait_ms
                 first_token(i, t_new)
@@ -679,11 +1002,89 @@ class BatchScheduler:
                 done = torch.from_numpy(hd).to(dev)
             return cache, tok, done
 
+        def advance_pending(cache, tok, done):
+            """One prefill chunk for every mid-prefill row, over its 1-row
+            view of the pool in place. The final chunk activates the row as
+            a single-shot admission does: it samples the first token from
+            the chunk's last logits, exposes the row's pages in the batch
+            table, sets its length and publishes its prefix."""
+            nonlocal tables_dirty
+            ht = hd = None
+            for i in sorted(pending):
+                st = pending[i]
+                r = st["r"]
+                c0, c1 = st["bounds"][st["bi"]], st["bounds"][st["bi"] + 1]
+                view = PagedKVCache(
+                    k_pages=cache.k_pages, v_pages=cache.v_pages,
+                    block_tables=st["table"],
+                    lengths=torch.full((1,), c0, dtype=torch.int32,
+                                       device=dev))
+                t_ck = time.perf_counter()
+                try:
+                    logits, _ = self._prefill_suffix(
+                        st["images"], st["ids"], st["start"], c0, c1, view)
+                    if c1 == st["plen"]:
+                        t_new = int(sample(self._gen, logits,
+                                           r.sampling)[0])
+                except Exception as e:
+                    # fail this request alone, as a single-shot admission
+                    logger.exception("pending prefill chunk failed")
+                    self.pool.release(row_pages[i])
+                    row_pages[i] = []
+                    pending.pop(i)
+                    slots[i] = None
+                    finished[i] = True
+                    r.out.put({"error": str(e)})
+                    r.out.put(_SENTINEL)
+                    continue
+                st["bi"] += 1
+                r.prefill_chunks += 1
+                self.counters["prefill_chunks"] += 1
+                if self.trace is not None:
+                    self.trace.append((time.perf_counter(), "pchunk", i, c0,
+                                       c1, (time.perf_counter() - t_ck)
+                                       * 1000))
+                if c1 < st["plen"]:
+                    continue
+                # the last chunk: activate the row
+                plen = st["plen"]
+                if ht is None:
+                    ht = tok.cpu().numpy().copy()
+                    hd = done.cpu().numpy().copy()
+                lengths = cache.lengths.cpu().numpy().copy()
+                lengths[i] = plen
+                tables[i, :] = -1
+                tables[i, :len(row_pages[i])] = row_pages[i]
+                cache = dataclasses.replace(
+                    cache, block_tables=self._device_tables(tables, row_pages),
+                    lengths=torch.from_numpy(lengths).to(dev))
+                tables_dirty = False  # pushed above
+                cur_len[i] = plen
+                if self.prefix is not None:
+                    self.prefix.publish(
+                        st["ids"][:st["start"] if st["start"] >= 0 else plen],
+                        row_pages[i])
+                pending.pop(i)
+                ttfts[i] = (time.perf_counter() - st["t0"]) * 1000
+                queue_ms[i] = st["wait_ms"]
+                first_token(i, t_new)
+                self.counters["admitted"] += 1
+                if self.trace is not None:
+                    self.trace.append((time.perf_counter(), "activate", i,
+                                       plen, ttfts[i]))
+                ht[i] = t_new
+                hd[i] = finished[i] or slots[i] is None
+            if ht is not None:
+                tok = torch.from_numpy(ht).to(dev)
+                done = torch.from_numpy(hd).to(dev)
+            return cache, tok, done
+
         def sweep_cancelled():
             """Abort client-cancelled rows at the chunk boundary: the stream
             closes and pages release via the normal finish path. On the
             device the row behaves like a host-finished row: its writes
-            drop through the zeroed table."""
+            drop through the zeroed table. A row mid-prefill drops its
+            reserved pages and closes."""
             for i in range(b):
                 r = slots[i]
                 if r is None or not r.cancelled:
@@ -691,6 +1092,14 @@ class BatchScheduler:
                 self.counters["cancelled"] += 1
                 if self.trace is not None:
                     self.trace.append((time.perf_counter(), "cancel", i))
+                if i in pending:  # its table row is still -1
+                    pending.pop(i)
+                    self.pool.release(row_pages[i])
+                    row_pages[i] = []
+                    slots[i] = None
+                    finished[i] = True
+                    r.out.put(_SENTINEL)
+                    continue
                 if not finished[i]:
                     finished[i] = True
                     reasons[i] = "cancelled"
@@ -699,14 +1108,38 @@ class BatchScheduler:
         batch_ok = False
         try:
             t0 = time.perf_counter()
-            logits, cache = vlm.prefill(
-                engine.params, cfg, images, torch.from_numpy(ids).to(dev),
-                torch.from_numpy(lens).to(dev),
-                torch.from_numpy(starts).to(dev), cache)
-            self.counters["prefills"] += 1
+            if batch_cached:
+                # every row extends the cached prefix: prefill the suffixes
+                sfx = [rows[i][batch_cached:] for i in range(n_real)]
+                w = max(len(x) for x in sfx)
+                sids = np.zeros((b, -(-w // engine.bucket) * engine.bucket),
+                                np.int32)
+                slens = np.zeros((b,), np.int32)
+                sstarts = np.full((b,), -1, np.int32)
+                for i, x in enumerate(sfx):
+                    sids[i, :len(x)] = x
+                    slens[i] = len(x)
+                    if starts_l[i] >= 0:
+                        sstarts[i] = starts_l[i] - batch_cached
+                logits, cache = engine.prefill_suffix(
+                    images, torch.from_numpy(sids).to(dev),
+                    torch.from_numpy(slens).to(dev),
+                    torch.from_numpy(sstarts).to(dev), batch_cached, cache)
+            else:
+                logits, cache = vlm.prefill(
+                    engine.params, cfg, images, torch.from_numpy(ids).to(dev),
+                    torch.from_numpy(lens).to(dev),
+                    torch.from_numpy(starts).to(dev), cache)
+            self._count_prefill(True)
             tok = sample_rows(self._gen, logits, row_samp())
             host_tok = tok.cpu().numpy()  # the host read waits for the device
             ttft_ms = (time.perf_counter() - t0) * 1000
+            if self.prefix is not None:
+                # the rows' prompt pages before their images hold reusable
+                # KV now: publish them for later admissions
+                for i in range(n_real):
+                    pub = starts_l[i] if starts_l[i] >= 0 else len(rows[i])
+                    self.prefix.publish(rows[i][:pub], row_pages[i])
             for i in range(b):
                 if slots[i] is None:
                     continue
@@ -726,9 +1159,12 @@ class BatchScheduler:
                                        n_active(), b))
                 sweep_cancelled()
                 cache, tok, done = try_admit(cache, tok, done)
+                if pending:
+                    cache, tok, done = advance_pending(cache, tok, done)
                 cache = self._grow_pages(cache, tables, row_pages, cur_len,
                                          finished, slots, k, reasons,
-                                         force=tables_dirty, budget=budget_tok)
+                                         force=tables_dirty, budget=budget_tok,
+                                         pending=pending)
                 tables_dirty = False
                 # pool exhaustion may have truncated rows: close them now
                 for i in range(b):
@@ -736,7 +1172,11 @@ class BatchScheduler:
                         emit(i)
                 if n_active() == 0:
                     break
-                act_n = n_active()
+                if n_active() == len(pending):
+                    # nothing to decode yet: spend the boundary on the
+                    # prefills instead of an all-done chunk
+                    continue
+                act_n = n_active() - len(pending)  # rows that decode
                 t_disp = time.perf_counter()
                 toks, done, tok, cache = vlm.decode_chunk(
                     engine.params, cfg, tok, done, cache, self._gen, k=k,
@@ -748,9 +1188,11 @@ class BatchScheduler:
                 self.counters["decode_steps"] += k
                 if self.trace is not None:
                     self.trace.append((time.perf_counter(), "disp", b, act_n,
-                                       k, dt * 1000))
+                                       k, dt * 1000, len(pending)))
                 for i in range(b):
-                    if slots[i] is None:
+                    if slots[i] is None or i in pending:
+                        # a pending row is a free slot on the device: its
+                        # chunk slots are not its text
                         continue
                     for t in host[i]:
                         t = int(t)
@@ -793,8 +1235,11 @@ class BatchScheduler:
             row_pages = [[] for _ in range(b)]
             if not batch_ok:
                 # a failed dispatch may have left the pool mid-write (or the
-                # device in a bad state): reallocate for the next batch
+                # device in a bad state): reallocate for the next batch; the
+                # cached prefixes' KV lived in that pool, so they go too
                 self._pool_kv = None
+                if self.prefix is not None:
+                    self.prefix.clear()
 
         # safety net: emit() closed every stream on finish; a second
         # sentinel after a close is unread

@@ -480,7 +480,10 @@ def test_prompt_larger_than_pool_fails_alone(eng):
 
 
 @pytest.mark.parametrize("knob", [
-    {"prefix_cache": True}, {"prefill_chunk": 256}, {"spec": True},
+    # the prefix cache and chunked admission are ported
+    # (tests/test_torch_prefix_cache.py); what they come with still raises
+    {"prefix_cache": True, "spec": True},
+    {"prefill_chunk": 256, "persist_view": True}, {"spec": True},
     {"chunk_view": True}, {"persist_view": True}, {"pipeline_depth": 2}])
 def test_unported_knobs_raise(eng, knob):
     with pytest.raises(NotImplementedError, match="not yet ported"):

@@ -123,16 +123,20 @@ def test_prepare_ids_and_pixels_match_jax(engines):
 
 def test_array_image_rules_match_jax(engines):
     """Float arrays with max > 1.5 are taken as [0, 255], [0, 1] floats pass
-    as they are; arrays of another size than the model's raise (the resize is
-    not ported)."""
+    as they are; arrays of another size than the model's are padded and
+    resized as the JAX engine does them (to float rounding of the bicubic
+    weights: atol 1e-5, tests/test_torch_image_ops.py)."""
     je, te = engines
     x = np.random.RandomState(5).rand(128, 128, 3).astype(np.float32)
     for arr in (x, x * 255.0):
         np.testing.assert_allclose(
             te.prepare_array_image(arr).numpy(),
             np.asarray(je.prepare_array_image(arr)), rtol=0, atol=1e-7)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        te.prepare_array_image(x[:64])
+    got = te.prepare_array_image(x[:64])
+    assert got.shape == (1, 128, 128, 3)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(je.prepare_array_image(x[:64])),
+                               rtol=0, atol=1e-5)
 
 
 def test_pil_pad_preprocessing_matches_jax():
