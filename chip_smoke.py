@@ -99,10 +99,30 @@ non-zero):
               Prints each frame's TTFT (suffix prefill) beside a full
               prefill of the same prompt and frame on the same engine, and
               per-frame total ms, sequential and pipelined
- 10. small    a small f32 model on the card (kernels) agrees with the same
-              model on the CPU (plain versions), logits and greedy ids; the
+ 10. spec     prompt-lookup speculative decoding on phase 6's engine, batch
+              1, greedy, 64 new tokens: 3 prompts (the main one, one that
+              repeats a phrase, the video question) each through generate,
+              generate_spec and stream(spec=True), in turns; checks K1 = 44
+              per request, no K2 in a spec request (verify passes take the
+              plain attention), stream(spec=True)'s text = generate_spec's,
+              each spec answer's dense teacher-forced replay (K2) within the
+              tie margin; prints plain and spec tok/s, verify passes, tokens
+              a pass, accept rate, and a verify pass's wall ms, device ms
+              and launches (profiler, which must show no K2) beside a plain
+              step's. Then VideoQA(spec=True) over the video phase's 6
+              frames (K1 = 44 a frame, no K2, pipelined == sequential ids,
+              replays; frame ms beside a plain VideoQA's). Then a
+              BatchScheduler(spec=True) (spec_max_rows 1): one greedy
+              request alone in spec chunks, a second admitted, after which
+              plain chunks serve both (spec dispatches > 0, K3 = 24 a plain
+              step, no K2, pool back, replays of both)
+ 11. small    a small f32 model on the card (kernels) agrees with the same
+              model on the CPU (plain versions), logits and greedy ids, and
+              spec_decode's tokens, counts, passes and acceptances; the
               same model through a BatchScheduler on the card and on the CPU
-              gives 3 concurrent greedy requests the serial engine's ids
+              gives 3 concurrent greedy requests the serial engine's ids,
+              and one greedy request through BatchScheduler(spec=True) on
+              the card gives them too
 
 f32 comparisons run with TF32 off for both matmuls and cuDNN convolutions:
 the script sets torch.backends.cuda.matmul.allow_tf32 and
@@ -1356,6 +1376,288 @@ def phase_video(card, engine):
             "ttft_ms": sfx, "full_ttft_ms": full}
 
 
+SPEC_PROMPTS = ["Describe the image.",
+                "Say this three times: the red car is fast, the red car is "
+                "fast, the red car is fast.",
+                "What is happening in this frame?"]
+
+
+def _spec_pass_profile(engine, image):
+    """A verify pass (one pass of spec_stream_chunk, draft 8) against a
+    plain decode step, at batch 1 after the main prompt's prefill: wall ms
+    from dispatch to the host read (median of 8, in turns pass, step, step,
+    pass), then one profiled run of 4 of each: device ms and launches a
+    pass / step, and K2's launches in the passes."""
+    import dataclasses
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fastvlm_tpu_torch.models import vlm
+    from fastvlm_tpu_torch.ops.kv_cache import init_cache
+
+    cfg, dec = engine.cfg, engine.cfg.decoder
+    k, budget = 8, 256
+    with torch.inference_mode():
+        inputs = engine.prepare(engine.build_prompt(SPEC_PROMPTS[0]), image)
+        t = inputs["ids"].shape[1]
+        cache = init_cache(dec.num_layers, 1, vlm.spec_cache_len(t, budget, k),
+                           dec.num_kv_heads, dec.head_dim, torch.bfloat16,
+                           "cuda")
+        logits, cache = vlm.prefill(engine.params, cfg, inputs["images"],
+                                    inputs["ids"], inputs["lens"],
+                                    inputs["starts"], cache)
+        tok0 = logits.argmax(-1).to(torch.int32)
+        start = cache.lengths.clone()
+        carry0 = vlm.spec_carry_init(cfg, tok0, cache, inputs["ids"],
+                                     inputs["lens"], max_new_tokens=budget,
+                                     draft_k=k, eos_ids=(-1,))
+
+        def passes(n):
+            """n verify passes from the prefilled state; ms of each and the
+            tokens committed."""
+            carry = carry0._replace(
+                hist=carry0.hist.clone(),
+                cache=dataclasses.replace(cache, lengths=start.clone()))
+            ms, committed = [], 0
+            for _ in range(n):
+                t0 = time.perf_counter()
+                _, counts, carry = vlm.spec_stream_chunk(
+                    engine.params, cfg, carry, m=1, max_new_tokens=budget,
+                    eos_ids=(-1,), draft_k=k)
+                committed += int(counts[0])
+                ms.append((time.perf_counter() - t0) * 1000)
+            return ms, committed
+
+        def steps(n):
+            c = dataclasses.replace(cache, lengths=start.clone())
+            tok, ms = tok0, []
+            for _ in range(n):
+                t0 = time.perf_counter()
+                lg, c = vlm.decode_step(engine.params, cfg, tok, c)
+                tok = lg.argmax(-1).to(torch.int32)
+                int(tok[0])
+                ms.append((time.perf_counter() - t0) * 1000)
+            return ms
+
+        wall = {"pass": [], "step": []}
+        committed = 0
+        passes(2), steps(2)  # warm
+        for what in ("pass", "step", "step", "pass"):
+            if what == "pass":
+                ms, c = passes(8)
+                committed += c
+            else:
+                ms = steps(8)
+            wall[what] += ms
+        prof = {}
+        for what, fn in (("pass", lambda: passes(4)), ("step", lambda: steps(4))):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as pr:
+                fn()
+                torch.cuda.synchronize()
+            rows = [e for e in pr.key_averages()
+                    if e.device_type == DeviceType.CUDA]
+            prof[what] = {
+                "launches": sum(e.count for e in rows) / 4,
+                "device_ms": sum(e.self_device_time_total for e in rows) / 4
+                / 1000,
+                "k2": sum(e.count for e in rows if "decode_kernel" in e.key)
+                / 4}
+    return {"wall_ms": {w: statistics.median(v) for w, v in wall.items()},
+            "tokens_per_pass": committed / 16, "profile": prof}
+
+
+def phase_spec(card, engine):
+    from fastvlm_tpu_torch.ops.cuda.decode_attention import decode_attention
+    from fastvlm_tpu_torch.ops.cuda.ffn import fused_ffn
+    from fastvlm_tpu_torch.ops.cuda.paged_decode_attention import (
+        paged_decode_attention)
+    from fastvlm_tpu_torch.serve.batcher import BatchScheduler
+    from fastvlm_tpu_torch.video import VideoQA, qa_over_stream
+
+    layers = engine.cfg.decoder.num_layers
+    image = np.random.RandomState(0).randint(0, 256, (1024, 1024, 3),
+                                             dtype=np.uint8)
+    cap = 64
+
+    # batch-1 generate: per prompt, in turns plain, spec, spec stream,
+    # plain; K2 counted around each call
+    fused_ffn.launches = 0
+    requests, same_ids, res = 0, 0, {}
+    for n, p in enumerate(SPEC_PROMPTS):
+        prompt = engine.build_prompt(p)
+        r = {"plain": []}
+        for how in ("plain", "spec", "stream", "plain"):
+            before = decode_attention.launches
+            if how == "plain":
+                text, st = engine.generate(prompt, image, max_new_tokens=cap)
+                if decode_attention.launches - before != \
+                        layers * st["decode_steps"]:
+                    raise AssertionError(f"spec prompt {n}: K2 launched "
+                                         f"{decode_attention.launches - before}"
+                                         f" times for {st['decode_steps']} "
+                                         f"plain steps")
+                r["plain"].append((text, st))
+            else:
+                if how == "spec":
+                    text, st = engine.generate_spec(prompt, image,
+                                                    max_new_tokens=cap)
+                else:
+                    last = None
+                    for last in engine.stream(prompt, image,
+                                              max_new_tokens=cap, spec=True):
+                        pass
+                    text, st = last["text"], last["stats"]
+                if decode_attention.launches != before:
+                    raise AssertionError(f"spec prompt {n}: K2 launched "
+                                         f"{decode_attention.launches - before}"
+                                         f" times in a {how} request")
+                r[how] = (text, st)
+            requests += 1
+        if r["stream"][0] != r["spec"][0]:
+            raise AssertionError(f"spec prompt {n}: stream(spec=True) gave "
+                                 f"other ids than generate_spec")
+        same_ids += r["spec"][0] == r["plain"][0][0]
+        res[n] = r
+    if fused_ffn.launches != 44 * requests:
+        raise AssertionError(f"K1 launched {fused_ffn.launches} times for "
+                             f"{requests} requests")
+    for n, r in res.items():
+        sp, stream = r["spec"][1], r["stream"][1]
+        passes = sp["spec_steps"]
+        log("spec", f"prompt {n}: plain {r['plain'][0][1]['tok_per_s']:.2f} / "
+                    f"{r['plain'][1][1]['tok_per_s']:.2f} tok/s (two runs, "
+                    f"{r['plain'][0][1]['decode_tokens']} tokens after the "
+                    f"first); stream(spec=True) {stream['tok_per_s']:.2f} "
+                    f"tok/s ({stream['decode_tokens']} tokens, "
+                    f"{stream['spec_steps']} passes dispatched); generate_spec "
+                    f"{sp['decode_tokens']} tokens in {passes} verify passes, "
+                    f"{(sp['decode_tokens'] - 1) / max(1, passes):.3f} "
+                    f"tokens a pass, accept rate {sp['spec_accept_rate']}, "
+                    f"{sp['tok_per_s']:.2f} tok/s from the prefill's start; "
+                    f"spec ids {'equal' if r['spec'][0] == r['plain'][0][0] else 'differ from'}"
+                    f" the plain ones; ids {r['spec'][0][:48]}...")
+    log("spec", f"launch counts: K1 {fused_ffn.launches} = 44 x {requests} "
+                f"requests; K2 0 in every spec request, 24 a step in the "
+                f"plain ones; stream(spec=True) = generate_spec ids for all "
+                f"3 prompts; {same_ids} of 3 spec answers equal the plain "
+                f"ids exactly")
+    for n, p in enumerate(SPEC_PROMPTS):
+        _check_replay("spec", f"prompt {n}'s spec answer", engine, p, image,
+                      res[n]["spec"][0])
+
+    prof = _spec_pass_profile(engine, image)
+    pp, ps = prof["profile"]["pass"], prof["profile"]["step"]
+    if pp["k2"] != 0:
+        raise AssertionError(f"the profiler shows {pp['k2']} K2 launches a "
+                             f"verify pass")
+    log("spec", f"a verify pass (9 tokens, batch 1) against a plain decode "
+                f"step: wall {prof['wall_ms']['pass']:.3f} against "
+                f"{prof['wall_ms']['step']:.3f} ms (medians of 16, host clock "
+                f"dispatch to read, in turns); device time "
+                f"{pp['device_ms']:.4f} against {ps['device_ms']:.4f} ms in "
+                f"{pp['launches']:.1f} against {ps['launches']:.1f} launches "
+                f"(profiler; K2 0 a pass, {ps['k2']:.1f} a step); "
+                f"{prof['tokens_per_pass']:.3f} tokens a pass there; on {card}")
+
+    # video: plain and spec VideoQA over the video phase's frames
+    question = SPEC_PROMPTS[2]
+    rng = np.random.RandomState(9)
+    frames = [rng.randint(0, 256, (1080, 1920, 3), dtype=np.uint8)
+              for _ in range(6)]
+    VideoQA(engine, question, max_new_tokens=32, spec=True).ask(frames[0])
+    plain_vq = VideoQA(engine, question, max_new_tokens=32)
+    plain_seq = [plain_vq.ask(f) for f in frames]
+    fused_ffn.launches = 0
+    decode_attention.launches = 0
+    seq = [t for t in qa_over_stream(
+        VideoQA(engine, question, max_new_tokens=32, spec=True), frames,
+        latest_only=False)]
+    k1, k2 = fused_ffn.launches, decode_attention.launches
+    t0 = time.perf_counter()
+    piped = list(qa_over_stream(
+        VideoQA(engine, question, max_new_tokens=32, spec=True), frames,
+        latest_only=False, pipelined=True))
+    pipe_ms = (time.perf_counter() - t0) * 1000
+    if k1 != 44 * len(frames) or k2 != 0:
+        raise AssertionError(f"video spec: K1 {k1} for {len(frames)} frames, "
+                             f"K2 {k2}")
+    if [t for t, _ in piped] != [t for t, _ in seq]:
+        raise AssertionError("video spec: pipelined frames gave other ids "
+                             "than the sequential ones")
+    log("video-spec", f"6 frames of 1080x1920, 32 new tokens: spec total "
+                      f"{[s['total_ms'] for _, s in seq]} ms a frame "
+                      f"(median {_median([s['total_ms'] for _, s in seq]):.3f})"
+                      f", {pipe_ms / len(frames):.3f} ms a frame pipelined; "
+                      f"plain VideoQA {[s['total_ms'] for _, s in plain_seq]} "
+                      f"ms (median "
+                      f"{_median([s['total_ms'] for _, s in plain_seq]):.3f});"
+                      f" verify passes {[s['spec_steps'] for _, s in seq]}, "
+                      f"accept rate {[s['spec_accept_rate'] for _, s in seq]}"
+                      f"; {sum(a == b for (a, _), (b, _) in zip(seq, plain_seq))}"
+                      f" of 6 answers equal the plain ones; K1 {k1} = 44 x 6 "
+                      f"frames, K2 0; pipelined ids equal the sequential ones; "
+                      f"on {card}")
+    for n, ((text, _), f) in enumerate(zip(seq, frames)):
+        _check_replay("video-spec", f"frame {n}", engine, question, f, text)
+
+    # the scheduler: one greedy request alone in spec chunks, then a second
+    # admitted, after which plain chunks serve both
+    sched = BatchScheduler(engine, max_batch=8, window_ms=20, page_size=64,
+                           pool_tokens=16384, spec=True)
+    sched.trace = []
+    fused_ffn.launches = 0
+    decode_attention.launches = 0
+    paged_decode_attention.launches = 0
+    try:
+        first = Client(sched, engine, SPEC_PROMPTS[1], image, 96)
+        deadline = time.perf_counter() + JOIN_S
+        while not sched.counters.get("disp_spec@1"):
+            if time.perf_counter() > deadline or first.t_closed:
+                raise AssertionError("spec-serve: no spec chunk ran")
+            time.sleep(0.002)
+        second = Client(sched, engine, SPEC_PROMPTS[0], image, 32)
+        last = [first.result("spec-serve request 0"),
+                second.result("spec-serve request 1")]
+    finally:
+        sched.shutdown()
+    counters = dict(sched.counters)
+    k1, k2, k3 = (fused_ffn.launches, decode_attention.launches,
+                  paged_decode_attention.launches)
+    events = [e[1] for e in sched.trace]
+    if "admit" not in events or "disp" not in events[events.index("admit"):]:
+        raise AssertionError(f"spec-serve: no plain chunk after the "
+                             f"admission: {counters}")
+    if any(e[3] != 1 for e in sched.trace if e[1] == "spec"):
+        raise AssertionError("spec-serve: a spec chunk ran with 2 live rows")
+    if k3 == 0 or k3 != layers * counters["decode_steps"] or k2 != 0:
+        raise AssertionError(f"spec-serve: K3 {k3} for "
+                             f"{counters['decode_steps']} plain steps, K2 {k2}")
+    if k1 != 44 * counters["image_prefills"]:
+        raise AssertionError(f"spec-serve: K1 {k1} for "
+                             f"{counters['image_prefills']} image prefills")
+    if sched.pool.free_pages != sched.pool.num_pages:
+        raise AssertionError("spec-serve: pages still held")
+    spec_ev = [e for e in sched.trace if e[1] == "spec"]
+    plain1 = [e for e in sched.trace if e[1] == "disp" and e[3] == 1]
+    log("spec-serve", f"counters {counters}; {len(spec_ev)} spec chunks of "
+                      f"{spec_ev[0][4]} passes: "
+                      f"{[round(e[5], 3) for e in spec_ev]} ms, committing "
+                      f"{[e[6] for e in spec_ev]} tokens; plain chunks at 1 "
+                      f"live row {[round(e[5], 3) for e in plain1]} ms for "
+                      f"{engine.chunk} tokens; K3 {k3} = {layers} x "
+                      f"{counters['decode_steps']} plain steps, K2 0, K1 {k1} "
+                      f"= 44 x {counters['image_prefills']}; pool "
+                      f"{sched.pool.free_pages}/{sched.pool.num_pages} free; "
+                      f"on {card}")
+    for n, (p, u) in enumerate(zip(SPEC_PROMPTS[:2][::-1], last)):
+        _check_replay("spec-serve", f"request {n}", engine, p, image,
+                      u["text"])
+    return {"k1_launches": 44 * requests, "video_k1": 44 * len(frames),
+            "serve_k1": k1, "serve_k3": k3}
+
+
 def phase_small():
     from fastvlm_tpu_torch.engine import Engine, tiny_config
     from fastvlm_tpu_torch.models import vlm
@@ -1400,6 +1702,36 @@ def phase_small():
                  f"logits max_abs_err {err:.3e} (tol ratio {ratio:.3f} <= 1); "
                  f"24 greedy ids equal: {out['cpu'][1][:50]}...")
 
+    # speculative decode of the same model, on the card and on the CPU
+    spec = {}
+    for dev in ("cuda", "cpu"):
+        engine = Engine(cfg, to_device(cpu_params, dev), IdTokenizer())
+        with torch.inference_mode():
+            inputs = engine.prepare(engine.build_prompt("Say it again: red "
+                                                        "car, red car."),
+                                    image)
+            t = inputs["ids"].shape[1]
+            cache = init_cache(cfg.decoder.num_layers, 1,
+                               vlm.spec_cache_len(t, 24, 8),
+                               cfg.decoder.num_kv_heads, cfg.decoder.head_dim,
+                               torch.float32, dev)
+            logits, cache = vlm.prefill(engine.params, cfg, inputs["images"],
+                                        inputs["ids"], inputs["lens"],
+                                        inputs["starts"], cache)
+            res = vlm.spec_decode(engine.params, cfg, logits, cache,
+                                  inputs["ids"], inputs["lens"],
+                                  max_new_tokens=24, eos_ids=engine.eos_ids,
+                                  draft_k=8)
+        spec[dev] = (res.tokens.cpu().tolist(),
+                     res.num_generated.cpu().tolist(), res.steps,
+                     int(res.drafted), int(res.accepted))
+    if spec["cuda"] != spec["cpu"]:
+        raise AssertionError(f"spec_decode differs: card {spec['cuda']} vs "
+                             f"CPU {spec['cpu']}")
+    log("small", f"spec_decode, tiny f32 model: card and CPU give equal "
+                 f"tokens, counts {spec['cpu'][1]}, {spec['cpu'][2]} passes, "
+                 f"{spec['cpu'][3]} drafted, {spec['cpu'][4]} accepted")
+
     # the same model through the scheduler, on the card and on the CPU:
     # 3 concurrent greedy requests, the serial engine's ids
     prompts = ["Describe the image.", "What is in it?", "Name the colours."]
@@ -1421,8 +1753,21 @@ def phase_small():
     if not batched["cuda"] == batched["cpu"] == serial:
         raise AssertionError(f"scheduler ids differ: card {batched['cuda']} "
                              f"CPU {batched['cpu']} serial {serial}")
+    engine = Engine(cfg, to_device(cpu_params, "cuda"), IdTokenizer())
+    sched = BatchScheduler(engine, window_ms=5, page_size=16, spec=True)
+    try:
+        got = Client(sched, engine, prompts[0], image, 24).result(
+            "small spec request")["text"]
+    finally:
+        sched.shutdown()
+    if not sched.counters.get("disp_spec@1") or got != serial[0]:
+        raise AssertionError(f"spec scheduler on the card: {got} against "
+                             f"serial {serial[0]}, counters "
+                             f"{dict(sched.counters)}")
     log("small", "scheduler, 3 concurrent greedy requests: card (K3) and "
-                 "CPU batched ids equal the serial engine's")
+                 "CPU batched ids equal the serial engine's; one greedy "
+                 "request through BatchScheduler(spec=True) on the card "
+                 f"({sched.counters['disp_spec@1']} spec chunks) too")
 
 
 def main() -> int:
@@ -1448,6 +1793,7 @@ def main() -> int:
     serve_res = phase_serve(card, engine)
     serve15_res = phase_serve_15b(card)
     video_res = phase_video(card, engine)
+    spec_res = phase_spec(card, engine)
     phase_small()
 
     kernels = {"kernels": [
@@ -1458,7 +1804,10 @@ def main() -> int:
          "launches_by_path": {"main": main_res["k1_launches"],
                               "serve": serve_res["k1_launches"],
                               "serve-1.5b": serve15_res["k1_launches"],
-                              "video": video_res["k1_launches"]},
+                              "video": video_res["k1_launches"],
+                              "spec": spec_res["k1_launches"],
+                              "video-spec": spec_res["video_k1"],
+                              "spec-serve": spec_res["serve_k1"]},
          "max_abs_err": k1_err,
          "ms": k1["ms"], "kernel_ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": "operations",
@@ -1486,7 +1835,8 @@ def main() -> int:
          "replaces": "fastvlm_tpu/ops/pallas/decode_attention.py:215",
          "launches": serve_res["k3_launches"],
          "launches_by_path": {"serve": serve_res["k3_launches"],
-                              "serve-1.5b": serve15_res["k3_launches"]},
+                              "serve-1.5b": serve15_res["k3_launches"],
+                              "spec-serve": spec_res["serve_k3"]},
          "max_abs_err": k3_err,
          "ms": k3["ms"], "kernel_ms": k3["kernel_ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": "bytes", "library_ms": None,

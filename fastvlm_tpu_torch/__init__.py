@@ -16,11 +16,14 @@ version. The package imports ``torch`` and never ``jax``.
 Layout:
     models/    FastViTHD encoder, projector, Qwen2 decoder, FastVLM glue
     ops/       conv/norm helpers, KV caches (dense, paged), sampling,
-               splice, CUDA kernels
+               prompt-lookup speculative decoding, splice, image resize,
+               CUDA kernels
     data/      conversation templates, constants, host preprocessing
     utils/     the weight bridge from the JAX package's parameter tree
     serve/     the continuous-batching scheduler over the paged pool
-    engine.py  host API (prepare / stream / generate), predict.py its CLI
+    engine.py  host API (prepare / stream / generate / generate_spec),
+               predict.py its CLI
+    video.py   video-frame QA with the prompt prefix's KV reused
 """
 
 __version__ = "0.1.0"

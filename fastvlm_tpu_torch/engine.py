@@ -6,6 +6,8 @@ pads to a length bucket, allocates the dense KV cache, and streams chunked
 decode with EOS ids, token-level stop keywords and stop strings. Every
 request gets ``RequestStats``: TTFT (encode + prefill + first token on the
 host) and decode time, both ending in a device synchronise on the card.
+Greedy requests may decode speculatively (prompt lookup): ``stream(...,
+spec=True)`` and ``generate_spec``.
 
 Used by: predict CLI, serve/batcher.py, video.py, chip_smoke.py.
 """
@@ -44,20 +46,26 @@ class RequestStats:
     decode_tokens: int = 0
     decode_ms: float = 0.0
     prompt_tokens: int = 0
-    decode_steps: int = 0  # decode steps dispatched (whole chunks)
+    decode_steps: int = 0  # plain decode steps dispatched (whole chunks)
+    spec_steps: int = 0    # verify passes (speculative decode only)
+    spec_accept_rate: float = 0.0
 
     @property
     def tok_per_s(self) -> float:
         return self.decode_tokens / self.decode_ms * 1000 if self.decode_ms else 0.0
 
     def as_dict(self) -> Dict[str, float]:
-        return {
+        d = {
             "ttft_ms": round(self.ttft_ms, 2),
             "decode_tokens": self.decode_tokens,
             "tok_per_s": round(self.tok_per_s, 2),
             "prompt_tokens": self.prompt_tokens,
             "decode_steps": self.decode_steps,
         }
+        if self.spec_steps:
+            d["spec_steps"] = self.spec_steps
+            d["spec_accept_rate"] = round(self.spec_accept_rate, 3)
+        return d
 
 
 class Engine:
@@ -179,11 +187,18 @@ class Engine:
         sampling: SamplingParams = SamplingParams(),
         stop_strings: Sequence[str] = (),
         seed: Optional[int] = None,
+        spec: bool = False,
+        draft_k: int = 8,
     ) -> Iterator[Dict[str, Any]]:
         """Yields {"text": full_text_so_far, "stats": {...}} dicts: one after
-        the first token, then one per decode chunk."""
+        the first token, then one per decode chunk. ``spec=True`` (greedy
+        only) decodes each chunk as ceil(chunk / (draft_k + 1)) speculative
+        verify passes (``vlm.spec_stream_chunk``): the same tokens, one host
+        read a dispatch."""
         cfg = self.cfg
         max_new = max_new_tokens or cfg.max_new_tokens
+        if spec and sampling.temperature > 0:
+            raise ValueError("spec streaming is greedy-only (temperature 0)")
         kw_ids = self._keyword_token_ids(stop_strings)
         inputs = self.prepare(prompt, image)
         ids = inputs["ids"]
@@ -191,9 +206,12 @@ class Engine:
         stats = RequestStats(prompt_tokens=inputs["prompt_tokens"])
 
         # decode dispatches FULL chunk-wide chunks (the tail is cut on the
-        # host), so the cache is sized for n_chunks * chunk writes
+        # host), so the cache is sized for n_chunks * chunk writes; a verify
+        # pass writes draft_k + 1 slots past the committed length
         n_chunks = -(-max_new // self.chunk)
-        cache = init_cache(cfg.decoder.num_layers, b, t + n_chunks * self.chunk,
+        cache = init_cache(cfg.decoder.num_layers, b,
+                           (vlm.spec_cache_len(t, max_new, draft_k) if spec
+                            else t + n_chunks * self.chunk),
                            cfg.decoder.num_kv_heads, cfg.decoder.head_dim,
                            self._dtype, self.device)
         gen = torch.Generator(device=self.device)
@@ -236,6 +254,46 @@ class Engine:
                         return True
             return False
 
+        def emit(stop: bool):
+            """(stop, update) after a dispatch: stop strings cut the text
+            and end the stream."""
+            stats.decode_tokens = decode_tokens
+            stats.decode_ms = (time.perf_counter() - t_dec) * 1000
+            text = self._decode_text(out_ids)
+            for s in stop_strings:
+                if s and s in text:
+                    text = text.split(s)[0]
+                    stop = True
+            return stop, {"text": text, "stats": stats.as_dict()}
+
+        if spec:
+            # m verify passes a dispatch commit m..m*(draft_k+1) tokens; the
+            # host reads the tokens and counts once a dispatch
+            carry = vlm.spec_carry_init(cfg, tok, cache, ids, inputs["lens"],
+                                        max_new_tokens=max_new,
+                                        draft_k=draft_k, eos_ids=self.eos_ids)
+            m = max(1, -(-self.chunk // (draft_k + 1)))
+            while not done_host and emitted < max_new:
+                toks, counts, carry = vlm.spec_stream_chunk(
+                    self.params, cfg, carry, m=m, max_new_tokens=max_new,
+                    eos_ids=self.eos_ids, draft_k=draft_k)
+                host = torch.cat([counts[:, None], toks], dim=1)[0].tolist()
+                n = host[0]
+                if n == 0:  # the row finished on an earlier dispatch
+                    break
+                emitted += n
+                stats.spec_steps += m  # passes dispatched
+                # each pass commits one token besides its accepted drafts,
+                # so accepted ~ committed - passes (a lower bound: a pass
+                # after the row finished commits nothing); generate_spec
+                # counts exactly on the device, the stream on the host
+                stats.spec_accept_rate = (
+                    max(0, emitted - 1 - stats.spec_steps)
+                    / max(1, stats.spec_steps * draft_k))
+                done_host, update = emit(consume(host[1:1 + n]))
+                yield update
+            return
+
         while not done_host and emitted < max_new:
             take = min(self.chunk, max_new - emitted)
             toks, done, tok, cache = vlm.decode_chunk(
@@ -244,21 +302,68 @@ class Engine:
             stats.decode_steps += self.chunk
             host_toks = toks[0].cpu().tolist()[:take]
             emitted += take
-            done_host = consume(host_toks) or bool(done[0])
-            stats.decode_tokens = decode_tokens
-            stats.decode_ms = (time.perf_counter() - t_dec) * 1000
-            text = self._decode_text(out_ids)
-            for s in stop_strings:
-                if s and s in text:
-                    text = text.split(s)[0]
-                    done_host = True
-            yield {"text": text, "stats": stats.as_dict()}
+            done_host, update = emit(consume(host_toks) or bool(done[0]))
+            yield update
 
     def generate(self, prompt: str, image=None, **kw) -> Tuple[str, Dict[str, Any]]:
         last = {"text": "", "stats": {}}
         for last in self.stream(prompt, image, **kw):
             pass
         return last["text"], last["stats"]
+
+    @torch.inference_mode()
+    def generate_spec(
+        self,
+        prompt: str,
+        image=None,
+        *,
+        max_new_tokens: Optional[int] = None,
+        draft_k: int = 8,
+        stop_strings: Sequence[str] = (),
+    ) -> Tuple[str, Dict[str, Any]]:
+        """Greedy generate with prompt-lookup speculative decoding
+        (``vlm.spec_decode``): the tokens of greedy ``generate`` in fewer
+        decoder passes, each committing 1..draft_k+1 tokens. Stop keywords
+        and strings cut the finished answer once, at the earliest stop.
+        ``decode_ms`` runs from the prefill's start (TTFT is not split out,
+        as in the JAX engine)."""
+        cfg = self.cfg
+        max_new = max_new_tokens or cfg.max_new_tokens
+        inputs = self.prepare(prompt, image)
+        ids, lens = inputs["ids"], inputs["lens"]
+        b, t = ids.shape
+        stats = RequestStats(prompt_tokens=inputs["prompt_tokens"])
+        cache = init_cache(cfg.decoder.num_layers, b,
+                           vlm.spec_cache_len(t, max_new, draft_k),
+                           cfg.decoder.num_kv_heads, cfg.decoder.head_dim,
+                           self._dtype, self.device)
+        _sync(self.device)
+        t0 = time.perf_counter()
+        logits, cache = vlm.prefill(self.params, cfg, inputs["images"], ids,
+                                    lens, inputs["starts"], cache)
+        res = vlm.spec_decode(self.params, cfg, logits, cache, ids, lens,
+                              max_new_tokens=max_new, eos_ids=self.eos_ids,
+                              draft_k=draft_k)
+        n = int(res.num_generated[0])
+        toks = res.tokens[0, :n].tolist()
+        stats.decode_ms = (time.perf_counter() - t0) * 1000
+        stats.decode_tokens = n
+        stats.spec_steps = res.steps
+        stats.spec_accept_rate = (int(res.accepted)
+                                  / max(1, int(res.drafted)))
+        if toks and toks[-1] in self.eos_ids:
+            toks = toks[:-1]
+        # spec commits whole spans: one cut at the earliest stop site
+        for kid in self._keyword_token_ids(stop_strings):
+            for i in range(len(toks) - len(kid) + 1):
+                if toks[i:i + len(kid)] == kid:
+                    toks = toks[:i]
+                    break
+        text = self._decode_text(toks)
+        for s in stop_strings:
+            if s and s in text:
+                text = text.split(s)[0]
+        return text, stats.as_dict()
 
     def chat(self, user_prompt: str, image=None, **kw):
         """Convenience: wraps user_prompt in the conversation template."""

@@ -17,8 +17,11 @@ Attention routes, over a dense ``KVCache`` or a paged ``PagedKVCache``:
     the dense cache, or kernel K3 (``ops/cuda/paged_decode_attention.py``)
     on the pool in place, when the decoder has no ALiBi bias and no sliding
     window, as the JAX package's Pallas routes do;
-  * otherwise ``_attend`` over the whole cache with ``decode_mask`` (the
-    paged cache gathered into each row's virtual order first).
+  * otherwise ``_attend`` over the whole cache with ``decode_mask``, or
+    with ``ops/speculative.spec_mask`` for a speculative verify pass (T =
+    k + 1 tokens written at each row's own offset; the kernels take T = 1
+    only, as the JAX Pallas routes do), the paged cache gathered into each
+    row's virtual order first.
 The cache is updated in place (``ops/kv_cache.py``).
 """
 
@@ -324,7 +327,10 @@ def forward(
     cos, sin, bias, mask = pos_terms(cfg, positions, mask)
     lengths = None if cache is None else cache.lengths
     # the lengths after this forward's writes: a decode step's attention
-    # counts its own token, and the returned cache carries them
+    # counts its own token, and the returned cache carries them. A decode
+    # forward over T > 1 tokens (a speculative verify pass) also returns
+    # lengths + 1, as the JAX forward does: its caller commits 0..T of
+    # them and sets the lengths itself (vlm._spec_verify_pass)
     new_lengths = None if cache is None else lengths + (t if prefill else 1)
     paged = isinstance(cache, PagedKVCache)
     tables = dest = None
@@ -333,7 +339,8 @@ def forward(
         tables = cache.block_tables
         dest = (prompt_dest(tables, t, prefill_offset, cache.page_size,
                             cache.num_pages) if prefill else
-                token_dest(tables, lengths, cache.page_size, cache.num_pages))
+                token_dest(tables, lengths, cache.page_size, cache.num_pages,
+                           t))
     for i, lp in enumerate(params["layers"]):
         ck = cv = None
         if paged:

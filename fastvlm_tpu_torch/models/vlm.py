@@ -13,6 +13,14 @@ cache is allocated by the caller and updated in place. ``prefill``,
 prefix-cache hits, chunked admissions), ``decode_step`` and
 ``decode_chunk`` take the dense ``KVCache`` or the paged ``PagedKVCache``
 of the serving scheduler (serve/batcher.py) alike.
+
+Speculative decoding (prompt lookup, greedy only; ``ops/speculative.py``):
+``spec_decode`` / ``spec_decode_from_tok`` / ``generate_spec`` run whole
+generations, ``spec_carry_init`` + ``spec_stream_chunk`` run m verify
+passes a dispatch for the streaming engine and, over a ``PagedKVCache``,
+for the scheduler. The JAX ``lax.while_loop`` checks ``all(done)`` on the
+device; here the host reads it once a verify pass, so passes, drafts and
+acceptances equal JAX's exactly.
 """
 
 from __future__ import annotations
@@ -27,6 +35,8 @@ from fastvlm_tpu_torch.models import fastvit, projector, qwen2
 from fastvlm_tpu_torch.ops.kv_cache import KVCache, PagedKVCache, init_cache
 from fastvlm_tpu_torch.ops.sampling import (
     RowSampling, SamplingParams, sample, sample_rows)
+from fastvlm_tpu_torch.ops.speculative import (
+    SpecResult, accept_counts, masked_window_write, ngram_draft, spec_mask)
 from fastvlm_tpu_torch.ops.splice import overlay_image_embeds
 
 Params = Dict[str, Any]
@@ -235,3 +245,217 @@ def generate(
     num = torch.where(is_eos.any(dim=1), first_eos + 1,
                       torch.full_like(first_eos, steps))
     return GenerateResult(tokens=out, num_generated=num.to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding (prompt lookup, greedy)
+# ---------------------------------------------------------------------------
+
+
+def spec_cache_len(prompt_bucket: int, max_new_tokens: int,
+                   draft_k: int) -> int:
+    """KV length a speculative-decode cache must be allocated with: a verify
+    pass writes draft_k + 1 slots past the committed length before
+    acceptance cuts it, so the cache needs that slack past prompt +
+    generation."""
+    return prompt_bucket + max_new_tokens + draft_k + 1
+
+
+def _spec_verify_pass(params, cfg, last_tok, done, num, cache, hist, hist_len,
+                      *, k, ngram_n, eos, max_new_tokens, cd):
+    """One verify pass: draft k tokens from the history, run the decoder
+    over [last_tok, draft] at each row's own offset, commit the longest
+    matching prefix + the model's next token, cut at the first EOS inside
+    that span and at the budget; rows already done commit 0.
+
+    Returns (g (B, k+1) verified tokens, count (B,) committed, done',
+    last_tok', cache', hist', hist_len')."""
+    dev = last_tok.device
+    active = ~done
+    draft = ngram_draft(hist, hist_len, k, n=ngram_n)
+    seq = torch.cat([last_tok[:, None], draft], dim=1)       # (B, k+1)
+    embeds = qwen2.embed(params["decoder"], seq).to(cd)
+    lengths = cache.lengths
+    steps = torch.arange(k + 1, dtype=torch.int32, device=dev)
+    positions = lengths[:, None] + steps[None]
+    mask = spec_mask(lengths, k + 1, cache.max_len,
+                     window=cfg.decoder.attn_window)
+    hidden, cache = qwen2.forward(params["decoder"], cfg.decoder, embeds,
+                                  positions, cache=cache, mask=mask,
+                                  prefill=False)
+    logits = qwen2.logits_from_hidden(params["decoder"], hidden, cfg.decoder)
+    g = logits.argmax(dim=-1).to(torch.int32)                # (B, k+1)
+
+    count = accept_counts(draft, g[:, :k]) + 1               # + the bonus
+    is_eos = torch.isin(g, eos) & (steps[None] < count[:, None])
+    hit = is_eos.any(dim=-1)
+    count = torch.where(hit, is_eos.to(torch.int32).argmax(dim=-1)
+                        .to(torch.int32) + 1, count)
+    count = torch.minimum(count, max_new_tokens - num)       # budget cap
+    count = torch.where(active, count, torch.zeros_like(count))
+    done = done | hit | (num + count >= max_new_tokens)
+
+    hist = masked_window_write(hist, g, hist_len, count, k + 1)
+    new_last = g.gather(1, (count - 1).clamp(0, k)[:, None].long())[:, 0]
+    last_tok = torch.where(count > 0, new_last, last_tok)
+    # the forward returned lengths + 1; the pass commits count of its k+1
+    cache = dataclasses.replace(cache, lengths=lengths + count)
+    return g, count, done, last_tok, cache, hist, hist_len + count
+
+
+def _spec_history(corpus, corpus_lens, tok0, width):
+    """(B, width) int32 draft history: the corpus, then tok0 at each row's
+    corpus length."""
+    b, t = corpus.shape
+    hist = torch.zeros((b, width), dtype=torch.int32, device=corpus.device)
+    hist[:, :t] = corpus
+    hist.scatter_(1, corpus_lens.long()[:, None], tok0[:, None])
+    return hist
+
+
+def _spec_loop(params, cfg, tok0, cache, corpus, corpus_lens,
+               max_new_tokens, eos_ids, draft_k, ngram_n) -> SpecResult:
+    """Verify passes until every row is done: the loop shared by
+    ``spec_decode`` and ``spec_decode_from_tok``. Gives the tokens of greedy
+    decode (up to float reassociation: a pass scores k+1 positions in one
+    product, so an exact argmax tie may resolve differently) in fewer
+    passes, each committing 1..draft_k+1 tokens."""
+    b, t = corpus.shape
+    k = draft_k
+    dev = tok0.device
+    # a verify pass writes k+1 slots past the committed length (the prompt
+    # part of spec_cache_len is the caller's; this checks the rest)
+    assert cache.max_len >= max_new_tokens + k + 1, \
+        "spec cache lacks the draft_k+1 verify slack"
+    eos = torch.tensor(tuple(eos_ids), dtype=torch.int32, device=dev)
+    cd = resolve_dtype(cfg.decoder.compute_dtype)
+    tok0 = tok0.to(torch.int32)
+    done = torch.isin(tok0, eos) | (max_new_tokens <= 1)
+    buf = max_new_tokens + k + 1
+    out = torch.zeros((b, buf), dtype=torch.int32, device=dev)
+    out[:, 0] = tok0
+    hist = _spec_history(corpus, corpus_lens, tok0, t + buf)
+    hist_len = corpus_lens.to(torch.int32) + 1
+    num = torch.ones((b,), dtype=torch.int32, device=dev)
+    last_tok = tok0
+    drafted = torch.zeros((), dtype=torch.int32, device=dev)
+    accepted = torch.zeros((), dtype=torch.int32, device=dev)
+    steps = 0
+    while not bool(done.all()):  # the host's one read a pass
+        active = ~done
+        g, count, done, last_tok, cache, hist, hist_len = _spec_verify_pass(
+            params, cfg, last_tok, done, num, cache, hist, hist_len, k=k,
+            ngram_n=ngram_n, eos=eos, max_new_tokens=max_new_tokens, cd=cd)
+        out = masked_window_write(out, g, num, count, k + 1)
+        drafted = drafted + (active.to(torch.int32) * k).sum()
+        accepted = accepted + torch.where(active, count - 1, 0).sum()
+        num = num + count
+        steps += 1
+    keep = torch.arange(buf, device=dev)[None, :] < num[:, None]
+    out = torch.where(keep, out, torch.zeros_like(out))
+    return SpecResult(tokens=out[:, :max_new_tokens], num_generated=num,
+                      steps=steps, drafted=drafted.to(torch.int32),
+                      accepted=accepted.to(torch.int32))
+
+
+def spec_decode(params, cfg, logits, cache, ids, seq_lens, *,
+                max_new_tokens: int = 256, eos_ids=(151645,),
+                draft_k: int = 8, ngram_n: int = 3) -> SpecResult:
+    """Greedy speculative decode after prefill: logits (B, V) are the
+    prefill's, cache holds the prompt (max_len >= spec_cache_len(...)), and
+    the prompt ids (B, T) are the draft corpus."""
+    tok0 = logits.argmax(dim=-1).to(torch.int32)
+    return _spec_loop(params, cfg, tok0, cache, ids, seq_lens,
+                      max_new_tokens, eos_ids, draft_k, ngram_n)
+
+
+def spec_decode_from_tok(params, cfg, tok0, cache, corpus, corpus_lens, *,
+                         max_new_tokens: int = 256, eos_ids=(151645,),
+                         draft_k: int = 8, ngram_n: int = 3) -> SpecResult:
+    """Greedy speculative decode for a caller that already has the first
+    token (the video path reads it for TTFT); ``corpus`` (B, T) with
+    ``corpus_lens`` is the draft corpus (the video path's holds the
+    previous frame's answer)."""
+    return _spec_loop(params, cfg, tok0, cache, corpus, corpus_lens,
+                      max_new_tokens, eos_ids, draft_k, ngram_n)
+
+
+class SpecCarry(NamedTuple):
+    """Speculative-decode state carried between dispatches of
+    ``spec_stream_chunk``."""
+    last_tok: torch.Tensor   # (B,) int32
+    done: torch.Tensor       # (B,) bool
+    num: torch.Tensor        # (B,) int32 tokens generated so far (incl. tok0)
+    cache: Union[KVCache, PagedKVCache]
+    hist: torch.Tensor       # (B, W) int32 corpus + generated tokens
+    hist_len: torch.Tensor   # (B,) int32
+
+
+def spec_carry_init(cfg, tok0, cache, corpus, corpus_lens, *,
+                    max_new_tokens: int, draft_k: int,
+                    eos_ids) -> SpecCarry:
+    """The first carry after prefill (tok0 already sampled)."""
+    b, t = corpus.shape
+    tok0 = tok0.to(torch.int32)
+    eos = torch.tensor(tuple(eos_ids), dtype=torch.int32, device=tok0.device)
+    return SpecCarry(
+        last_tok=tok0, done=torch.isin(tok0, eos) | (max_new_tokens <= 1),
+        num=torch.ones((b,), dtype=torch.int32, device=tok0.device),
+        cache=cache,
+        hist=_spec_history(corpus, corpus_lens, tok0,
+                           t + max_new_tokens + draft_k + 1),
+        hist_len=corpus_lens.to(torch.int32) + 1)
+
+
+def spec_stream_chunk(params, cfg, carry: SpecCarry, *, m: int = 4,
+                      max_new_tokens: int = 256, eos_ids=(151645,),
+                      draft_k: int = 8, ngram_n: int = 3):
+    """``m`` verify passes, no host read: the streaming unit of speculative
+    decode (the counterpart of ``decode_chunk``), committing m..m*(k+1)
+    tokens a row. Returns (tokens (B, m*(k+1)) zero-padded, counts (B,),
+    carry'): tokens and counts of this dispatch only.
+
+    Over a ``PagedKVCache`` this is the scheduler's speculative chunk, on
+    the pool in place: each pass writes its k+1 keys at each row's own
+    offset through the block tables and attends the pages gathered into
+    row order. Caller contract: every row's pages are mapped through
+    ``lengths + m*(k+1)`` before the dispatch, so committed positions never
+    fall in the sink; rejected draft keys past that bound do. (JAX's
+    ``spec_chunk_paged`` instead gathers a dense view, verifies on it and
+    writes the view back.)"""
+    k = draft_k
+    dev = carry.last_tok.device
+    eos = torch.tensor(tuple(eos_ids), dtype=torch.int32, device=dev)
+    cd = resolve_dtype(cfg.decoder.compute_dtype)
+    b = carry.last_tok.shape[0]
+    width = m * (k + 1)
+    out = torch.zeros((b, width + k + 1), dtype=torch.int32, device=dev)
+    off = torch.zeros((b,), dtype=torch.int32, device=dev)
+    for _ in range(m):
+        g, count, done, last_tok, cache, hist, hist_len = _spec_verify_pass(
+            params, cfg, carry.last_tok, carry.done, carry.num, carry.cache,
+            carry.hist, carry.hist_len, k=k, ngram_n=ngram_n, eos=eos,
+            max_new_tokens=max_new_tokens, cd=cd)
+        out = masked_window_write(out, g, off, count, k + 1)
+        carry = SpecCarry(last_tok=last_tok, done=done, num=carry.num + count,
+                          cache=cache, hist=hist, hist_len=hist_len)
+        off = off + count
+    return out[:, :width], off, carry
+
+
+def generate_spec(params, cfg, images, ids, seq_lens, image_starts, *,
+                  max_new_tokens: int = 256, eos_ids=(151645,),
+                  draft_k: int = 8, ngram_n: int = 3) -> SpecResult:
+    """Whole-generation speculative greedy decode: prefill into a cache of
+    ``spec_cache_len``, then ``spec_decode``."""
+    b, t = ids.shape
+    cache = init_cache(cfg.decoder.num_layers, b,
+                       spec_cache_len(t, max_new_tokens, draft_k),
+                       cfg.decoder.num_kv_heads, cfg.decoder.head_dim,
+                       dtype=resolve_dtype(cfg.decoder.compute_dtype),
+                       device=ids.device)
+    logits, cache = prefill(params, cfg, images, ids, seq_lens, image_starts,
+                            cache)
+    return spec_decode(params, cfg, logits, cache, ids, seq_lens,
+                       max_new_tokens=max_new_tokens, eos_ids=eos_ids,
+                       draft_k=draft_k, ngram_n=ngram_n)

@@ -63,12 +63,17 @@ def write_prompt(layer_k, layer_v, new_k, new_v, offset=0):
 
 
 def write_token(layer_k, layer_v, new_k, new_v, lengths):
-    """Decode write, in place: row b's (1, H, D) key/value goes to index
-    lengths[b]. Indices stay on the device (no host sync)."""
-    rows = torch.arange(layer_k.shape[0], device=layer_k.device)
-    idx = lengths.long()
-    layer_k[rows, idx] = new_k[:, 0].to(layer_k.dtype)
-    layer_v[rows, idx] = new_v[:, 0].to(layer_v.dtype)
+    """Decode write, in place: row b's (T, H, D) keys/values go to indices
+    [lengths[b], lengths[b] + T) (T = 1 a decode step, k + 1 a speculative
+    verify pass). Indices stay on the device (no host sync). JAX's
+    ``dynamic_update_slice`` clamps a window that runs past S_max to end at
+    S_max; here it raises, so callers size the cache to hold every write
+    (``vlm.spec_cache_len``)."""
+    t = new_k.shape[1]
+    rows = torch.arange(layer_k.shape[0], device=layer_k.device)[:, None]
+    idx = lengths.long()[:, None] + torch.arange(t, device=layer_k.device)
+    layer_k[rows, idx] = new_k.to(layer_k.dtype)
+    layer_v[rows, idx] = new_v.to(layer_v.dtype)
     return layer_k, layer_v
 
 
@@ -144,11 +149,14 @@ def prompt_dest(block_tables, t, offset, page_size, sink_page):
                       sink_page).reshape(-1)
 
 
-def token_dest(block_tables, lengths, page_size, sink_page):
-    """Flat pool rows (B,) of a decode write at virtual position
-    lengths[b]. The same for every layer."""
-    return _flat_dest(block_tables, lengths[:, None], page_size,
-                      sink_page)[:, 0]
+def token_dest(block_tables, lengths, page_size, sink_page, t=1):
+    """Flat pool rows (B * T,) of a decode write of T tokens at virtual
+    positions [lengths[b], lengths[b] + T) of each row (T = 1 a decode
+    step, k + 1 a speculative verify pass); a position past the mapped
+    pages goes to the sink. The same for every layer."""
+    pos = lengths[:, None] + torch.arange(t, dtype=torch.int32,
+                                          device=lengths.device)[None, :]
+    return _flat_dest(block_tables, pos, page_size, sink_page).reshape(-1)
 
 
 def write_paged(layer_k, layer_v, new_k, new_v, dest):
@@ -173,11 +181,12 @@ def write_prompt_paged(layer_k, layer_v, new_k, new_v, block_tables,
 
 
 def write_token_paged(layer_k, layer_v, new_k, new_v, block_tables, lengths):
-    """Decode write, in place: row b's (1, H, D) key/value to virtual
-    position lengths[b]. layer_k/v: (P + 1, page, H, D); new_k/v:
-    (B, 1, H, D)."""
+    """Decode write, in place: row b's (T, H, D) keys/values to virtual
+    positions [lengths[b], lengths[b] + T), each row at its own offset (JAX
+    ``write_token_paged`` for T = 1, ``write_tokens_paged_rows`` for any
+    T). layer_k/v: (P + 1, page, H, D); new_k/v: (B, T, H, D)."""
     dest = token_dest(block_tables, lengths, layer_k.shape[1],
-                      layer_k.shape[0] - 1)
+                      layer_k.shape[0] - 1, new_k.shape[1])
     return write_paged(layer_k, layer_v, new_k, new_v, dest)
 
 

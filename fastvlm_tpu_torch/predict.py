@@ -6,9 +6,11 @@ Same flags as ``fastvlm_tpu/predict.py``. What runs today is the smoke mode:
 
 (a tiny random model with the byte tokenizer) on the CUDA card, or with
 ``--device cpu`` on the CPU; without a card the default exits with an
-error. ``--model-path``, ``--num_beams > 1``, ``--spec-decode``,
-``--tp > 1`` and ``--verify-checkpoint`` exit with an error: they are not
-yet ported (see ROADMAP.md).
+error. ``--spec-decode`` (with ``--temperature 0``) decodes speculatively
+by prompt lookup (``Engine.generate_spec``, ``--draft-k`` tokens a draft).
+``--model-path``, ``--num_beams > 1``, ``--tp > 1`` and
+``--verify-checkpoint`` exit with an error: they are not yet ported (see
+ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -49,8 +51,11 @@ def main(argv=None) -> int:
     parser.add_argument("--temperature", type=float, default=0.2)
     parser.add_argument("--top_p", type=float, default=None)
     parser.add_argument("--num_beams", type=int, default=1)
-    parser.add_argument("--spec-decode", action="store_true")
-    parser.add_argument("--draft-k", type=int, default=8)
+    parser.add_argument("--spec-decode", action="store_true",
+                        help="prompt-lookup speculative decoding (greedy "
+                             "only: --temperature 0)")
+    parser.add_argument("--draft-k", type=int, default=8,
+                        help="speculative draft length (with --spec-decode)")
     parser.add_argument("--max-new-tokens", type=int, default=256)
     parser.add_argument("--dtype", type=str, default="bfloat16")
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
@@ -66,7 +71,6 @@ def main(argv=None) -> int:
     unported = [name for name, used in (
         ("--verify-checkpoint", args.verify_checkpoint),
         ("--num_beams > 1", args.num_beams > 1),
-        ("--spec-decode", args.spec_decode),
         ("--tp > 1", args.tp > 1),
         ("--model-path", args.model_path is not None),
     ) if used]
@@ -75,6 +79,8 @@ def main(argv=None) -> int:
         return 2
     if not args.random_weights:
         parser.error("--model-path is " + NOT_PORTED + "; use --random-weights")
+    if args.spec_decode and args.temperature > 0:
+        parser.error("--spec-decode is greedy-only; use --temperature 0")
 
     import torch
 
@@ -103,9 +109,14 @@ def main(argv=None) -> int:
         top_p=args.top_p if args.top_p else 1.0,
     )
     t0 = time.perf_counter()
-    text, stats = engine.generate(prompt, image,
-                                  max_new_tokens=args.max_new_tokens,
-                                  sampling=sampling)
+    if args.spec_decode:
+        text, stats = engine.generate_spec(prompt, image,
+                                           max_new_tokens=args.max_new_tokens,
+                                           draft_k=args.draft_k)
+    else:
+        text, stats = engine.generate(prompt, image,
+                                      max_new_tokens=args.max_new_tokens,
+                                      sampling=sampling)
     elapsed = time.perf_counter() - t0
     print(text.strip())
     if args.timing:

@@ -32,6 +32,17 @@ Both are on by default from 1e9 decoder parameters (1.5B and up:
 ``prefix_cache=None`` and ``prefill_chunk=None`` resolve as in the JAX
 scheduler), off below.
 
+  * speculative chunks (``spec=True``, greedy batches): while at most
+    ``spec_max_rows`` rows are live (default 1) and none is mid-prefill, a
+    chunk is ceil(chunk / (k+1)) prompt-lookup verify passes
+    (``vlm.spec_stream_chunk``) instead of k plain steps. A mode-rate
+    tuner keeps it only while its measured committed tok/s at that row
+    count beats plain chunks' (re-probing every ``spec_reprobe_every``
+    skipped chunks), and a low acceptance EMA bans it for the rest of the
+    batch. Admissions, activations and resizes drop the device state;
+    it is rebuilt from the host's prompts and texts when spec is next
+    wanted.
+
 Decode: every chunk is one ``vlm.decode_chunk`` over the ``PagedKVCache``,
 whose T=1 steps run kernel K3 (``ops/cuda/paged_decode_attention.py``) on
 the pool in place: one launch a layer a step. This is how the JAX
@@ -43,8 +54,7 @@ kernel reads the pages where they lie, and a suffix prefill reads the pool
 in place too.
 
 Held back (constructor knobs; setting one on raises NotImplementedError):
-``spec`` (speculative chunks and their rate tuner), ``chunk_view`` /
-``persist_view`` / ``pipeline_depth``, and ``warmup()``. Left out with the
+``chunk_view`` / ``persist_view`` / ``pipeline_depth``, and ``warmup()``. Left out with the
 serial path for requests that cannot join a batch (anyres, multi-image;
 the port's engine serves neither): ``fairness_s``, the drain that keeps
 such a request from starving, and ``continuous=False``, the window-batching
@@ -64,10 +74,20 @@ Where the port differs without changing an output:
     compile them all; eager torch compiles nothing);
   * a request whose ``prepare`` fails is failed alone, where the JAX
     scheduler fails the gathered batch;
+  * speculative chunks verify on the pool in place: each pass writes its
+    k+1 keys at each row's own offset through the block tables and attends
+    the pages gathered into row order, with the rows' pages mapped through
+    ``cur_len + m*(k+1)`` first, so committed keys never fall in the sink
+    (rejected drafts past that bound may). The JAX ``spec_chunk_paged``
+    gathers a dense view (``s_bucket``) once a chunk and writes it back.
+    The tuner's shape keys drop that bucket; the spec state marks free
+    slots done, so a row the host closed commits nothing on the device;
   * ``counters`` add "prefills" (prefill dispatches, each admission chunk
     one), "image_prefills" (those that encode images), "chunks" and
-    "decode_steps" (k a chunk); ``trace`` "disp" events carry (batch, live
-    rows, k, ms from dispatch to the host read, rows mid-prefill); update
+    "decode_steps" (k a chunk; plain chunks only); ``trace`` "disp" events
+    carry (batch, live rows, k, ms from dispatch to the host read, rows
+    mid-prefill), "spec" events (batch, live rows, passes, ms, tokens
+    committed); update
     stats add "cached_tokens" (prefix tokens the request reused) and
     "prefill_chunks" (its admission chunks, 0 when single-shot).
 
@@ -307,15 +327,19 @@ class BatchScheduler:
                  pool_tokens: int = 16384,
                  prefix_cache: Optional[bool] = None,
                  prefill_chunk: Optional[int] = None, max_pending: int = 2,
-                 spec: bool = False, chunk_view: bool = False,
+                 spec: bool = False, spec_draft_k: int = 8,
+                 spec_ngram_n: int = 3, spec_max_rows: int = 1,
+                 spec_min_accept: float = 0.1, chunk_view: bool = False,
                  persist_view: bool = False, pipeline_depth: int = 1):
         """``prefix_cache`` / ``prefill_chunk``: None picks the JAX
         scheduler's scale-aware default, on (256-token chunks) from 1e9
         decoder parameters and off below; False / 0 turns one off.
         ``max_pending`` bounds the rows mid-prefill (their pages are held
-        but produce no tokens yet)."""
-        held = {"spec": spec, "chunk_view": chunk_view,
-                "persist_view": persist_view,
+        but produce no tokens yet). ``spec``: speculative chunks for greedy
+        batches (module docstring), with ``spec_draft_k`` draft tokens from
+        ``spec_ngram_n``-grams, at most ``spec_max_rows`` live rows, banned
+        for the batch below an acceptance EMA of ``spec_min_accept``."""
+        held = {"chunk_view": chunk_view, "persist_view": persist_view,
                 "pipeline_depth": pipeline_depth > 1}
         for name, on in held.items():
             if on:
@@ -340,6 +364,18 @@ class BatchScheduler:
             prefill_chunk = 256 if large else 0
         self.prefill_chunk = int(prefill_chunk or 0)
         self.max_pending = max(1, max_pending)
+        # speculation amortises a step's launches over up to k+1 tokens,
+        # which a batch already amortises over its rows: a latency tool for
+        # near-empty batches, and kept only while it measures faster
+        self.spec = spec
+        self.spec_draft_k = spec_draft_k
+        self.spec_ngram_n = spec_ngram_n
+        self.spec_max_rows = spec_max_rows
+        self.spec_min_accept = spec_min_accept
+        self.spec_reprobe_every = 64
+        self._mode_rate: Dict[Tuple[str, int], float] = {}  # tok/s EMA
+        self._spec_skips = 0
+        self._warm_shapes: set = set()
         self.queue: "queue.Queue[_Request]" = queue.Queue()
         self._stop = False
         self._pool_kv = None  # lazy (k_pages, v_pages) device tensors
@@ -360,6 +396,55 @@ class BatchScheduler:
     def warmup(self, *args, **kwargs) -> int:
         raise NotImplementedError("BatchScheduler.warmup is not yet ported, "
                                   "see ROADMAP.md")
+
+    # ------------- speculative auto-tuner -------------
+
+    def _spec_preferred(self, n: int) -> bool:
+        """Cross-batch decision: run verify passes only while their measured
+        committed tok/s at ``n`` live rows beats plain chunks' (both EMAs,
+        first dispatches at a shape excluded). Unknown spec rate: probe
+        spec; unknown plain rate: run plain to learn it; a losing spec
+        re-probes every ``spec_reprobe_every`` skipped chunks."""
+        rs = self._mode_rate.get(("spec", n))
+        rp = self._mode_rate.get(("plain", n))
+        if rs is None:
+            return True
+        if rp is None:
+            return False
+        if rs >= rp:
+            return True
+        self._spec_skips += 1
+        if self._spec_skips >= self.spec_reprobe_every:
+            self._spec_skips = 0
+            self.counters["spec_reprobe"] += 1
+            return True
+        self.counters["spec_rate_skips"] += 1
+        return False
+
+    def _note_rate(self, shape_key, act_n: int, committed: int,
+                   dt: float) -> None:
+        """Update the (mode, live rows) committed tok/s EMA of a decode
+        dispatch. The first dispatch at a shape only marks it seen (its
+        library set-up on the card). A plain chunk's ``committed`` is its
+        k x rows capacity: spec must beat what plain could deliver."""
+        mode = shape_key[0]
+        self.counters[f"disp_{mode}@{act_n}"] += 1
+        self.counters[f"ms_{mode}@{act_n}"] += int(dt * 1000)
+        if shape_key not in self._warm_shapes:
+            self._warm_shapes.add(shape_key)
+            return
+        rate = committed / max(dt, 1e-6)
+        prev = self._mode_rate.get((mode, act_n))
+        self._mode_rate[(mode, act_n)] = (
+            rate if prev is None else 0.5 * prev + 0.5 * rate)
+
+    def _hist_width(self, budget_max: int) -> int:
+        """Draft-history width of a batch whose largest row budget (prompt +
+        cap + spec slack) is ``budget_max``: rounded up to 512, at most the
+        pool's tokens, plus the draft slack."""
+        w = -(-max(budget_max, 1) // 512) * 512
+        return (min(w, self.pool.num_pages * self.page_size)
+                + self.spec_draft_k + 1)
 
     # ------------- client side -------------
 
@@ -680,6 +765,24 @@ class BatchScheduler:
         k = engine.chunk
         # cur_len[i] = row i's current device length (prompt + decoded)
         cur_len = [len(r) for r in rows]
+        # speculative chunks: a verify pass writes k+1 slots past a row's
+        # length and a chunk commits up to spec_width tokens, so the page
+        # budgets and the admission guard carry that slack. Armed when the
+        # gathered batch is all greedy; a sampled admission turns it off
+        spec_on = self.spec and all(r.sampling.temperature <= 0.0
+                                    for r in batch)
+        spec_k = self.spec_draft_k
+        spec_m = max(1, -(-k // (spec_k + 1)))
+        spec_width = spec_m * (spec_k + 1)
+        spec_slack = spec_width + spec_k + 1 if spec_on else 0
+        # spec_live: the next chunk runs verify passes on the device state
+        # (hist, hist_len, num), which is rebuilt from the host's prompt_ids
+        # and texts whenever spec turns on
+        spec_live = spec_banned = False
+        spec_ema = None
+        spec_chunks = 0
+        hist = hist_len = num = None
+        prompt_ids: List[np.ndarray] = [np.asarray(r, np.int32) for r in rows]
 
         # slot state: slots[i] = the request occupying row i (None = free)
         slots: List[Optional[_Request]] = [
@@ -690,7 +793,7 @@ class BatchScheduler:
         caps = [slots[i].max_new_tokens if slots[i] else 0 for i in range(b)]
         # per-row page budget: prompt + cap tokens is all a row's kept
         # tokens can ever attend to — growth never maps past it
-        budget_tok = [cur_len[i] + caps[i] if slots[i] else 0
+        budget_tok = [cur_len[i] + caps[i] + spec_slack if slots[i] else 0
                       for i in range(b)]
         emitted = [0] * b
         ttfts = [0.0] * b
@@ -775,8 +878,10 @@ class BatchScheduler:
             ht/hd are HOST copies of (tok, done)."""
             nonlocal b, tables, tables_dirty, slots, texts, finished, \
                 reasons, caps, emitted, ttfts, queue_ms, cur_len, row_pages, \
-                budget_tok
+                budget_tok, prompt_ids, spec_live
             mapping = [i for i in range(b) if slots[i] is not None]
+            # the spec state is row-indexed: rebuilt at the new b if wanted
+            spec_live = False
             lens_old = cache.lengths.cpu().numpy()
             new_tables = np.full((new_b, tables.shape[1]), -1, np.int32)
             new_lens = np.zeros((new_b,), np.int32)
@@ -805,6 +910,7 @@ class BatchScheduler:
             queue_ms = moved(queue_ms, lambda: 0.0)
             cur_len = moved(cur_len, lambda: 0)
             row_pages = moved(row_pages, list)
+            prompt_ids = moved(prompt_ids, lambda: np.zeros((0,), np.int32))
             # mid-prefill rows move with their slots (ascending order cannot
             # collide: compaction maps every index down or onto itself)
             remap = {i: j for j, i in enumerate(mapping)}
@@ -824,7 +930,7 @@ class BatchScheduler:
             live. The prompt prefills through a 1-row PagedKVCache view over
             the SAME pool tensors, so its KV lands in the pages just
             allocated for it."""
-            nonlocal tables_dirty
+            nonlocal tables_dirty, spec_live
             ht = hd = None  # lazy host copies of (tok, done)
             # bound the admissions per boundary to the requests already
             # waiting when it started, so in-flight rows keep getting decode
@@ -869,7 +975,8 @@ class BatchScheduler:
                     r.out.put(_SENTINEL)
                     continue
                 plen = prep["prompt_tokens"]
-                if plen + r.max_new_tokens > tables.shape[1] * self.page_size:
+                if (plen + r.max_new_tokens + spec_slack
+                        > tables.shape[1] * self.page_size):
                     self._deferred.append(r)  # more than the pool: next batch
                     break
                 ids_row = prep["ids"][0, :plen].cpu().numpy()
@@ -925,9 +1032,10 @@ class BatchScheduler:
                     finished[i] = False
                     reasons[i] = None
                     caps[i] = r.max_new_tokens
-                    budget_tok[i] = plen + r.max_new_tokens
+                    budget_tok[i] = plen + r.max_new_tokens + spec_slack
                     emitted[i] = 0
                     cur_len[i] = 0
+                    prompt_ids[i] = ids_row
                     self.counters["chunked_admissions"] += 1
                     if self.trace is not None:
                         self.trace.append((time.perf_counter(), "padmit", i,
@@ -980,9 +1088,10 @@ class BatchScheduler:
                 finished[i] = False
                 reasons[i] = None
                 caps[i] = r.max_new_tokens
-                budget_tok[i] = plen + r.max_new_tokens
+                budget_tok[i] = plen + r.max_new_tokens + spec_slack
                 emitted[i] = 0
                 cur_len[i] = plen
+                prompt_ids[i] = ids_row
                 if self.prefix is not None and prep["vision_embeds"] is None:
                     # the row's full prompt pages before its image hold
                     # reusable KV now
@@ -997,6 +1106,8 @@ class BatchScheduler:
                                        ttfts[i]))
                 ht[i] = t_new
                 hd[i] = finished[i] or slots[i] is None
+                # the new row's history is not in the spec state
+                spec_live = False
             if ht is not None:
                 tok = torch.from_numpy(ht).to(dev)
                 done = torch.from_numpy(hd).to(dev)
@@ -1008,7 +1119,7 @@ class BatchScheduler:
             a single-shot admission does: it samples the first token from
             the chunk's last logits, exposes the row's pages in the batch
             table, sets its length and publishes its prefix."""
-            nonlocal tables_dirty
+            nonlocal tables_dirty, spec_live
             ht = hd = None
             for i in sorted(pending):
                 st = pending[i]
@@ -1074,10 +1185,34 @@ class BatchScheduler:
                                        plen, ttfts[i]))
                 ht[i] = t_new
                 hd[i] = finished[i] or slots[i] is None
+                spec_live = False
             if ht is not None:
                 tok = torch.from_numpy(ht).to(dev)
                 done = torch.from_numpy(hd).to(dev)
             return cache, tok, done
+
+        def build_spec_state(done):
+            """The device spec state from the host: a live row's history is
+            its prompt + text so far, ``num`` its tokens so far; free slots
+            are marked done, so they commit nothing. Returns (hist,
+            hist_len, num, done)."""
+            hist_w = self._hist_width(max(budget_tok[i] for i in range(b)
+                                          if slots[i] is not None))
+            hh = np.zeros((b, hist_w), np.int32)
+            hl = np.zeros((b,), np.int32)
+            nm = np.ones((b,), np.int32)
+            free = np.array([sl is None for sl in slots])
+            for i in range(b):
+                if slots[i] is None:
+                    continue
+                p, t = prompt_ids[i], texts[i]
+                hh[i, :len(p)] = p
+                hh[i, len(p):len(p) + len(t)] = t
+                hl[i] = len(p) + len(t)
+                nm[i] = max(1, len(t))
+            return (torch.from_numpy(hh).to(dev), torch.from_numpy(hl).to(dev),
+                    torch.from_numpy(nm).to(dev),
+                    done | torch.from_numpy(free).to(dev))
 
         def sweep_cancelled():
             """Abort client-cancelled rows at the chunk boundary: the stream
@@ -1085,6 +1220,7 @@ class BatchScheduler:
             device the row behaves like a host-finished row: its writes
             drop through the zeroed table. A row mid-prefill drops its
             reserved pages and closes."""
+            nonlocal spec_live
             for i in range(b):
                 r = slots[i]
                 if r is None or not r.cancelled:
@@ -1104,6 +1240,7 @@ class BatchScheduler:
                     finished[i] = True
                     reasons[i] = "cancelled"
                     emit(i)
+                    spec_live = False  # rebuilt with the slot marked done
 
         batch_ok = False
         try:
@@ -1161,10 +1298,28 @@ class BatchScheduler:
                 cache, tok, done = try_admit(cache, tok, done)
                 if pending:
                     cache, tok, done = advance_pending(cache, tok, done)
+                # decide speculation after admission: one live row can
+                # become a full batch at this boundary, and the spec state
+                # is row-indexed (no row may be mid-prefill)
+                want_spec = (spec_on and not spec_banned and not pending
+                             and 0 < n_active() <= self.spec_max_rows
+                             and b <= _round_batch(self.spec_max_rows)
+                             and all(sl is None
+                                     or sl.sampling.temperature <= 0.0
+                                     for sl in slots)
+                             and self._spec_preferred(n_active()))
+                if want_spec and not spec_live:
+                    hist, hist_len, num, done = build_spec_state(done)
+                    spec_live = True
+                elif not want_spec:
+                    spec_live = False
+                # pages through cur_len + spec_width before a spec chunk
+                # (spec_stream_chunk's caller contract)
                 cache = self._grow_pages(cache, tables, row_pages, cur_len,
-                                         finished, slots, k, reasons,
-                                         force=tables_dirty, budget=budget_tok,
-                                         pending=pending)
+                                         finished, slots,
+                                         spec_width if spec_live else k,
+                                         reasons, force=tables_dirty,
+                                         budget=budget_tok, pending=pending)
                 tables_dirty = False
                 # pool exhaustion may have truncated rows: close them now
                 for i in range(b):
@@ -1178,23 +1333,58 @@ class BatchScheduler:
                     continue
                 act_n = n_active() - len(pending)  # rows that decode
                 t_disp = time.perf_counter()
-                toks, done, tok, cache = vlm.decode_chunk(
-                    engine.params, cfg, tok, done, cache, self._gen, k=k,
-                    eos_ids=engine.eos_ids, row_sampling=row_samp())
-                host = toks.cpu().numpy()  # the host read = the device sync
-                host_done = done.cpu().numpy()
+                counts_host = None
+                if spec_live:
+                    # the pool's table capacity is the device budget; the
+                    # host's caps end each row
+                    carry = vlm.SpecCarry(last_tok=tok, done=done, num=num,
+                                          cache=cache, hist=hist,
+                                          hist_len=hist_len)
+                    toks, counts, carry = vlm.spec_stream_chunk(
+                        engine.params, cfg, carry, m=spec_m,
+                        max_new_tokens=tables.shape[1] * self.page_size,
+                        eos_ids=engine.eos_ids, draft_k=spec_k,
+                        ngram_n=self.spec_ngram_n)
+                    tok, done, num, cache, hist, hist_len = (
+                        carry.last_tok, carry.done, carry.num, carry.cache,
+                        carry.hist, carry.hist_len)
+                    # one host read: counts, done, tokens
+                    packed = torch.cat([counts[:, None],
+                                        done[:, None].to(torch.int32), toks],
+                                       dim=1).cpu().numpy()
+                    counts_host, host_done = packed[:, 0], packed[:, 1] > 0
+                    host = packed[:, 2:]
+                    committed = int(counts_host.sum())
+                    shape_key = ("spec", b, spec_m, int(hist.shape[1]))
+                else:
+                    toks, done, tok, cache = vlm.decode_chunk(
+                        engine.params, cfg, tok, done, cache, self._gen, k=k,
+                        eos_ids=engine.eos_ids, row_sampling=row_samp())
+                    host = toks.cpu().numpy()  # the host read = the sync
+                    host_done = done.cpu().numpy()
+                    committed = k * act_n
+                    shape_key = ("plain", b, k)
                 dt = time.perf_counter() - t_disp
-                self.counters["chunks"] += 1
-                self.counters["decode_steps"] += k
-                if self.trace is not None:
-                    self.trace.append((time.perf_counter(), "disp", b, act_n,
-                                       k, dt * 1000, len(pending)))
+                self._note_rate(shape_key, act_n, committed, dt)
+                if spec_live:
+                    if self.trace is not None:
+                        self.trace.append((time.perf_counter(), "spec", b,
+                                           act_n, spec_m, dt * 1000,
+                                           committed))
+                else:
+                    self.counters["chunks"] += 1
+                    self.counters["decode_steps"] += k
+                    if self.trace is not None:
+                        self.trace.append((time.perf_counter(), "disp", b,
+                                           act_n, k, dt * 1000, len(pending)))
                 for i in range(b):
                     if slots[i] is None or i in pending:
                         # a pending row is a free slot on the device: its
                         # chunk slots are not its text
                         continue
-                    for t in host[i]:
+                    row_toks = (host[i] if counts_host is None
+                                else host[i][:int(counts_host[i])])
+                    for t in row_toks:
                         t = int(t)
                         # post-EOS pad slots are always preceded by the EOS
                         # token in the same chunk, so breaking on EOS is
@@ -1209,8 +1399,21 @@ class BatchScheduler:
                     if host_done[i] and not finished[i]:
                         finished[i] = True
                         reasons[i] = reasons[i] or "stop"
-                    cur_len[i] += k
+                    cur_len[i] += (k if counts_host is None
+                                   else int(counts_host[i]))
                     emit(i)
+                if counts_host is not None:
+                    # acceptance EMA: drafts that keep missing make verify
+                    # passes cost more than the plain steps they replace
+                    accept = (max(0, committed - spec_m * act_n)
+                              / max(1, spec_m * spec_k * act_n))
+                    spec_ema = (accept if spec_ema is None
+                                else 0.5 * spec_ema + 0.5 * accept)
+                    spec_chunks += 1
+                    if spec_chunks >= 3 and spec_ema < self.spec_min_accept:
+                        spec_banned = True
+                        spec_live = False
+                        self.counters["spec_banned_low_accept"] += 1
                 if n_active() > 0:
                     nb = _round_batch(n_active())
                     if nb < b:

@@ -18,13 +18,17 @@ frame):
     encode, prefill and every decode chunk and reads nothing back, so a
     caller can queue frame N+1 before it reads frame N (``qa_over_stream(
     pipelined=True)``). The card runs the queued work in order on one
-    stream, so frame N's tokens are final before N+1 rewrites the cache.
+    stream, so frame N's tokens are final before N+1 rewrites the cache;
+  * ``spec=True`` (greedy only) decodes each frame by prompt-lookup
+    speculative decoding (``vlm.spec_decode_from_tok``) over a draft corpus
+    of [prompt | the previous frame's answer]: consecutive frames tend to
+    answer alike, so whole spans verify in one pass. It stops at EOS. The
+    JAX loop checks ``done`` on the device; here the host reads it once a
+    verify pass, so a spec ``dispatch`` reads the device (its tokens are
+    still read by ``finish``).
 
 Frames are PIL images or (H, W, 3) arrays of any size; arrays go to the
 device as they are and are resized there (``Engine.prepare_array_image``).
-
-Held back: ``spec=True`` (prompt-lookup speculative decode of each frame,
-which waits for ``ops/speculative.py``) raises.
 """
 
 from __future__ import annotations
@@ -48,14 +52,16 @@ class VideoQA:
 
     def __init__(self, engine, question: str, *, max_new_tokens: int = 48,
                  sampling: SamplingParams = SamplingParams(),
-                 spec: bool = False):
-        if spec:
-            raise NotImplementedError("VideoQA spec=True is not yet ported, "
-                                      "see ROADMAP.md")
+                 spec: bool = False, draft_k: int = 8):
+        if spec and sampling.temperature > 0:
+            raise ValueError("spec video decode is greedy-only "
+                             "(temperature must be 0)")
         self.engine = engine
         self.cfg = cfg = engine.cfg
         self.max_new_tokens = max_new_tokens
         self.sampling = sampling
+        self.spec = spec
+        self.draft_k = draft_k
         dev = engine.device
 
         ids = tokenizer_image_token(engine.build_prompt(question),
@@ -72,10 +78,22 @@ class VideoQA:
         self.suffix_lens = torch.as_tensor(suf_lens).to(dev)
         self.suffix_starts = torch.zeros((1,), dtype=torch.int32,
                                          device=dev)  # image at suffix 0
+        # a verify pass writes draft_k + 1 slots past the committed length
+        slack = draft_k + 1 if spec else 0
         self.cache = init_cache(
-            cfg.decoder.num_layers, 1, start + bucket + max_new_tokens,
+            cfg.decoder.num_layers, 1, start + bucket + max_new_tokens + slack,
             cfg.decoder.num_kv_heads, cfg.decoder.head_dim, engine._dtype,
             dev)
+        if spec:
+            # draft corpus = [prompt row | the previous frame's answer at
+            # start + bucket]; the answer region is rewritten every frame
+            self._answer_off = start + bucket
+            corpus = np.zeros((1, self._answer_off + max_new_tokens),
+                              np.int32)
+            corpus[0, :len(row)] = row
+            self._corpus = torch.from_numpy(corpus).to(dev)
+            self._corpus_lens = torch.tensor([len(row)], dtype=torch.int32,
+                                             device=dev)
         self._gen = torch.Generator(device=dev)
         self._gen.manual_seed(time.time_ns() % 2**31)
         self._eos = torch.tensor(engine.eos_ids, dtype=torch.int32,
@@ -133,6 +151,41 @@ class VideoQA:
                       "total_ms": round((time.perf_counter() - t0) * 1000, 2),
                       "tokens": len(out), "decode_steps": steps}
 
+    def _spec_dispatch(self, tok, cache) -> torch.Tensor:
+        """Spec decode of a frame from its first token, then the corpus
+        reseeded with this answer; returns the packed row [num, steps,
+        accepted, drafted, tokens...] for one host read."""
+        res = vlm.spec_decode_from_tok(
+            self.engine.params, self.cfg, tok, cache, self._corpus,
+            self._corpus_lens, max_new_tokens=self.max_new_tokens,
+            eos_ids=self.engine.eos_ids, draft_k=self.draft_k)
+        off = self._answer_off
+        self._corpus[:, off:] = res.tokens
+        self._corpus_lens = off + res.num_generated
+        meta = torch.stack([res.num_generated[0],
+                            torch.tensor(res.steps, dtype=torch.int32,
+                                         device=tok.device),
+                            res.accepted, res.drafted])
+        return torch.cat([meta[None], res.tokens], dim=1)
+
+    def _spec_result(self, packed, t0, ttft_ms=None):
+        """Unpack a frame's spec row (one host read). ``ttft_ms`` None: the
+        first token became available with that read."""
+        host = packed[0].tolist()
+        if ttft_ms is None:
+            ttft_ms = (time.perf_counter() - t0) * 1000
+        num, steps, accepted, drafted = host[:4]
+        out = host[4:4 + num]
+        eos = self.engine.eos_ids
+        if out and out[0] in eos:
+            out = []
+        elif out and out[-1] in eos:
+            out = out[:-1]
+        text, stats = self._result(out, t0, ttft_ms, 0)
+        stats["spec_steps"] = steps
+        stats["spec_accept_rate"] = round(accepted / max(1, drafted), 3)
+        return text, stats
+
     @torch.inference_mode()
     def ask(self, frame) -> Tuple[str, Dict[str, Any]]:
         """frame: PIL image or (H, W, 3) array. Returns (answer, stats)."""
@@ -142,6 +195,9 @@ class VideoQA:
         first = int(tok[0])  # the host read waits for the device
         ttft_ms = (time.perf_counter() - t0) * 1000
         eos = first in self.engine.eos_ids
+        if self.spec:
+            return self._spec_result(self._spec_dispatch(tok, cache), t0,
+                                     ttft_ms)
         done = torch.tensor([eos], device=tok.device)
         chunks, emitted, mid_checked = [], 1, False
         # the first token already EOS (known on the host): decode nothing
@@ -164,10 +220,15 @@ class VideoQA:
     def dispatch(self, frame) -> Dict[str, Any]:
         """Queue a frame's whole computation and read nothing back: the
         first-token EOS decision stays on the device (decode_chunk's
-        ``done`` mask). ``finish`` reads the result."""
+        ``done`` mask). ``finish`` reads the result. With ``spec=True`` the
+        verify loop reads ``done`` once a pass (module docstring); the
+        answer's tokens still wait for ``finish``."""
         images = self._images(frame)
         t0 = time.perf_counter()
         first, cache = self._suffix_prefill(images)
+        if self.spec:
+            # an EOS first token ends the loop before any pass (num = 1)
+            return {"t0": t0, "packed": self._spec_dispatch(first, cache)}
         done = torch.isin(first, self._eos)
         tok, chunks, emitted = first, [], 1
         while emitted < self.max_new_tokens:
@@ -183,6 +244,8 @@ class VideoQA:
         first token being AVAILABLE on the host: in pipelined use the read
         may come after later frames were queued, so it includes that
         queueing."""
+        if "packed" in state:
+            return self._spec_result(state["packed"], state["t0"])
         first = int(state["first"][0])
         ttft_ms = (time.perf_counter() - state["t0"]) * 1000
         return self._result(self._answer(first, state["chunks"]),

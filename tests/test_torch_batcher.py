@@ -3,8 +3,10 @@ batcher.py) on the CPU, mirroring tests/test_batcher.py's names for what is
 ported: batched greedy ids equal the port's serial ``Engine.chat`` and the
 JAX engine's; concurrent requests share one decode loop over the paged pool
 (kernel K3's plain version here); admission, grow, shrink, pool exhaustion,
-cancellation, page accounting; the held-back knobs raise; per-row sampling
-masks agree with the JAX package's.
+cancellation, page accounting; speculative chunks (``spec=True``) give the
+greedy ids, switch off when a second row joins and are banned at low
+acceptance; the held-back knobs raise; per-row sampling masks agree with
+the JAX package's.
 
 Tiny f32 engines built from the same numpy-drawn weights (utils/convert.py),
 a tokenizer whose text is the token ids, and 128 px images (4 image
@@ -479,11 +481,81 @@ def test_prompt_larger_than_pool_fails_alone(eng):
         sched.shutdown()
 
 
+@pytest.mark.parametrize("fixture", ["eng", "eng_noeos"])
+def test_spec_single_request_matches_engine(request, fixture):
+    """One greedy request through BatchScheduler(spec=True): the engine's
+    greedy ids (with and without a reachable EOS), verify-pass chunks ran
+    (the rate tuner probes spec first), and every page comes back."""
+    eng = request.getfixturevalue(fixture)
+    sched = BatchScheduler(eng, window_ms=5, page_size=16, spec=True)
+    try:
+        want = eng.chat("tell me more", _image(20), max_new_tokens=40)[0]
+        last = Client(sched, eng, "tell me more", 20, 40).result()
+        assert last["text"] == want
+        assert sched.counters["disp_spec@1"] >= 1
+        assert sched.counters["decode_steps"] == \
+            eng.chunk * sched.counters["disp_plain@1"]
+        assert _pool_clean(sched)
+    finally:
+        sched.shutdown()
+
+
+@pytest.mark.parametrize("late_sampling", [
+    None, sampling.SamplingParams(temperature=1.0, top_k=8)])
+def test_spec_switches_off_when_a_row_joins(eng_noeos, late_sampling):
+    """A greedy request decodes in spec chunks alone; a second request
+    (greedy or sampled) admitted at a boundary grows the batch, after which
+    plain chunks serve both: no spec chunk runs with two live rows. Both
+    give the serial engine's ids, and every page comes back."""
+    sched = BatchScheduler(eng_noeos, window_ms=20, page_size=16, spec=True)
+    sched.trace = []
+    try:
+        want_long = eng_noeos.chat("steady stream", _image(17),
+                                   max_new_tokens=96)[0]
+        long = Client(sched, eng_noeos, "steady stream", 17, 96)
+        assert long.decoding.wait(JOIN_S)  # a spec chunk landed
+        late = Client(sched, eng_noeos, "but why", 8, 8,
+                      sampling=late_sampling).result()
+        assert long.result()["text"] == want_long
+        if late_sampling is None:
+            assert late["text"] == eng_noeos.chat("but why", _image(8),
+                                                  max_new_tokens=8)[0]
+        assert late["stats"]["decode_tokens"] == 8
+        events = [e[1] for e in sched.trace]
+        admit = events.index("admit")
+        assert "spec" in events[:admit]
+        assert "disp" in events[admit:]
+        assert all(e[3] == 1 for e in sched.trace if e[1] == "spec")
+        assert sched.counters["grown"] >= 1
+        assert _pool_clean(sched)
+    finally:
+        sched.shutdown()
+
+
+def test_spec_low_acceptance_bans_spec(eng_noeos):
+    """An acceptance EMA below spec_min_accept after 3 spec chunks bans
+    spec for the rest of the batch (re-probing every chunk keeps the rate
+    tuner from stopping it first); the ids stay the greedy ones."""
+    sched = BatchScheduler(eng_noeos, window_ms=5, page_size=16, spec=True,
+                           spec_min_accept=2.0)
+    sched.spec_reprobe_every = 1
+    try:
+        want = eng_noeos.chat("steady stream", _image(17),
+                              max_new_tokens=96)[0]
+        last = Client(sched, eng_noeos, "steady stream", 17, 96).result()
+        assert last["text"] == want
+        assert sched.counters["spec_banned_low_accept"] == 1
+        assert sched.counters["disp_spec@1"] == 3
+        assert _pool_clean(sched)
+    finally:
+        sched.shutdown()
+
+
 @pytest.mark.parametrize("knob", [
-    # the prefix cache and chunked admission are ported
-    # (tests/test_torch_prefix_cache.py); what they come with still raises
-    {"prefix_cache": True, "spec": True},
-    {"prefill_chunk": 256, "persist_view": True}, {"spec": True},
+    # the prefix cache, chunked admission and spec chunks are ported
+    # (tests/test_torch_prefix_cache.py, the spec tests above); what the
+    # JAX scheduler's dense views come with still raises
+    {"prefill_chunk": 256, "persist_view": True},
     {"chunk_view": True}, {"persist_view": True}, {"pipeline_depth": 2}])
 def test_unported_knobs_raise(eng, knob):
     with pytest.raises(NotImplementedError, match="not yet ported"):

@@ -4,7 +4,8 @@
 * tiny greedy ``Engine.generate`` gives the same ids in both packages, for
   two prompts (the slice gate), f32, same weights via utils/convert.py;
 * importing every module of the port leaves JAX unimported;
-* the predict CLI refuses the flags whose paths are not yet ported.
+* the predict CLI refuses the flags whose paths are not yet ported, and
+  ``--spec-decode`` runs greedy only.
 """
 
 import os
@@ -262,7 +263,7 @@ def test_port_never_imports_jax():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--num_beams", "2"], ["--spec-decode"], ["--tp", "2"],
+    ["--num_beams", "2"], ["--tp", "2"],
     ["--verify-checkpoint"], ["--model-path", "ckpt"],
 ])
 def test_predict_refuses_unported_flags(flags, capsys):
@@ -275,6 +276,28 @@ def test_predict_random_weights_runs(capsys):
                          "--max-new-tokens", "3", "--temperature", "0",
                          "--timing"]) == 0
     assert '"ttft_ms"' in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("draft_k", ["8", "3"])
+def test_predict_spec_decode_runs_greedy(draft_k, capsys):
+    """``--spec-decode --temperature 0`` prints the greedy run's text."""
+    base = ["--random-weights", "--device", "cpu", "--max-new-tokens", "6",
+            "--temperature", "0"]
+    assert predict.main(base) == 0
+    plain = capsys.readouterr().out
+    assert predict.main(base + ["--spec-decode", "--draft-k", draft_k,
+                                "--timing"]) == 0
+    out = capsys.readouterr()
+    assert out.out == plain
+    assert '"tokens"' in out.err
+
+
+def test_predict_spec_decode_requires_greedy(capsys):
+    with pytest.raises(SystemExit) as exc:
+        predict.main(["--random-weights", "--device", "cpu", "--spec-decode",
+                      "--max-new-tokens", "2"])  # default temperature 0.2
+    assert exc.value.code != 0
+    assert "greedy-only" in capsys.readouterr().err
 
 
 def test_build_engine_refuses_without_a_card(monkeypatch):

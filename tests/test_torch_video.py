@@ -3,7 +3,10 @@ package's (fastvlm_tpu/video.py), mirroring tests/test_video.py: per-frame
 greedy ids equal the JAX ``VideoQA``'s and the port's full-prefill
 ``Engine.chat``'s; frames do not leak into each other; a non-native uint8
 camera frame is resized on the device; the pipelined stream answers as the
-sequential one; ``dispatch`` reads nothing back to the host.
+sequential one; ``dispatch`` reads nothing back to the host. With
+``spec=True`` (speculative decode seeded by the previous frame's answer)
+the answers and verify passes equal the JAX ``VideoQA(spec=True)``'s and the
+plain answers, pipelined or not.
 
 f32 at tiny sizes (128 px, 4 image tokens), the same numpy-drawn weights on
 both sides (utils/convert.py), a tokenizer whose text is the token ids. Ids
@@ -24,6 +27,7 @@ from fastvlm_tpu.models import vlm as jvlm
 from fastvlm_tpu_torch import config as tcfg
 from fastvlm_tpu_torch import engine
 from fastvlm_tpu_torch.data import preprocessing
+from fastvlm_tpu_torch.ops.sampling import SamplingParams
 from fastvlm_tpu_torch.utils.convert import from_jax_params
 from fastvlm_tpu_torch.video import VideoQA, qa_over_stream
 
@@ -194,8 +198,56 @@ def test_dispatch_reads_nothing_back(engines, monkeypatch):
     assert text == te.chat(QUESTION, frame, max_new_tokens=20)[0]
 
 
-def test_spec_is_not_ported(engines):
+SPEC_FRAMES = (0, 1, 0)
+
+
+@pytest.fixture(scope="module")
+def jax_spec_answers(engines):
+    """The JAX VideoQA(spec=True)'s (answer, spec_steps) for frames 0, 1, 0
+    (8 new tokens, draft_k 4)."""
+    je, _ = engines
+    vq = jvideo.VideoQA(je, QUESTION, max_new_tokens=8, spec=True, draft_k=4)
+    out = []
+    for s in SPEC_FRAMES:
+        text, stats = vq.ask(_frame(s))
+        out.append((text, stats["spec_steps"]))
+    return out
+
+
+def test_video_spec_matches_jax(engines, jax_spec_answers, jax_answers):
+    """Answers and verify passes equal JAX's; the answers are the plain
+    VideoQA's (6 tokens of them: jax_answers). The second frame drafts from
+    the first frame's answer (the same here), so it verifies in fewer
+    passes."""
     _, te = engines
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        VideoQA(te, QUESTION, spec=True)
+    vq = VideoQA(te, QUESTION, max_new_tokens=8, spec=True, draft_k=4)
+    got = [vq.ask(_frame(s)) for s in SPEC_FRAMES]
+    assert [(t, s["spec_steps"]) for t, s in got] == jax_spec_answers
+    assert got[1][1]["spec_steps"] < got[0][1]["spec_steps"]
+    for (text, stats), plain in zip(got, jax_answers[:3]):
+        assert text.startswith(plain) and stats["tokens"] == 8
+        assert 0.0 <= stats["spec_accept_rate"] <= 1.0
+    plain8 = VideoQA(te, QUESTION, max_new_tokens=8)
+    assert [t for t, _ in got] == [plain8.ask(_frame(s))[0]
+                                   for s in SPEC_FRAMES]
+
+
+def test_video_spec_pipelined_matches_sequential(engines, jax_spec_answers):
+    _, te = engines
+    frames = [_frame(s) for s in SPEC_FRAMES]
+    seq = list(qa_over_stream(
+        VideoQA(te, QUESTION, max_new_tokens=8, spec=True, draft_k=4),
+        frames, latest_only=False))
+    piped = list(qa_over_stream(
+        VideoQA(te, QUESTION, max_new_tokens=8, spec=True, draft_k=4),
+        frames, latest_only=False, pipelined=True))
+    assert [t for t, _ in piped] == [t for t, _ in seq]
+    assert [(t, s["spec_steps"]) for t, s in piped] == jax_spec_answers
+
+
+def test_video_spec_rejects_sampling(engines):
+    _, te = engines
+    with pytest.raises(ValueError, match="greedy-only"):
+        VideoQA(te, QUESTION, spec=True,
+                sampling=SamplingParams(temperature=0.5))
 
