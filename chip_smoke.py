@@ -116,13 +116,37 @@ non-zero):
               request alone in spec chunks, a second admitted, after which
               plain chunks serve both (spec dispatches > 0, K3 = 24 a plain
               step, no K2, pool back, replays of both)
- 11. small    a small f32 model on the card (kernels) agrees with the same
-              model on the CPU (plain versions), logits and greedy ids, and
-              spec_decode's tokens, counts, passes and acceptances; the
-              same model through a BatchScheduler on the card and on the CPU
-              gives 3 concurrent greedy requests the serial engine's ids,
-              and one greedy request through BatchScheduler(spec=True) on
-              the card gives them too
+ 11. checkpoint  phase 6's weights exported (utils/hf_export) as a bf16
+              pytorch_model.bin + config.json in a temporary directory and
+              loaded back by build_engine(dir, tokenizer=IdTokenizer()):
+              every tensor of the loaded engine equals phase 6's bitwise
+              (the decoder fused the same way; phase 6's float32 projector
+              after the bf16 cast it gets at use) and the configs are
+              equal; two of phase 6's prompts through the loaded engine
+              (K1 44 a request, K2 24 a step; each answer's dense replay
+              through phase 6's engine within the tie margin; how many
+              equal phase 6's ids); verify_checkpoint(dir) on the card
+              (no unused key, finite features of (1, 256, 896) and a finite
+              (1, 16, 16, 3072) tower grid). Prints the file's size, write
+              and load-and-convert seconds
+ 12. beam     Engine.generate_beam (W = 4, 32 new tokens) on the loaded
+              engine, 3 prompts (an identical pair): K1 44 and K2 24 x 31
+              a request (at batch 4), identical ids for the pair; K2 at
+              the beam's shape (B = 4 equal lengths, the beam cache's
+              S_max) against its plain version; the chosen score against a
+              dense batch-1 replay's summed log-softmax over the length
+              (BEAM_SCORE_TOL); W = 1 against greedy generate (equal ids,
+              or a dense replay within the tie margin). Prints each
+              request's ms and tok/s, peak memory, and a beam step's wall
+              ms, device ms and launches beside a greedy step's
+ 13. small    a small f32 model on the card (kernels) agrees with the same
+              model on the CPU (plain versions), logits and greedy ids,
+              spec_decode's tokens, counts, passes and acceptances, and
+              beam_search's tokens, lengths and scores (W = 3, K2 at batch
+              3); the same model through a BatchScheduler on the card and
+              on the CPU gives 3 concurrent greedy requests the serial
+              engine's ids, and one greedy request through
+              BatchScheduler(spec=True) on the card gives them too
 
 f32 comparisons run with TF32 off for both matmuls and cuDNN convolutions:
 the script sets torch.backends.cuda.matmul.allow_tf32 and
@@ -140,6 +164,7 @@ The line before last is a JSON object {"kernels": [...]}; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -713,7 +738,8 @@ def phase_main(card):
     return {"k1_launches": k1, "k2_launches": k2, "decode_steps": steps,
             "ttft_ms": [s["ttft_ms"] for _, s in results],
             "tok_per_s": [s["tok_per_s"] for _, s in results],
-            "peak_gib": peak_gb, "engine": engine}
+            "peak_gib": peak_gb, "engine": engine, "params": params,
+            "answers": dict(zip(prompts, (text for text, _ in results)))}
 
 
 class Client:
@@ -1658,6 +1684,371 @@ def phase_spec(card, engine):
             "serve_k1": k1, "serve_k3": k3}
 
 
+def _leaves(tree, prefix=""):
+    """{path: tensor} of a params tree."""
+    if isinstance(tree, (dict, list)):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        out = {}
+        for k, v in items:
+            out.update(_leaves(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+def phase_checkpoint(card, main_engine, main_params, main_answers):
+    """Phase main's weights written as a HF checkpoint (bf16 pytorch_model.bin
+    + config.json in a temporary directory) and loaded back through
+    build_engine: the loaded engine's parameters bitwise equal to phase
+    main's, two of its prompts answered through the kernels, and
+    verify_checkpoint's audit and features."""
+    import tempfile
+
+    from fastvlm_tpu_torch.engine import build_engine
+    from fastvlm_tpu_torch.models import qwen2
+    from fastvlm_tpu_torch.ops.cuda.decode_attention import decode_attention
+    from fastvlm_tpu_torch.ops.cuda.ffn import fused_ffn
+    from fastvlm_tpu_torch.utils.checkpoint import verify_checkpoint
+    from fastvlm_tpu_torch.utils.hf_export import (
+        export_state_dict, vlm_config_to_hf_dict)
+
+    cfg = main_engine.cfg
+    with tempfile.TemporaryDirectory(prefix="fastvlm_ckpt_") as ckpt:
+        # phase main's tree: decoder fused (export splits it back), layer
+        # scales not folded (the Engine folded a copy)
+        t0 = time.perf_counter()
+        sd = {k: torch.from_numpy(v).to(torch.bfloat16).contiguous()
+              for k, v in export_state_dict(main_params, cfg).items()}
+        torch.save(sd, os.path.join(ckpt, "pytorch_model.bin"))
+        with open(os.path.join(ckpt, "config.json"), "w") as f:
+            json.dump(vlm_config_to_hf_dict(cfg), f)
+        write_s = time.perf_counter() - t0
+        n_keys = len(sd)
+        del sd
+        size_gib = os.path.getsize(os.path.join(ckpt, "pytorch_model.bin")) / 2 ** 30
+
+        t0 = time.perf_counter()
+        engine = build_engine(ckpt, dtype="bfloat16", device="cuda",
+                              tokenizer=IdTokenizer())
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        log("checkpoint", f"phase main's weights: {n_keys} tensors, "
+                          f"pytorch_model.bin {size_gib:.4f} GiB (bf16) written "
+                          f"in {write_s:.3f} s (export + cast + save); "
+                          f"build_engine loaded and converted it onto the card "
+                          f"in {load_s:.3f} s")
+
+        # the loaded engine's parameters are phase main's (decoder fused the
+        # same way; both Engines folded the layer scales from equal trees).
+        # Phase main's projector is float32 (projector.init draws f32, as in
+        # JAX) and is cast to bf16 at use; the file holds it in bf16.
+        got = _leaves({**engine.params, "decoder": qwen2.fuse_decoder_params(
+            engine.params["decoder"], cfg.decoder)})
+        want = _leaves(main_engine.params)
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"loaded tree differs: "
+                                 f"{sorted(set(got) ^ set(want))[:8]}")
+        cast = 0
+        for k, w in want.items():
+            g = got[k]
+            if w.dtype == torch.float32 and g.dtype == torch.bfloat16:
+                w, cast = w.to(torch.bfloat16), cast + 1
+            if g.dtype != w.dtype or g.device != w.device or not torch.equal(g, w):
+                raise AssertionError(f"checkpoint: {k} differs from phase "
+                                     f"main's ({g.dtype} vs {w.dtype})")
+        if engine.cfg != dataclasses.replace(cfg, context_len=engine.cfg.context_len):
+            raise AssertionError(f"checkpoint: loaded config {engine.cfg} is "
+                                 f"not phase main's {cfg}")
+        log("checkpoint", f"all {len(want)} tensors of the loaded engine equal "
+                          f"phase main's bitwise on the card ({cast} float32 "
+                          f"projector tensors after the bf16 cast phase main "
+                          f"applies at use); configs equal")
+
+        image = np.random.RandomState(0).randint(0, 256, (1024, 1024, 3),
+                                                 dtype=np.uint8)
+        prompts = ["Describe the image.", "What is written in the image?"]
+        fused_ffn.launches = 0
+        decode_attention.launches = 0
+        results = [engine.generate(engine.build_prompt(p), image,
+                                   max_new_tokens=32) for p in prompts]
+        k1, k2 = fused_ffn.launches, decode_attention.launches
+        steps = sum(st["decode_steps"] for _, st in results)
+        layers = cfg.decoder.num_layers
+        if k1 != 44 * len(prompts) or steps == 0 or k2 != layers * steps:
+            raise AssertionError(f"checkpoint: K1 {k1} for {len(prompts)} "
+                                 f"requests, K2 {k2} for {steps} steps")
+        same = sum(text == main_answers[p] for p, (text, _) in
+                   zip(prompts, results))
+        for p, (text, st) in zip(prompts, results):
+            log("checkpoint", f"{p!r}: ttft {st['ttft_ms']:.2f} ms, "
+                              f"{st['decode_tokens']} tokens at "
+                              f"{st['tok_per_s']:.2f} tok/s; ids {text[:48]}...")
+        log("checkpoint", f"launch counts: K1 {k1} = 44 x {len(prompts)} "
+                          f"requests; K2 {k2} = {layers} x {steps} steps; "
+                          f"{same} of {len(prompts)} answers equal phase "
+                          f"main's ids exactly (the loaded decoder is unfused: "
+                          f"q/k/v and gate/up as separate products)")
+        for p, (text, _) in zip(prompts, results):
+            _check_replay("checkpoint", f"the loaded engine's answer to {p!r} "
+                          f"(replayed through phase main's engine)",
+                          main_engine, p, image, text)
+
+        t0 = time.perf_counter()
+        report = verify_checkpoint(ckpt, device="cuda")
+        verify_s = time.perf_counter() - t0
+    s = cfg.vision.image_size // cfg.vision.total_stride
+    if (report["unused_keys"] or not report["features_finite"]
+            or not report["tower_grid_finite"]
+            or report["features_shape"] != [1, s * s, cfg.decoder.hidden_size]
+            or report["tower_grid_shape"] != [1, s, s, cfg.vision.out_channels]):
+        raise AssertionError(f"verify_checkpoint: {report}")
+    log("checkpoint", f"verify_checkpoint (float32 on the card, "
+                      f"{verify_s:.3f} s): {report['keys_used']} of "
+                      f"{report['keys_total']} keys used, none unused; "
+                      f"features {report['features_shape']} finite, mean "
+                      f"|x| {report['features_abs_mean']:.6e}; tower grid "
+                      f"{report['tower_grid_shape']} finite; on {card}")
+    return {"engine": engine, "k1_launches": k1, "k2_launches": k2,
+            "write_s": write_s, "load_s": load_s, "size_gib": size_gib}
+
+
+BEAM_W = 4
+BEAM_NEW = 32
+# the beam's chosen score (summed f32 log-softmax over the hypothesis,
+# over its length) against a dense batch-1 replay of its tokens: the
+# beam's logits come from batch-4 steps, the replay's from batch-1 ones,
+# and bf16 products of the two widths may round apart by a few ulps
+# (~0.004-0.008 a logit here), which moves the per-token mean by less
+BEAM_SCORE_TOL = 0.05
+
+
+def _beam_score_replay(engine, prompt, image, toks):
+    """Sum of the dense batch-1 path's f32 log-softmax at each of ``toks``
+    (teacher-forced through prefill and decode_step)."""
+    from fastvlm_tpu_torch.models import vlm
+    from fastvlm_tpu_torch.ops.kv_cache import init_cache
+
+    cfg = engine.cfg
+    with torch.inference_mode():
+        inputs = engine.prepare(engine.build_prompt(prompt), image)
+        t = inputs["ids"].shape[1]
+        cache = init_cache(cfg.decoder.num_layers, 1, t + len(toks),
+                           cfg.decoder.num_kv_heads, cfg.decoder.head_dim,
+                           torch.bfloat16, "cuda")
+        logits, cache = vlm.prefill(engine.params, cfg, inputs["images"],
+                                    inputs["ids"], inputs["lens"],
+                                    inputs["starts"], cache)
+        total = torch.zeros((), device="cuda")
+        for i, tok in enumerate(toks):
+            total = total + torch.log_softmax(logits[0].float(), -1)[tok]
+            if i + 1 < len(toks):
+                logits, cache = vlm.decode_step(
+                    engine.params, cfg,
+                    torch.tensor([tok], dtype=torch.int32, device="cuda"),
+                    cache)
+    return float(total)
+
+
+def _beam_step_profile(engine, image):
+    """A beam step (W = 4 rows, one decode_step, the top-2W sort, the
+    hypothesis updates and the cache reorder) against a greedy step (batch
+    1, decode_chunk), after the main prompt's prefill: wall ms a step from
+    dispatch to the host read over 32-token runs (in turns beam, greedy,
+    greedy, beam, beam, greedy), then one profiled run of 16 steps of each:
+    device ms, launches and K2 launches a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fastvlm_tpu_torch.models import vlm
+    from fastvlm_tpu_torch.ops.beam import beam_search
+    from fastvlm_tpu_torch.ops.kv_cache import init_cache
+    from fastvlm_tpu_torch.ops.sampling import SamplingParams
+
+    cfg, dec = engine.cfg, engine.cfg.decoder
+    with torch.inference_mode():
+        inputs = engine.prepare(engine.build_prompt(SPEC_PROMPTS[0]), image)
+        t = inputs["ids"].shape[1]
+
+        def prefilled():
+            cache = init_cache(dec.num_layers, 1, t + BEAM_NEW,
+                               dec.num_kv_heads, dec.head_dim,
+                               torch.bfloat16, "cuda")
+            return vlm.prefill(engine.params, cfg, inputs["images"],
+                               inputs["ids"], inputs["lens"],
+                               inputs["starts"], cache)
+
+        def beam(logits, cache, steps):
+            res = beam_search(engine.params, cfg, logits, cache,
+                              num_beams=BEAM_W, max_new_tokens=steps + 1,
+                              eos_ids=engine.eos_ids)
+            int(res.lengths[0])
+
+        def greedy(logits, cache, steps):
+            tok = logits.argmax(-1).to(torch.int32)
+            done = torch.zeros((1,), dtype=torch.bool, device="cuda")
+            for _ in range(steps // engine.chunk):
+                toks, done, tok, cache = vlm.decode_chunk(
+                    engine.params, cfg, tok, done, cache, None,
+                    k=engine.chunk, eos_ids=(-1,), sampling=SamplingParams())
+                toks.cpu()
+
+        fns = {"beam": (beam, BEAM_NEW - 1), "greedy": (greedy, BEAM_NEW)}
+        wall = {"beam": [], "greedy": []}
+        for what in ("beam", "greedy", "greedy", "beam", "beam", "greedy"):
+            fn, steps = fns[what]
+            logits, cache = prefilled()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(logits, cache, steps)
+            wall[what].append((time.perf_counter() - t0) * 1000 / steps)
+        prof = {}
+        steps = engine.chunk
+        for what, (fn, _) in fns.items():
+            logits, cache = prefilled()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as pr:
+                fn(logits, cache, steps)
+                torch.cuda.synchronize()
+            rows = [e for e in pr.key_averages()
+                    if e.device_type == DeviceType.CUDA]
+            prof[what] = {
+                "launches": sum(e.count for e in rows) / steps,
+                "device_ms": sum(e.self_device_time_total for e in rows)
+                / steps / 1000,
+                "k2": sum(e.count for e in rows if "decode_kernel" in e.key)
+                / steps}
+    return {"wall_ms": {w: statistics.median(v) for w, v in wall.items()},
+            "wall_all": wall, "profile": prof}
+
+
+def phase_beam(card, engine, main_engine):
+    """Beam search (W = 4, 32 new tokens) on the loaded engine: launch
+    counts, K2 at the beam's shape against its plain version, the chosen
+    score against a dense replay, W = 1 against greedy, identical requests;
+    a beam step's cost beside a greedy step's."""
+    from fastvlm_tpu_torch.models import vlm
+    from fastvlm_tpu_torch.ops.beam import beam_search
+    from fastvlm_tpu_torch.ops.cuda.decode_attention import (
+        decode_attention, decode_attention_reference)
+    from fastvlm_tpu_torch.ops.cuda.ffn import fused_ffn
+    from fastvlm_tpu_torch.ops.kv_cache import init_cache
+
+    cfg, dec = engine.cfg, engine.cfg.decoder
+    image = np.random.RandomState(0).randint(0, 256, (1024, 1024, 3),
+                                             dtype=np.uint8)
+    prompts = [SPEC_PROMPTS[0], SPEC_PROMPTS[0], SPEC_PROMPTS[2]]
+    engine.generate_beam(engine.build_prompt(prompts[0]), image,
+                         num_beams=BEAM_W, max_new_tokens=4)  # warm
+    torch.cuda.reset_peak_memory_stats()
+    fused_ffn.launches = 0
+    decode_attention.launches = 0
+    results = []
+    for p in prompts:
+        k1, k2 = fused_ffn.launches, decode_attention.launches
+        results.append(engine.generate_beam(
+            engine.build_prompt(p), image, num_beams=BEAM_W,
+            max_new_tokens=BEAM_NEW))
+        k1, k2 = fused_ffn.launches - k1, decode_attention.launches - k2
+        if k1 != 44 or k2 != dec.num_layers * (BEAM_NEW - 1):
+            raise AssertionError(f"beam request {p!r}: K1 {k1}, K2 {k2} "
+                                 f"(expected 44 and {dec.num_layers} x "
+                                 f"{BEAM_NEW - 1})")
+    k1_total, k2_total = fused_ffn.launches, decode_attention.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    if results[0][0] != results[1][0]:
+        raise AssertionError("beam: identical requests gave different ids")
+    for p, (text, st) in zip(prompts, results):
+        log("beam", f"W={BEAM_W} {p!r}: {st['ttft_ms']:.3f} ms for prefill + "
+                    f"search, chosen hypothesis {st['decode_tokens']} tokens "
+                    f"({st['tok_per_s']:.2f} tok/s); ids {text[:48]}...")
+    log("beam", f"launch counts: K1 {k1_total} = 44 x {len(prompts)} "
+                f"requests; K2 {k2_total} = {dec.num_layers} x "
+                f"{BEAM_NEW - 1} steps x {len(prompts)} requests at batch "
+                f"{BEAM_W}; identical requests gave identical ids; peak "
+                f"device memory {peak_gib:.2f} GiB")
+
+    # K2 at the beam's shape: B = W rows of equal length, the beam cache's
+    # S_max (prompt bucket + max_new)
+    inputs = engine.prepare(engine.build_prompt(prompts[0]), image)
+    t, plen = inputs["ids"].shape[1], inputs["prompt_tokens"]
+    s_max = t + BEAM_NEW
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    q, kc, vc = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                 for shape in ((BEAM_W, dec.num_heads, dec.head_dim),
+                               (BEAM_W, s_max, dec.num_kv_heads, dec.head_dim),
+                               (BEAM_W, s_max, dec.num_kv_heads, dec.head_dim)))
+    lens = torch.full((BEAM_W,), plen + BEAM_NEW // 2, dtype=torch.int32,
+                      device="cuda")
+    k2_err, ratio = compare(decode_attention(q, kc, vc, lens),
+                            decode_attention_reference(q, kc, vc, lens),
+                            K2_TOL[torch.bfloat16], "K2 at the beam's shape")
+    call = lambda: decode_attention(q, kc, vc, lens)
+    k2_kernel_ms = kernel_time_ms(call, reps=50)
+    k2_bound = attn_bound_ms(q, lens, dec.num_kv_heads, 2)
+    log("beam", f"K2 at the beam's shape (B={BEAM_W}, {dec.num_heads}/"
+                f"{dec.num_kv_heads}/{dec.head_dim} bf16, S_max {s_max}, "
+                f"lengths {int(lens[0])}): max_abs_err {k2_err:.3e} (tol "
+                f"ratio {ratio:.3f} <= 1); kernel time {fmt_us(k2_kernel_ms)} "
+                f"(profiler), bound {k2_bound * 1e3:.4f} us (bytes)")
+
+    # the chosen score against a dense batch-1 replay of its tokens
+    with torch.inference_mode():
+        cache = init_cache(dec.num_layers, 1, s_max, dec.num_kv_heads,
+                           dec.head_dim, torch.bfloat16, "cuda")
+        logits, cache = vlm.prefill(engine.params, cfg, inputs["images"],
+                                    inputs["ids"], inputs["lens"],
+                                    inputs["starts"], cache)
+        res = beam_search(engine.params, cfg, logits, cache,
+                          num_beams=BEAM_W, max_new_tokens=BEAM_NEW,
+                          eos_ids=engine.eos_ids)
+    n = int(res.lengths[0])
+    toks = res.tokens[0, :n].tolist()
+    ids = [int(i) for i in results[0][0].split(",") if i]
+    if toks[:len(ids)] != ids:
+        raise AssertionError("beam_search gave other tokens than "
+                             "generate_beam for the same prompt")
+    score = float(res.scores[0])
+    replay = _beam_score_replay(engine, prompts[0], image, toks) / n
+    if not abs(score - replay) <= BEAM_SCORE_TOL:
+        raise AssertionError(f"beam score {score:.6f} vs dense replay "
+                             f"{replay:.6f} (tolerance {BEAM_SCORE_TOL})")
+    log("beam", f"chosen hypothesis of {n} tokens: score {score:.6f} (summed "
+                f"log-softmax / length), dense batch-1 replay {replay:.6f}, "
+                f"|diff| {abs(score - replay):.3e} (tolerance "
+                f"{BEAM_SCORE_TOL})")
+
+    # W = 1 against greedy: the same ids, or a tie within TIE_ULPS wherever
+    # they part
+    w1, _ = engine.generate_beam(engine.build_prompt(prompts[0]), image,
+                                 num_beams=1, max_new_tokens=BEAM_NEW)
+    greedy, _ = engine.generate(engine.build_prompt(prompts[0]), image,
+                                max_new_tokens=BEAM_NEW)
+    if w1 != greedy:
+        _check_replay("beam", "the W=1 answer (differs from greedy)", engine,
+                      prompts[0], image, w1)
+    log("beam", f"W=1 gave {'greedy generate' if w1 == greedy else 'other'}"
+                f"'s ids")
+
+    prof = _beam_step_profile(engine, image)
+    pb, pg = prof["profile"]["beam"], prof["profile"]["greedy"]
+    if round(pb["k2"]) != dec.num_layers or round(pg["k2"]) != dec.num_layers:
+        raise AssertionError(f"step profile: K2 {pb['k2']} a beam step, "
+                             f"{pg['k2']} a greedy step")
+    log("beam", f"a beam step (W={BEAM_W}) against a greedy step (batch 1): "
+                f"wall {prof['wall_ms']['beam']:.3f} against "
+                f"{prof['wall_ms']['greedy']:.3f} ms (medians of 3 searches / "
+                f"chunk runs of {BEAM_NEW} tokens, in turns: beam "
+                f"{[round(x, 3) for x in prof['wall_all']['beam']]}, greedy "
+                f"{[round(x, 3) for x in prof['wall_all']['greedy']]}); "
+                f"device time {pb['device_ms']:.4f} against "
+                f"{pg['device_ms']:.4f} ms in {pb['launches']:.1f} against "
+                f"{pg['launches']:.1f} launches (profiler, 16 steps of "
+                f"each; K2 "
+                f"{pb['k2']:.1f} / {pg['k2']:.1f} a step); on {card}")
+    return {"k1_launches": k1_total, "k2_launches": k2_total,
+            "k2_max_abs_err": k2_err, "peak_gib": peak_gib}
+
+
 def phase_small():
     from fastvlm_tpu_torch.engine import Engine, tiny_config
     from fastvlm_tpu_torch.models import vlm
@@ -1732,6 +2123,45 @@ def phase_small():
                  f"tokens, counts {spec['cpu'][1]}, {spec['cpu'][2]} passes, "
                  f"{spec['cpu'][3]} drafted, {spec['cpu'][4]} accepted")
 
+    # beam search of the same model (W = 3, K2 at batch 3 on the card), on
+    # the card and on the CPU
+    from fastvlm_tpu_torch.ops.beam import beam_search
+    from fastvlm_tpu_torch.ops.cuda.decode_attention import decode_attention
+
+    beams = {}
+    for dev in ("cuda", "cpu"):
+        engine = Engine(cfg, to_device(cpu_params, dev), IdTokenizer())
+        before = decode_attention.launches
+        with torch.inference_mode():
+            inputs = engine.prepare(engine.build_prompt("Describe the image."),
+                                    image)
+            t = inputs["ids"].shape[1]
+            cache = init_cache(cfg.decoder.num_layers, 1, t + 16,
+                               cfg.decoder.num_kv_heads, cfg.decoder.head_dim,
+                               torch.float32, dev)
+            logits, cache = vlm.prefill(engine.params, cfg, inputs["images"],
+                                        inputs["ids"], inputs["lens"],
+                                        inputs["starts"], cache)
+            res = beam_search(engine.params, cfg, logits, cache, num_beams=3,
+                              max_new_tokens=16, eos_ids=engine.eos_ids,
+                              length_penalty=0.6)
+        beams[dev] = (res.tokens.cpu(), res.lengths.cpu(), res.scores.cpu())
+        if dev == "cuda" and decode_attention.launches - before != \
+                cfg.decoder.num_layers * 15:
+            raise AssertionError(f"small beam: K2 launched "
+                                 f"{decode_attention.launches - before} times")
+    n = int(beams["cpu"][1][0])
+    if not (torch.equal(beams["cuda"][1], beams["cpu"][1])
+            and torch.equal(beams["cuda"][0][:, :n], beams["cpu"][0][:, :n])):
+        raise AssertionError(f"beam_search differs: card {beams['cuda'][:2]} "
+                             f"vs CPU {beams['cpu'][:2]}")
+    score_err = float((beams["cuda"][2] - beams["cpu"][2]).abs().max())
+    if score_err > 1e-4:
+        raise AssertionError(f"beam_search scores differ by {score_err:.3e}")
+    log("small", f"beam_search W=3, 16 tokens, tiny f32 model: card (K2 at "
+                 f"batch 3) and CPU give equal tokens and lengths ({n}), "
+                 f"scores within {score_err:.3e} (tol 1e-4)")
+
     # the same model through the scheduler, on the card and on the CPU:
     # 3 concurrent greedy requests, the serial engine's ids
     prompts = ["Describe the image.", "What is in it?", "Name the colours."]
@@ -1794,6 +2224,9 @@ def main() -> int:
     serve15_res = phase_serve_15b(card)
     video_res = phase_video(card, engine)
     spec_res = phase_spec(card, engine)
+    ckpt_res = phase_checkpoint(card, engine, main_res.pop("params"),
+                                main_res.pop("answers"))
+    beam_res = phase_beam(card, ckpt_res.pop("engine"), engine)
     phase_small()
 
     kernels = {"kernels": [
@@ -1807,7 +2240,9 @@ def main() -> int:
                               "video": video_res["k1_launches"],
                               "spec": spec_res["k1_launches"],
                               "video-spec": spec_res["video_k1"],
-                              "spec-serve": spec_res["serve_k1"]},
+                              "spec-serve": spec_res["serve_k1"],
+                              "checkpoint": ckpt_res["k1_launches"],
+                              "beam": beam_res["k1_launches"]},
          "max_abs_err": k1_err,
          "ms": k1["ms"], "kernel_ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": "operations",
@@ -1821,14 +2256,17 @@ def main() -> int:
          "replaces": "fastvlm_tpu/ops/pallas/decode_attention.py:167",
          "launches": main_res["k2_launches"],
          "launches_by_path": {"main": main_res["k2_launches"],
-                              "video": video_res["k2_launches"]},
-         "max_abs_err": k2_err,
+                              "video": video_res["k2_launches"],
+                              "checkpoint": ckpt_res["k2_launches"],
+                              "beam": beam_res["k2_launches"]},
+         "max_abs_err": max(k2_err, beam_res["k2_max_abs_err"]),
          "ms": k2["ms"], "kernel_ms": k2["kernel_ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": "bytes",
          "library_ms": k2["library_ms"],
          "library_kernel_ms": k2["library_kernel_ms"], "host_us": k2["host_us"],
          "timed_as": "one call, B=1, 14/2/64 bf16, S_max 416, length 400; "
-                     "ms by events per call; library: "
+                     "ms by events per call; max_abs_err also over the "
+                     "beam's B=4 call; library: "
                      "scaled_dot_product_attention with enable_gqa"},
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "fastvlm_tpu_torch/csrc/paged_decode_attention.cu",

@@ -16,12 +16,14 @@ version. The package imports ``torch`` and never ``jax``.
 Layout:
     models/    FastViTHD encoder, projector, Qwen2 decoder, FastVLM glue
     ops/       conv/norm helpers, KV caches (dense, paged), sampling,
-               prompt-lookup speculative decoding, splice, image resize,
-               CUDA kernels
+               prompt-lookup speculative decoding, beam search, splice,
+               image resize, CUDA kernels
     data/      conversation templates, constants, host preprocessing
-    utils/     the weight bridge from the JAX package's parameter tree
+    utils/     HF checkpoint import (branch fusion, BN fold, key audit) and
+               export, and the weight bridge from the JAX package's tree
     serve/     the continuous-batching scheduler over the paged pool
-    engine.py  host API (prepare / stream / generate / generate_spec),
+    engine.py  host API (prepare / stream / generate / generate_spec /
+               generate_beam; build_engine loads a checkpoint directory),
                predict.py its CLI
     video.py   video-frame QA with the prompt prefix's KV reused
 """

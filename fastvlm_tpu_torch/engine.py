@@ -7,7 +7,9 @@ decode with EOS ids, token-level stop keywords and stop strings. Every
 request gets ``RequestStats``: TTFT (encode + prefill + first token on the
 host) and decode time, both ending in a device synchronise on the card.
 Greedy requests may decode speculatively (prompt lookup): ``stream(...,
-spec=True)`` and ``generate_spec``.
+spec=True)`` and ``generate_spec``; ``generate_beam`` decodes by beam
+search. ``build_engine`` loads a HF checkpoint directory or builds the tiny
+random model.
 
 Used by: predict CLI, serve/batcher.py, video.py, chip_smoke.py.
 """
@@ -29,6 +31,7 @@ from fastvlm_tpu_torch.data.preprocessing import (
 from fastvlm_tpu_torch.models import vlm
 from fastvlm_tpu_torch.models.fastvit import fold_layer_scale
 from fastvlm_tpu_torch.ops import image_ops
+from fastvlm_tpu_torch.ops.beam import beam_search
 from fastvlm_tpu_torch.ops.kv_cache import init_cache
 from fastvlm_tpu_torch.ops.sampling import SamplingParams, sample
 from fastvlm_tpu_torch.ops.splice import expand_image_ids, pad_batch
@@ -365,6 +368,47 @@ class Engine:
                 text = text.split(s)[0]
         return text, stats.as_dict()
 
+    @torch.inference_mode()
+    def generate_beam(
+        self,
+        prompt: str,
+        image=None,
+        *,
+        num_beams: int = 4,
+        max_new_tokens: Optional[int] = None,
+        length_penalty: float = 1.0,
+    ) -> Tuple[str, Dict[str, Any]]:
+        """Deterministic beam-search generate (``ops/beam.beam_search``: W
+        beams folded into the batch axis of the dense cache, a fixed
+        max_new_tokens - 1 steps after the prefill). Prefill and search run
+        as one chain read once at the end, so ``ttft_ms`` and ``decode_ms``
+        both cover the whole of it; ``decode_tokens`` is the chosen
+        hypothesis's length."""
+        cfg = self.cfg
+        max_new = max_new_tokens or cfg.max_new_tokens
+        inputs = self.prepare(prompt, image)
+        ids, lens = inputs["ids"], inputs["lens"]
+        b, t = ids.shape
+        stats = RequestStats(prompt_tokens=inputs["prompt_tokens"])
+        cache = init_cache(cfg.decoder.num_layers, b, t + max_new,
+                           cfg.decoder.num_kv_heads, cfg.decoder.head_dim,
+                           self._dtype, self.device)
+        _sync(self.device)
+        t0 = time.perf_counter()
+        logits, cache = vlm.prefill(self.params, cfg, inputs["images"], ids,
+                                    lens, inputs["starts"], cache)
+        res = beam_search(self.params, cfg, logits, cache,
+                          num_beams=num_beams, max_new_tokens=max_new,
+                          eos_ids=self.eos_ids, length_penalty=length_penalty)
+        n = int(res.lengths[0])  # the host's one read
+        toks = res.tokens[0, :n].tolist()
+        stats.ttft_ms = (time.perf_counter() - t0) * 1000
+        stats.decode_ms = stats.ttft_ms
+        stats.decode_tokens = n
+        if toks and toks[-1] in self.eos_ids:
+            toks = toks[:-1]
+        return self._decode_text(toks), stats.as_dict()
+
     def chat(self, user_prompt: str, image=None, **kw):
         """Convenience: wraps user_prompt in the conversation template."""
         return self.generate(self.build_prompt(user_prompt), image, **kw)
@@ -418,20 +462,46 @@ def tiny_config():
                                   hidden_size=64))
 
 
+def _with_dtype(cfg: FastVLMConfig, dtype: str) -> FastVLMConfig:
+    """The config with the vision tower's and decoder's param and compute
+    dtypes set to ``dtype`` (the projector computes in its input's)."""
+    kw = {"param_dtype": dtype, "compute_dtype": dtype}
+    return dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, **kw),
+        decoder=dataclasses.replace(cfg.decoder, **kw))
+
+
 def build_engine(model_path: Optional[str] = None, *, random_tiny: bool = False,
-                 device: str = "cuda", seed: int = 0, **engine_kw) -> Engine:
+                 dtype: str = "bfloat16", device: str = "cuda", seed: int = 0,
+                 tokenizer=None, **engine_kw) -> Engine:
     """Build an Engine on ``device``: the CUDA card unless the caller asks
-    for "cpu" (the kernels' plain versions). Only ``random_tiny=True``
-    (random weights from ``seed``, byte tokenizer) is ported; checkpoint
-    loading waits until weights are in the repository (see ROADMAP.md)."""
-    if not random_tiny:
-        raise NotImplementedError(
-            "checkpoint loading (--model-path) is not yet ported, see ROADMAP.md")
+    for "cpu" (the kernels' plain versions).
+
+    ``model_path``: a HF checkpoint directory (config.json + safetensors or
+    pytorch_model.bin; ``utils/checkpoint.load_vlm``), loaded in ``dtype``,
+    which the model also computes in (the JAX package's ``build_engine``
+    keeps config.json's float32 compute dtype and casts only the params).
+    ``tokenizer`` (a port-only keyword) replaces the HF tokenizer that is
+    otherwise ``transformers.AutoTokenizer.from_pretrained(model_path)``: a
+    machine without ``transformers`` passes its own, and without one the
+    import raises. ``random_tiny=True``: the tiny random model (weights
+    from ``seed``, byte tokenizer, float32)."""
     if device not in ("cuda", "cpu"):
         raise ValueError(f"build_engine: device must be 'cuda' or 'cpu', got {device!r}")
     if device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_engine: no CUDA device is available; pass "
                            "device='cpu' to run on the CPU")
+    if not random_tiny:
+        from fastvlm_tpu_torch.utils.checkpoint import load_vlm
+        from fastvlm_tpu_torch.utils.convert import to_device
+
+        cfg, params = load_vlm(model_path, dtype=resolve_dtype(dtype))
+        params = to_device(params, device)
+        if tokenizer is None:
+            from transformers import AutoTokenizer
+
+            tokenizer = AutoTokenizer.from_pretrained(model_path)
+        return Engine(_with_dtype(cfg, dtype), params, tokenizer, **engine_kw)
     from fastvlm_tpu_torch.data.preprocessing import ByteTokenizer
 
     cfg = tiny_config()

@@ -1,16 +1,22 @@
 """Single-image inference CLI for the PyTorch port.
 
-Same flags as ``fastvlm_tpu/predict.py``. What runs today is the smoke mode:
+Same flags as ``fastvlm_tpu/predict.py``:
 
-  python -m fastvlm_tpu_torch.predict --random-weights --timing
+  python -m fastvlm_tpu_torch.predict --model-path ckpts/llava-fastvithd_0.5b_stage3 \
+      --image-file img.jpg --prompt "Describe the image."
 
-(a tiny random model with the byte tokenizer) on the CUDA card, or with
-``--device cpu`` on the CPU; without a card the default exits with an
-error. ``--spec-decode`` (with ``--temperature 0``) decodes speculatively
-by prompt lookup (``Engine.generate_spec``, ``--draft-k`` tokens a draft).
-``--model-path``, ``--num_beams > 1``, ``--tp > 1`` and
-``--verify-checkpoint`` exit with an error: they are not yet ported (see
-ROADMAP.md).
+loads a HF checkpoint directory (``engine.build_engine``; the tokenizer is
+``transformers.AutoTokenizer`` from the same directory) and runs on the CUDA
+card, or with ``--device cpu`` on the CPU; without a card the default exits
+with an error. ``--random-weights`` is the smoke mode (a tiny random model
+with the byte tokenizer). ``--num_beams > 1`` decodes by beam search
+(``Engine.generate_beam``); ``--spec-decode`` (with ``--temperature 0``)
+decodes speculatively by prompt lookup (``Engine.generate_spec``,
+``--draft-k`` tokens a draft). ``--verify-checkpoint`` audits
+``--model-path`` instead of generating (``utils/checkpoint.
+verify_checkpoint``: every key consumed, the encoder's features, and the
+goldens of ``--goldens`` at 1e-3), prints the JSON report and PASS or FAIL.
+``--tp > 1`` exits with an error: it is not yet ported (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -64,21 +70,23 @@ def main(argv=None) -> int:
                         help="smoke mode: tiny random model, byte tokenizer")
     parser.add_argument("--timing", action="store_true")
     parser.add_argument("--tp", type=int, default=1)
-    parser.add_argument("--verify-checkpoint", action="store_true")
-    parser.add_argument("--goldens", type=str, default=None)
+    parser.add_argument("--verify-checkpoint", action="store_true",
+                        help="audit --model-path instead of generating: "
+                             "every state-dict key consumed, the encoder's "
+                             "features, and the 1e-3 golden comparison "
+                             "when --goldens is given")
+    parser.add_argument("--goldens", type=str, default=None,
+                        help=".npz with 'input'/'features' arrays produced "
+                             "by the reference encoder")
     args = parser.parse_args(argv)
 
-    unported = [name for name, used in (
-        ("--verify-checkpoint", args.verify_checkpoint),
-        ("--num_beams > 1", args.num_beams > 1),
-        ("--tp > 1", args.tp > 1),
-        ("--model-path", args.model_path is not None),
-    ) if used]
-    if unported:
-        print(f"{', '.join(unported)}: {NOT_PORTED}", file=sys.stderr)
+    if args.tp > 1:
+        print(f"--tp > 1: {NOT_PORTED}", file=sys.stderr)
         return 2
-    if not args.random_weights:
-        parser.error("--model-path is " + NOT_PORTED + "; use --random-weights")
+    if args.verify_checkpoint and not args.model_path:
+        parser.error("--verify-checkpoint requires --model-path")
+    if not args.random_weights and not args.model_path:
+        parser.error("--model-path required (or use --random-weights)")
     if args.spec_decode and args.temperature > 0:
         parser.error("--spec-decode is greedy-only; use --temperature 0")
 
@@ -92,8 +100,23 @@ def main(argv=None) -> int:
         print("no CUDA device is available; pass --device cpu to run on the "
               "CPU", file=sys.stderr)
         return 1
-    engine = build_engine(random_tiny=True, device=device,
-                          conv_mode=args.conv_mode)
+    if args.verify_checkpoint:
+        from fastvlm_tpu_torch.utils.checkpoint import verify_checkpoint
+
+        report = verify_checkpoint(args.model_path, args.goldens,
+                                   device=device)
+        print(json.dumps(report, indent=2))
+        ok = (not report["unused_keys"]
+              and report["features_finite"]
+              and report.get("golden_pass_1e-3", True))
+        print(("PASS" if ok else "FAIL"), file=sys.stderr)
+        return 0 if ok else 1
+    if args.random_weights:
+        engine = build_engine(random_tiny=True, device=device,
+                              conv_mode=args.conv_mode)
+    else:
+        engine = build_engine(args.model_path, dtype=args.dtype,
+                              device=device, conv_mode=args.conv_mode)
     cfg = engine.cfg
     prompt = build_prompt(args.prompt, args.conv_mode)
     if args.image_file:
@@ -109,7 +132,12 @@ def main(argv=None) -> int:
         top_p=args.top_p if args.top_p else 1.0,
     )
     t0 = time.perf_counter()
-    if args.spec_decode:
+    if args.num_beams > 1:
+        # beam decode is deterministic: sampling flags do not apply
+        text, stats = engine.generate_beam(prompt, image,
+                                           num_beams=args.num_beams,
+                                           max_new_tokens=args.max_new_tokens)
+    elif args.spec_decode:
         text, stats = engine.generate_spec(prompt, image,
                                            max_new_tokens=args.max_new_tokens,
                                            draft_k=args.draft_k)

@@ -128,13 +128,17 @@ def qwen2_from_jax(tree: Params, num_layers: int) -> Params:
 
 
 def from_jax_params(np_tree: Params, cfg: FastVLMConfig) -> Params:
-    """Whole-model tree {"vision", "projector", "decoder"} -> port params
-    (CPU tensors in the source dtypes; move them with ``to_device``)."""
-    return {
+    """Whole-model tree {"vision", "projector", "decoder"[, "image_newline"]}
+    -> port params (CPU tensors in the source dtypes; move them with
+    ``to_device``)."""
+    out = {
         "vision": fastvit_from_jax(np_tree["vision"], cfg.vision),
         "projector": projector_from_jax(np_tree["projector"]),
         "decoder": qwen2_from_jax(np_tree["decoder"], cfg.decoder.num_layers),
     }
+    if "image_newline" in np_tree:
+        out["image_newline"] = _tensor(np_tree["image_newline"])
+    return out
 
 
 def to_device(tree, device):
