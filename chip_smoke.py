@@ -744,14 +744,16 @@ def phase_main(card):
 
 class Client:
     """One request to a BatchScheduler on its own thread; ``decoding`` is
-    set at its second update (a decode chunk landed), ``t_closed`` is the
-    host clock when its stream closed."""
+    set at its second update (a decode chunk landed); ``t_submit``,
+    ``t_first`` and ``t_closed`` are the host clock at its submission, its
+    first update and its stream's close."""
 
     def __init__(self, sched, engine, prompt, image, cap, sampling=None,
                  system=None):
         self.updates = []
         self.decoding = threading.Event()
-        self.t_closed = None
+        self.t_submit = time.perf_counter()
+        self.t_first = self.t_closed = None
         self.thread = threading.Thread(target=self._run, args=(
             sched, engine.build_prompt(prompt, system), image, cap, sampling))
         self.thread.start()
@@ -760,18 +762,23 @@ class Client:
         for u in sched.submit(prompt, image, max_new_tokens=cap,
                               sampling=sampling):
             self.updates.append(u)
+            if self.t_first is None:
+                self.t_first = time.perf_counter()
             if len(self.updates) >= 2:
                 self.decoding.set()
         self.t_closed = time.perf_counter()
         self.decoding.set()
 
     def result(self, what):
+        """The last update; a batched stream must have closed with "stop"
+        or "length" (the serial path's updates are the engine's, with no
+        finish reason)."""
         self.thread.join(timeout=JOIN_S)
         if self.thread.is_alive() or not self.updates:
             raise AssertionError(f"{what}: stream did not close")
         last = self.updates[-1]
-        if "error" in last or last["stats"]["finish_reason"] not in (
-                "stop", "length"):
+        if "error" in last or last["stats"].get("finish_reason", "stop") \
+                not in ("stop", "length"):
             raise AssertionError(f"{what}: {last}")
         return last
 
@@ -2048,6 +2055,461 @@ def phase_beam(card, engine, main_engine):
     return {"k1_launches": k1_total, "k2_launches": k2_total,
             "k2_max_abs_err": k2_err, "peak_gib": peak_gib}
 
+# phase anyres: FastViTHD @1024 tiles on grids up to 2 x 2 (up to 5 tiles a
+# stack with the global view)
+ANYRES_PINPOINTS = ((2048, 1024), (1024, 2048), (2048, 2048))
+ANYRES_NEW = 32
+# serve-fairness: the first request's tokens, so its batch outlives
+# fairness_s and a drain is needed for the deferred request
+FAIR_LONG_NEW = 128
+# the geometry each test image must take: best resolution, tiles a stack
+# (global view included), merged tokens (num_merged_tokens, spatial_unpad)
+ANYRES_SHOTS = {(1920, 1080): ((2048, 2048), 5, 850),
+                (1024, 2048): ((1024, 2048), 3, 800)}
+# a tile's grid encoded alone (batch 1) against the same tile inside its
+# stack (batch 3 or 5: other convolution batch shapes, other bf16 rounding):
+# max |diff| within this share of the stack grid's max |x|
+TILE_REL_TOL = 0.05
+
+
+def _live_tower(tree, gen, centre_taps=True, _branch=False):
+    """The tower's conv and linear weights re-drawn N(0, 1/fan_in); with
+    ``centre_taps`` the two branches that are x + conv(x) in their
+    reparameterised form (RepMixer's mixer, RepCPE) take a unit centre tap
+    on top. At fastvit.init's 0.02 std the activations underflow to 0 by
+    stage 2; at 1/fan_in alone each of stage 2's 24 mixers scales a channel
+    by a random zero-mean filter and the output shrinks toward 0 (the
+    phase prints both draws' mean |x|)."""
+    if isinstance(tree, list):
+        return [_live_tower(v, gen, centre_taps, _branch) for v in tree]
+    if not isinstance(tree, dict):
+        return tree
+    out = {}
+    for k, v in tree.items():
+        if k in ("w", "reduce_w", "expand_w"):
+            fan_in = v[0].numel() if v.dim() == 4 else v.shape[0]
+            w = torch.randn(v.shape, generator=gen, device=v.device) \
+                / fan_in ** 0.5
+            if centre_taps and _branch:  # depthwise (C, 1, k, k)
+                w[:, 0, v.shape[2] // 2, v.shape[3] // 2] += 1.0
+            out[k] = w.to(v.dtype)
+        else:
+            out[k] = _live_tower(v, gen, centre_taps,
+                                 _branch or k in ("mixer", "cpe"))
+    return out
+
+
+def _scene(w, h, seed):
+    """A uint8 (h, w, 3) test image with structure at every scale (a
+    gradient, stripes, noise), so no two tiles are alike."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    r = 127.5 + 127 * np.sin(xx / (23.0 + seed) + yy / 71.0)
+    g = 255.0 * yy / h
+    b = rng.randint(0, 256, (h, w)).astype(np.float32)
+    return np.stack([r, g, b], -1).astype(np.uint8)
+
+
+def _host_merge(grids, grid_shape, crop_box, newline):
+    """merge_spatial with unpad and newline, in numpy on the host."""
+    gw, gh = grid_shape
+    _, h, w, c = grids.shape
+    full = grids[1:].reshape(gh, gw, h, w, c).transpose(0, 2, 1, 3, 4)
+    top, bottom, left, right = crop_box
+    full = full.reshape(gh * h, gw * w, c)[top:bottom, left:right]
+    nl = np.broadcast_to(newline, (full.shape[0], 1, c))
+    full = np.concatenate([full, nl], axis=1)
+    return np.concatenate([grids[0].reshape(h * w, c), full.reshape(-1, c)])
+
+
+def _replay_ids(engine, prompt, image, n_new):
+    """Greedy ids of prefill (with the prepared vision embeddings) and
+    decode_step, one step at a time over a dense cache of the engine's own
+    size (prompt bucket + whole chunks), so K2 takes the engine's splits.
+    Returns (ids, the prefill's last-position logits in f32)."""
+    from fastvlm_tpu_torch.models import vlm
+    from fastvlm_tpu_torch.ops.kv_cache import init_cache
+
+    cfg, dec = engine.cfg, engine.cfg.decoder
+    ids = []
+    with torch.inference_mode():
+        inputs = engine.prepare(prompt, image)
+        t = inputs["ids"].shape[1]
+        cache = init_cache(dec.num_layers, 1,
+                           t + -(-n_new // engine.chunk) * engine.chunk,
+                           dec.num_kv_heads, dec.head_dim, torch.bfloat16,
+                           "cuda")
+        logits, cache = vlm.prefill(engine.params, cfg, inputs["images"],
+                                    inputs["ids"], inputs["lens"],
+                                    inputs["starts"], cache,
+                                    vision_embeds=inputs["vision_embeds"])
+        first = logits[0].float()
+        for step in range(n_new):
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"replay step {step}: non-finite logits")
+            tok = logits.argmax(-1).to(torch.int32)
+            ids.append(int(tok[0]))
+            if ids[-1] in engine.eos_ids:
+                break
+            logits, cache = vlm.decode_step(engine.params, cfg, tok, cache)
+    return ids, first
+
+
+def _text_ids(text):
+    return [int(t) for t in text.split(",") if t]
+
+
+def phase_anyres(card):
+    """Anyres tiles and multi-image prompts at full width, and the
+    scheduler's serial path, fairness drain and window batching."""
+    from PIL import Image
+
+    from fastvlm_tpu_torch import config as C
+    from fastvlm_tpu_torch.data.preprocessing import (
+        process_anyres_image, select_best_resolution, tokenizer_image_token)
+    from fastvlm_tpu_torch.engine import Engine
+    from fastvlm_tpu_torch.models import qwen2, vlm
+    from fastvlm_tpu_torch.models.fastvit import fold_layer_scale
+    from fastvlm_tpu_torch.ops import anyres
+    from fastvlm_tpu_torch.ops.cuda import ffn as ffn_mod
+    from fastvlm_tpu_torch.ops.cuda.decode_attention import decode_attention
+    from fastvlm_tpu_torch.ops.cuda.ffn import ffn_reference, fused_ffn
+    from fastvlm_tpu_torch.ops.cuda.paged_decode_attention import (
+        paged_decode_attention)
+    from fastvlm_tpu_torch.serve.batcher import BatchScheduler
+
+    t_phase = time.perf_counter()
+    decoder = C.qwen2_0_5b(param_dtype="bfloat16", compute_dtype="bfloat16")
+    vision = C.FastViTConfig(image_size=1024, param_dtype="bfloat16",
+                             compute_dtype="bfloat16")
+    cfg = C.FastVLMConfig(
+        vision=vision, decoder=decoder,
+        projector=C.ProjectorConfig(mm_hidden_size=vision.out_channels,
+                                    hidden_size=decoder.hidden_size),
+        image_aspect_ratio="anyres", image_grid_pinpoints=ANYRES_PINPOINTS,
+        mm_patch_merge_type="spatial_unpad")
+    layers, hidden, s = decoder.num_layers, decoder.hidden_size, 1024
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    t0 = time.perf_counter()
+    params = vlm.init(gen, cfg, "cuda")
+    params["vision"] = _live_tower(params["vision"], gen)
+    params["decoder"] = qwen2.fuse_decoder_params(params["decoder"], decoder)
+    engine = Engine(cfg, params, IdTokenizer())
+    torch.cuda.synchronize()
+    log("anyres", f"0.5B anyres engine (spatial_unpad, pinpoints "
+                  f"{ANYRES_PINPOINTS}, fan-in tower) built in "
+                  f"{time.perf_counter() - t0:.1f} s")
+    with torch.inference_mode():  # the draws' embeddings on one image
+        probe = engine.prepare_array_image(_scene(s, s, seed=0))
+        means = []
+        for vis in (params["vision"],
+                    _live_tower(params["vision"], gen, centre_taps=False)):
+            e = vlm.encode_images({**engine.params,
+                                   "vision": fold_layer_scale(vis)},
+                                  cfg, probe).float()
+            means.append(float(e.abs().mean()))
+    log("anyres", f"projected embeddings of one 1024 px image, mean |x|: "
+                  f"{means[0]:.4g} (fan-in draw with centre taps, used), "
+                  f"{means[1]:.4g} (fan-in draw alone)")
+
+    # K1 at a 5-tile stack's stage-2 call: N = 5 x 4096 rows of C = 384, a
+    # 63 MB bf16 hidden. On a fresh stream the per-(device, stream)
+    # workspace is sized by its first call (one image's rows), then grows
+    # to the stack's
+    n1, n5, c5 = 4096, 5 * 4096, 384
+    t, res, w1, b1, w2, b2, _ = _ffn_inputs(n5, c5, torch.bfloat16, gen)
+    lib, code = ffn_mod._load(), ffn_mod._DTYPE_CODES[torch.bfloat16]
+    need1, need = (lib.fvlm_ffn_workspace(n, c5, 4 * c5, code)
+                   for n in (n1, n5))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        key = (t.device, side.cuda_stream)
+        fused_ffn(t[:n1], res[:n1], w1, b1, w2, b2)
+        ws1 = ffn_mod._WORKSPACES[key].numel()
+        got = fused_ffn(t, res, w1, b1, w2, b2)
+        ws5 = ffn_mod._WORKSPACES[key].numel()
+    torch.cuda.current_stream().wait_stream(side)
+    k1_err, ratio = compare(got, ffn_reference(t, res, w1, b1, w2, b2),
+                            K1_TOL[torch.bfloat16], "K1 at a 5-tile stack")
+    if not need1 <= ws1 < need <= ws5:
+        raise AssertionError(f"K1 workspace {ws1} B at N={n1} ({need1} B "
+                             f"needed), {ws5} B at N={n5} ({need} B)")
+    log("anyres", f"K1 at the 5-tile stage-2 call (N={n5}, C={c5}, bf16, "
+                  f"ls None): max_abs_err {k1_err:.3e} (tol ratio "
+                  f"{ratio:.3f} <= 1); a fresh stream's workspace {ws1} B "
+                  f"after one image's call ({need1} B needed), {ws5} B "
+                  f"after the stack's ({need} B)")
+
+    prompt = engine.build_prompt("Describe the image.")
+    shots = {wh: Image.fromarray(_scene(*wh, seed=i + 1))
+             for i, wh in enumerate(ANYRES_SHOTS)}
+    for img in shots.values():  # warm: the 5- and 3-tile stacks' shapes
+        engine.generate(prompt, img, max_new_tokens=2)
+
+    # geometry, live embeddings, the merge against a host assembly, each
+    # tile alone against its stack, the stack's encode time
+    with torch.inference_mode():
+        for wh, img in shots.items():
+            best, n_tiles, n_tok = ANYRES_SHOTS[wh]
+            got_best = select_best_resolution(img.size, list(ANYRES_PINPOINTS))
+            grid = (got_best[0] // s, got_best[1] // s)
+            got_n = anyres.num_merged_tokens(grid, vision.grid_size,
+                                             cfg.mm_patch_merge_type, img.size)
+            if (got_best, 1 + grid[0] * grid[1], got_n) != (best, n_tiles, n_tok):
+                raise AssertionError(f"{wh}: best {got_best}, grid {grid}, "
+                                     f"{got_n} tokens")
+            inputs = engine.prepare(prompt, img)
+            text_len = len(tokenizer_image_token(prompt, engine.tokenizer)) - 1
+            span = inputs["prompt_tokens"] - text_len
+            if tuple(inputs["vision_embeds"].shape) != (1, n_tok, hidden) \
+                    or span != n_tok:
+                raise AssertionError(
+                    f"{wh}: embeddings {tuple(inputs['vision_embeds'].shape)}, "
+                    f"expanded span {span}, merged tokens {n_tok}")
+            tiles = torch.as_tensor(process_anyres_image(
+                img, engine.processor, ANYRES_PINPOINTS)).to("cuda",
+                                                             torch.bfloat16)
+            grids = vlm.encode_tile_grids(engine.params, cfg, tiles)
+            box = vlm.anyres_crop_box(cfg, grid, img.size)
+            merged = vlm.merge_tile_grids(engine.params, cfg, grids, grid,
+                                          box)[0]
+            host = _host_merge(grids.float().cpu().numpy(), grid, box,
+                               engine.params["image_newline"].float().cpu()
+                               .numpy())
+            if not np.array_equal(merged.float().cpu().numpy(), host):
+                raise AssertionError(f"{wh}: merge_tile_grids differs from "
+                                     f"the host assembly")
+            g = grids.float()
+            mean_abs = float(g.abs().mean())
+            if not bool(torch.isfinite(g).all()) or not mean_abs > 1e-3:
+                raise AssertionError(f"{wh}: embeddings finite "
+                                     f"{bool(torch.isfinite(g).all())}, mean "
+                                     f"|x| {mean_abs:.3e}")
+            same = [(i, j) for i in range(n_tiles) for j in range(i + 1, n_tiles)
+                    if torch.equal(grids[i], grids[j])]
+            if same:
+                raise AssertionError(f"{wh}: equal tile grids {same}")
+            alone = torch.cat([vlm.encode_images(engine.params, cfg,
+                                                 tiles[i:i + 1])
+                               for i in range(n_tiles)]).float()
+            stack = g.reshape(n_tiles, -1, hidden)
+            tile_err = float((alone - stack).abs().max())
+            scale = float(stack.abs().max())
+            if not tile_err <= TILE_REL_TOL * scale:
+                raise AssertionError(f"{wh}: a tile alone differs from its "
+                                     f"stack by {tile_err:.4g} (max |x| "
+                                     f"{scale:.4g})")
+            # the stack's encode against one tile's: events over 10
+            # back-to-back calls, then the profiler's kernel time
+            enc = {"stack": lambda: vlm.encode_tile_grids(engine.params, cfg,
+                                                          tiles),
+                   "one": lambda: vlm.encode_images(engine.params, cfg,
+                                                    tiles[:1])}
+            ev = {k: time_batch_ms(f, reps=10, warmup=2) for k, f in enc.items()}
+            kt = {k: kernel_time_ms(f, reps=5) for k, f in enc.items()}
+            log("anyres", f"{wh[0]}x{wh[1]}: best {best}, {n_tiles} tiles, "
+                          f"{n_tok} merged tokens = the expanded span; merge "
+                          f"bitwise equal to the host assembly; embeddings "
+                          f"finite, mean |x| {mean_abs:.4g}, no two tiles' "
+                          f"grids equal; each tile alone within "
+                          f"{tile_err:.4g} of its stack (max |x| {scale:.4g}, "
+                          f"limit {TILE_REL_TOL} of it); tower + projector "
+                          f"over the stack {ev['stack']:.3f} ms by events, "
+                          f"{fmt_ms(kt['stack'])} of kernels, against one "
+                          f"tile's {ev['one']:.3f} ms / {fmt_ms(kt['one'])} "
+                          f"({ev['stack'] / ev['one']:.2f}x by events) on "
+                          f"{card}")
+
+    # two greedy requests of 32 tokens, the first again: K1 44 a request
+    # (one tile stack), K2 24 a decode step
+    fused_ffn.launches = 0
+    decode_attention.launches = 0
+    results = []
+    for wh in list(ANYRES_SHOTS) + [next(iter(ANYRES_SHOTS))]:
+        k1, k2 = fused_ffn.launches, decode_attention.launches
+        text, st = engine.generate(prompt, shots[wh], max_new_tokens=ANYRES_NEW)
+        k1, k2 = fused_ffn.launches - k1, decode_attention.launches - k2
+        if k1 != 44 or k2 != layers * st["decode_steps"]:
+            raise AssertionError(f"anyres {wh}: K1 {k1}, K2 {k2} for "
+                                 f"{st['decode_steps']} steps")
+        results.append((wh, text, st))
+    any_k1, any_k2 = fused_ffn.launches, decode_attention.launches
+    if results[0][1] != results[2][1]:
+        raise AssertionError("anyres: identical requests gave different ids")
+    first_logits = []
+    for wh, text, st in results:
+        replay, first = _replay_ids(engine, prompt, shots[wh], ANYRES_NEW)
+        first_logits.append(first)
+        if replay[:len(_text_ids(text))] != _text_ids(text):
+            raise AssertionError(f"anyres {wh}: the step-by-step replay gave "
+                                 f"other ids than the engine")
+        log("anyres", f"{wh[0]}x{wh[1]}: TTFT {st['ttft_ms']:.3f} ms (tile "
+                      f"encode {st['encode_ms']:.3f} ms of it), "
+                      f"{st['decode_tokens']} tokens at {st['tok_per_s']:.2f} "
+                      f"tok/s, prompt {st['prompt_tokens']} tokens; replay "
+                      f"gave the engine's ids; ids {text[:48]}...; on {card}")
+    # the pixels reach the decoder: another 1920x1080 image (the same
+    # prompt ids and positions) gives other first-token logits
+    wh0 = results[0][0]
+    _, other = _replay_ids(engine, prompt, Image.fromarray(
+        _scene(*wh0, seed=7)), 1)
+    gap = float((first_logits[0] - other).abs().max())
+    if not gap > 0:
+        raise AssertionError(f"anyres: two {wh0} images gave the same "
+                             f"first-token logits")
+    log("anyres", f"launch counts: K1 {any_k1} = 44 x 3 requests (one tile "
+                  f"stack each); K2 {any_k2} = {layers} x "
+                  f"{sum(st['decode_steps'] for _, _, st in results)} steps; "
+                  f"identical requests gave identical ids; another "
+                  f"{wh0[0]}x{wh0[1]} image's first-token logits differ by "
+                  f"up to {gap:.4g}")
+
+    # a two-image prompt: both images in one tower call (K1 44)
+    rng = np.random.RandomState(9)
+    pair = [rng.randint(0, 256, (s, s, 3), dtype=np.uint8) for _ in range(2)]
+    mprompt = engine.build_prompt("Compare <image> with the first one.")
+    engine.generate(mprompt, pair, max_new_tokens=2)  # warm: a 2-image batch
+    fused_ffn.launches = 0
+    decode_attention.launches = 0
+    mtext, mst = engine.generate(mprompt, pair, max_new_tokens=ANYRES_NEW)
+    multi_k1, multi_k2 = fused_ffn.launches, decode_attention.launches
+    if multi_k1 != 44 or multi_k2 != layers * mst["decode_steps"]:
+        raise AssertionError(f"multi-image: K1 {multi_k1}, K2 {multi_k2} for "
+                             f"{mst['decode_steps']} steps")
+    if _replay_ids(engine, mprompt, pair, ANYRES_NEW)[0][:len(
+            _text_ids(mtext))] != _text_ids(mtext):
+        raise AssertionError("multi-image: the replay gave other ids")
+    log("anyres", f"two-image prompt ({mst['prompt_tokens']} tokens, "
+                  f"{2 * cfg.num_image_tokens} of them image): K1 {multi_k1} "
+                  f"(both images in one tower call), K2 {multi_k2} = {layers} "
+                  f"x {mst['decode_steps']} steps; TTFT {mst['ttft_ms']:.3f} "
+                  f"ms (encode {mst['encode_ms']:.3f} ms of it), "
+                  f"{mst['tok_per_s']:.2f} tok/s; replay gave the engine's "
+                  f"ids; on {card}")
+
+    # the scheduler: a steady stream of batchable requests and one
+    # multi-image request under fairness_s = 0.5
+    fillers = [rng.randint(0, 256, (s, s, 3), dtype=np.uint8) for _ in range(4)]
+    sched = BatchScheduler(engine, max_batch=8, window_ms=20, page_size=64,
+                           pool_tokens=16384, fairness_s=0.5)
+    sched.trace = []
+    fused_ffn.launches = 0
+    decode_attention.launches = 0
+    paged_decode_attention.launches = 0
+    stream_clients = []
+    try:
+        stream_clients.append(Client(sched, engine, "Describe the image.",
+                                     fillers[0], FAIR_LONG_NEW))
+        if not stream_clients[0].decoding.wait(JOIN_S):
+            raise AssertionError("serve-fairness: the first batch never "
+                                 "decoded")
+        stop = threading.Event()
+
+        def feed():
+            while not stop.is_set():
+                n = len(stream_clients)
+                stream_clients.append(Client(
+                    sched, engine, f"Describe image {n}.", fillers[n % 4], 16))
+                stop.wait(0.2)
+
+        feeder = threading.Thread(target=feed)
+        feeder.start()
+        try:
+            multi = Client(sched, engine, "Compare <image> with the first one.",
+                           pair, ANYRES_NEW)
+            mlast = multi.result("serve-fairness multi-image request")
+        finally:
+            stop.set()
+            feeder.join(timeout=JOIN_S)
+        flast = [c.result(f"serve-fairness filler {n}")
+                 for n, c in enumerate(stream_clients)]
+        fair = (fused_ffn.launches, decode_attention.launches,
+                paged_decode_attention.launches)
+    finally:
+        sched.shutdown()
+    fc = dict(sched.counters)
+    drains = [e for e in sched.trace if e[1] == "drain"]
+    if fc.get("drained_for_fairness", 0) < 1 or not drains:
+        raise AssertionError(f"serve-fairness: no drain, counters {fc}")
+    if mlast["text"] != mtext:
+        raise AssertionError("serve-fairness: the multi-image stream gave "
+                             "other ids than the engine")
+    if sched.pool.free_pages != sched.pool.num_pages:
+        raise AssertionError(f"serve-fairness: {sched.pool.free_pages} of "
+                             f"{sched.pool.num_pages} pages free")
+    # the batch gathered after the drain holds the two-image request, so
+    # the fillers gathered with it are served serially too (engine.stream:
+    # their updates carry no finish reason): a tower call and K2 steps each
+    serial = [u for u in flast + [mlast] if "finish_reason" not in u["stats"]]
+    serial_steps = sum(u["stats"]["decode_steps"] for u in serial)
+    if fair[0] != 44 * (fc["image_prefills"] + len(serial)) \
+            or fair[1] != layers * serial_steps \
+            or fair[2] != layers * fc["decode_steps"]:
+        raise AssertionError(f"serve-fairness: K1/K2/K3 {fair}, "
+                             f"{len(serial)} serial requests, counters {fc}")
+    wait_ms = (multi.t_first - multi.t_submit) * 1000
+    drain_ms = (drains[0][0] - multi.t_submit) * 1000
+    log("serve-fairness", f"{len(stream_clients)} batchable requests (one "
+                          f"every 0.2 s) and one two-image request: drained "
+                          f"{fc['drained_for_fairness']}x; the two-image "
+                          f"request's drain {drain_ms:.1f} ms after its "
+                          f"submission, its first update after "
+                          f"{wait_ms:.1f} ms, its ids the engine's; K1 "
+                          f"{fair[0]} = 44 x ({fc['image_prefills']} image "
+                          f"prefills + {len(serial)} serial requests), K2 "
+                          f"{fair[1]} = {layers} x {serial_steps} serial "
+                          f"steps, K3 {fair[2]} = {layers} x "
+                          f"{fc['decode_steps']} batched steps; pool "
+                          f"{sched.pool.free_pages}/{sched.pool.num_pages} "
+                          f"pages free; counters {fc}; on {card}")
+
+    # window batching: 4 requests at once, 4 more while they decode, no
+    # admission
+    sched = BatchScheduler(engine, max_batch=8, window_ms=100, page_size=64,
+                           pool_tokens=16384, continuous=False)
+    fused_ffn.launches = 0
+    decode_attention.launches = 0
+    paged_decode_attention.launches = 0
+    try:
+        clients = [Client(sched, engine, f"Describe image {i}.", fillers[i],
+                          ANYRES_NEW) for i in range(4)]
+        if not clients[0].decoding.wait(JOIN_S):
+            raise AssertionError("serve-window: the first batch never decoded")
+        clients += [Client(sched, engine, f"What is in image {i}?",
+                           fillers[i], ANYRES_NEW) for i in range(4)]
+        wlast = [c.result(f"serve-window request {n}")
+                 for n, c in enumerate(clients)]
+        win = (fused_ffn.launches, decode_attention.launches,
+               paged_decode_attention.launches)
+    finally:
+        sched.shutdown()
+    wc = dict(sched.counters)
+    if wc.get("admitted", 0) != 0 or wc["prefills"] < 2:
+        raise AssertionError(f"serve-window: counters {wc}")
+    if win[0] != 44 * wc["image_prefills"] or win[1] != 0 \
+            or win[2] == 0 or win[2] != layers * wc["decode_steps"]:
+        raise AssertionError(f"serve-window: K1/K2/K3 {win}, counters {wc}")
+    if sched.pool.free_pages != sched.pool.num_pages:
+        raise AssertionError(f"serve-window: {sched.pool.free_pages} of "
+                             f"{sched.pool.num_pages} pages free")
+    late_queue = [u["stats"]["queue_ms"] for u in wlast[4:]]
+    log("serve-window", f"8 requests, 4 at once and 4 while they decode, "
+                        f"continuous=False: admitted 0, {wc['prefills']} "
+                        f"batched prefills; K1 {win[0]} = 44 x "
+                        f"{wc['image_prefills']}, K3 {win[2]} = {layers} x "
+                        f"{wc['decode_steps']} steps, K2 0; the late four "
+                        f"queued {min(late_queue):.1f}-{max(late_queue):.1f} "
+                        f"ms; pool {sched.pool.free_pages}/"
+                        f"{sched.pool.num_pages} pages free; on {card}")
+    log("anyres", f"phases anyres, serve-fairness and serve-window took "
+                  f"{time.perf_counter() - t_phase:.1f} s")
+    return {"k1_err": k1_err, "anyres_k1": any_k1, "anyres_k2": any_k2,
+            "multi_k1": multi_k1, "multi_k2": multi_k2,
+            "fair": fair, "window": win,
+            "drain_ms": drain_ms, "wait_ms": wait_ms}
+
 
 def phase_small():
     from fastvlm_tpu_torch.engine import Engine, tiny_config
@@ -2227,6 +2689,7 @@ def main() -> int:
     ckpt_res = phase_checkpoint(card, engine, main_res.pop("params"),
                                 main_res.pop("answers"))
     beam_res = phase_beam(card, ckpt_res.pop("engine"), engine)
+    anyres_res = phase_anyres(card)
     phase_small()
 
     kernels = {"kernels": [
@@ -2242,15 +2705,20 @@ def main() -> int:
                               "video-spec": spec_res["video_k1"],
                               "spec-serve": spec_res["serve_k1"],
                               "checkpoint": ckpt_res["k1_launches"],
-                              "beam": beam_res["k1_launches"]},
-         "max_abs_err": k1_err,
+                              "beam": beam_res["k1_launches"],
+                              "anyres": anyres_res["anyres_k1"],
+                              "multi-image": anyres_res["multi_k1"],
+                              "serve-fairness": anyres_res["fair"][0],
+                              "serve-window": anyres_res["window"][0]},
+         "max_abs_err": max(k1_err, anyres_res["k1_err"]),
          "ms": k1["ms"], "kernel_ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": "operations",
          "library_ms": None, "library_chain_ms": k1["chain_ms"],
          "timed_as": "44 calls of one 1024 px image, bf16, ls folded; "
                      "bound_by: the sum is set by the 40 calls of stages "
                      "1-3; library_chain_ms: addmm-gelu-addmm-add in bf16 "
-                     "cuBLAS, context only"},
+                     "cuBLAS, context only; max_abs_err also over the "
+                     "5-tile stack's stage-2 call (N=20480, C=384)"},
         {"name": "decode_attention", "route": "cuda",
          "source": "fastvlm_tpu_torch/csrc/decode_attention.cu",
          "replaces": "fastvlm_tpu/ops/pallas/decode_attention.py:167",
@@ -2258,7 +2726,10 @@ def main() -> int:
          "launches_by_path": {"main": main_res["k2_launches"],
                               "video": video_res["k2_launches"],
                               "checkpoint": ckpt_res["k2_launches"],
-                              "beam": beam_res["k2_launches"]},
+                              "beam": beam_res["k2_launches"],
+                              "anyres": anyres_res["anyres_k2"],
+                              "multi-image": anyres_res["multi_k2"],
+                              "serve-fairness": anyres_res["fair"][1]},
          "max_abs_err": max(k2_err, beam_res["k2_max_abs_err"]),
          "ms": k2["ms"], "kernel_ms": k2["kernel_ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": "bytes",
@@ -2274,7 +2745,9 @@ def main() -> int:
          "launches": serve_res["k3_launches"],
          "launches_by_path": {"serve": serve_res["k3_launches"],
                               "serve-1.5b": serve15_res["k3_launches"],
-                              "spec-serve": spec_res["serve_k3"]},
+                              "spec-serve": spec_res["serve_k3"],
+                              "serve-fairness": anyres_res["fair"][2],
+                              "serve-window": anyres_res["window"][2]},
          "max_abs_err": k3_err,
          "ms": k3["ms"], "kernel_ms": k3["kernel_ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": "bytes", "library_ms": None,

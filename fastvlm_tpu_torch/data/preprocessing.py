@@ -1,13 +1,16 @@
-"""Host-side image + prompt preprocessing (pad mode).
+"""Host-side image + prompt preprocessing.
 
 A copy of the framework-neutral half of ``fastvlm_tpu/data/preprocessing.py``:
 the FastVLM image processor is a CLIP processor with mean 0 / std 1, i.e.
 resize-shortest-edge (bicubic) + center-crop + rescale(1/255), on PIL images
-and numpy arrays. The anyres tiling helpers are not ported yet.
+and numpy arrays; pad mode squares the image first, anyres mode tiles it
+(a global view + the tiles of the best grid resolution). Every PIL call is
+the JAX package's, so the pixels are equal.
 """
 
 from __future__ import annotations
 
+import math
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -20,7 +23,11 @@ class ImageProcessor:
 
     def __init__(self, image_size: int):
         self.image_size = image_size
-        self.image_mean = [0.0, 0.0, 0.0]  # the pad fill; std is 1
+        # the CLIPImageProcessor attributes the anyres code reads
+        self.size = {"shortest_edge": image_size}
+        self.crop_size = {"height": image_size, "width": image_size}
+        self.image_mean = [0.0, 0.0, 0.0]  # the pad fill
+        self.image_std = [1.0, 1.0, 1.0]
 
     def resize_shortest_edge(self, image):
         from PIL import Image
@@ -67,10 +74,70 @@ def expand2square(pil_img, background_color: Tuple[int, int, int]):
     return result
 
 
+def select_best_resolution(original_size, possible_resolutions):
+    """The grid resolution that keeps the most effective pixels, then wastes
+    the fewest. Sizes are (width, height)."""
+    ow, oh = original_size
+    best, best_eff, best_waste = None, 0, float("inf")
+    for w, h in possible_resolutions:
+        scale = min(w / ow, h / oh)
+        eff = min(int(ow * scale) * int(oh * scale), ow * oh)
+        waste = w * h - eff
+        if eff > best_eff or (eff == best_eff and waste < best_waste):
+            best, best_eff, best_waste = (w, h), eff, waste
+    return best
+
+
+def resize_and_pad_image(image, target_resolution):
+    """Aspect-preserving resize (PIL's default filter), then a centred black
+    pad to the target (width, height)."""
+    from PIL import Image
+
+    ow, oh = image.size
+    tw, th = target_resolution
+    scale_w, scale_h = tw / ow, th / oh
+    if scale_w < scale_h:
+        nw, nh = tw, min(math.ceil(oh * scale_w), th)
+    else:
+        nh, nw = th, min(math.ceil(ow * scale_h), tw)
+    resized = image.resize((nw, nh))
+    out = Image.new("RGB", (tw, th), (0, 0, 0))
+    out.paste(resized, ((tw - nw) // 2, (th - nh) // 2))
+    return out
+
+
+def divide_to_patches(image, patch_size: int):
+    """Row-major non-overlapping square crops."""
+    patches = []
+    w, h = image.size
+    for i in range(0, h, patch_size):
+        for j in range(0, w, patch_size):
+            patches.append(image.crop((j, i, j + patch_size, i + patch_size)))
+    return patches
+
+
+def get_anyres_image_grid_shape(image_size, grid_pinpoints, patch_size: int):
+    """(grid_w, grid_h) in tiles of the best resolution for ``image_size``."""
+    w, h = select_best_resolution(image_size, list(grid_pinpoints))
+    return w // patch_size, h // patch_size
+
+
+def process_anyres_image(image, processor: ImageProcessor, grid_pinpoints):
+    """The global view (the image resized to a square) + the tiles of the
+    resized and padded image, each through the processor: (1 + G, S, S, 3)
+    NHWC float32."""
+    best = select_best_resolution(image.size, list(grid_pinpoints))
+    padded = resize_and_pad_image(image, best)
+    patches = divide_to_patches(padded, processor.crop_size["height"])
+    global_view = image.resize(
+        (processor.size["shortest_edge"], processor.size["shortest_edge"]))
+    return np.stack([processor.preprocess(p) for p in [global_view] + patches])
+
+
 def process_images(images, processor: ImageProcessor, cfg) -> np.ndarray:
-    """Pad mode (square-pad, then the processor) or the plain processor.
-    Returns NHWC float32. ``image_aspect_ratio == 'anyres'`` is not ported
-    yet and raises."""
+    """Dispatch on cfg.image_aspect_ratio: 'pad' (square-pad, then the
+    processor), 'anyres' (``process_anyres_image`` each: one array when the
+    tile counts agree, else a list) or the plain processor. NHWC float32."""
     mode = getattr(cfg, "image_aspect_ratio", None)
     if mode == "pad":
         bg = tuple(int(x * 255) for x in processor.image_mean)
@@ -78,8 +145,13 @@ def process_images(images, processor: ImageProcessor, cfg) -> np.ndarray:
             processor.preprocess(expand2square(im, bg)) for im in images
         ])
     if mode == "anyres":
-        raise NotImplementedError("anyres preprocessing is not yet ported, "
-                                  "see ROADMAP.md")
+        tiles = [
+            process_anyres_image(im, processor, cfg.image_grid_pinpoints)
+            for im in images
+        ]
+        if all(t.shape == tiles[0].shape for t in tiles):
+            return np.stack(tiles)
+        return tiles
     return processor(images)
 
 

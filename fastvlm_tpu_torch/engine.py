@@ -1,11 +1,15 @@
 """Inference engine: the host-side API over the PyTorch pipeline.
 
-Counterpart of the single-image path of ``fastvlm_tpu/engine.py``. Owns
-params, config and tokenizer; builds the prompt, expands the image sentinel,
-pads to a length bucket, allocates the dense KV cache, and streams chunked
-decode with EOS ids, token-level stop keywords and stop strings. Every
-request gets ``RequestStats``: TTFT (encode + prefill + first token on the
-host) and decode time, both ending in a device synchronise on the card.
+Counterpart of ``fastvlm_tpu/engine.py`` on one card. Owns params, config
+and tokenizer; builds the prompt, expands the image sentinel, pads to a
+length bucket, allocates the dense KV cache, and streams chunked decode with
+EOS ids, token-level stop keywords and stop strings. A PIL image under an
+anyres config is tiled (a global view + the tiles of its best grid
+resolution) and its merged tile features become the prompt's image span; a
+list of images fills one ``<image>`` sentinel each, all encoded in one tower
+call. Every request gets ``RequestStats``: TTFT (encode + prefill + first
+token on the host) and decode time, both ending in a device synchronise on
+the card.
 Greedy requests may decode speculatively (prompt lookup): ``stream(...,
 spec=True)`` and ``generate_spec``; ``generate_beam`` decodes by beam
 search. ``build_engine`` loads a HF checkpoint directory or builds the tiny
@@ -27,14 +31,17 @@ from fastvlm_tpu_torch.config import FastVLMConfig, resolve_dtype
 from fastvlm_tpu_torch.data.constants import DEFAULT_IMAGE_TOKEN, QWEN_IM_END_ID
 from fastvlm_tpu_torch.data.conversation import conv_templates
 from fastvlm_tpu_torch.data.preprocessing import (
-    ImageProcessor, process_images, tokenizer_image_token)
+    ImageProcessor, process_anyres_image, process_images,
+    select_best_resolution, tokenizer_image_token)
 from fastvlm_tpu_torch.models import vlm
 from fastvlm_tpu_torch.models.fastvit import fold_layer_scale
 from fastvlm_tpu_torch.ops import image_ops
+from fastvlm_tpu_torch.ops.anyres import num_merged_tokens
 from fastvlm_tpu_torch.ops.beam import beam_search
 from fastvlm_tpu_torch.ops.kv_cache import init_cache
 from fastvlm_tpu_torch.ops.sampling import SamplingParams, sample
-from fastvlm_tpu_torch.ops.splice import expand_image_ids, pad_batch
+from fastvlm_tpu_torch.ops.splice import (
+    expand_image_ids, expand_image_ids_multi, pad_batch)
 
 
 def _sync(device: torch.device) -> None:
@@ -50,6 +57,9 @@ class RequestStats:
     decode_ms: float = 0.0
     prompt_tokens: int = 0
     decode_steps: int = 0  # plain decode steps dispatched (whole chunks)
+    # the tower pass prepare() runs for anyres tiles or several images
+    # (included in ttft_ms; a single image encodes inside the prefill)
+    encode_ms: float = 0.0
     spec_steps: int = 0    # verify passes (speculative decode only)
     spec_accept_rate: float = 0.0
 
@@ -65,6 +75,8 @@ class RequestStats:
             "prompt_tokens": self.prompt_tokens,
             "decode_steps": self.decode_steps,
         }
+        if self.encode_ms:
+            d["encode_ms"] = round(self.encode_ms, 2)
         if self.spec_steps:
             d["spec_steps"] = self.spec_steps
             d["spec_accept_rate"] = round(self.spec_accept_rate, 3)
@@ -83,8 +95,6 @@ class Engine:
         chunk: int = 16,
         eos_ids: Optional[Tuple[int, ...]] = None,
     ):
-        if cfg.image_aspect_ratio == "anyres":
-            raise NotImplementedError("anyres is not yet ported, see ROADMAP.md")
         if cfg.decoder.kv_cache_dtype is not None:
             raise NotImplementedError("the int8 KV cache is not yet ported, "
                                       "see ROADMAP.md")
@@ -147,18 +157,44 @@ class Engine:
             arr = image_ops.rescale(arr)
         return arr.to(self._dtype)
 
-    def prepare(self, prompt: str, image=None) -> Dict[str, Optional[torch.Tensor]]:
+    def prepare(self, prompt: str, image=None) -> Dict[str, Any]:
         """prompt: full template string (may contain <image>); image: PIL,
-        NHWC array/tensor, or None. Returns the prefill inputs on device.
-        ``vision_embeds`` is always None: it carries the anyres and
-        multi-image embeddings in the JAX package, neither ported yet."""
+        NHWC array/tensor, a list of them (one per ``<image>``), or None.
+        Returns the prefill inputs on the device, with the host counts
+        ``prompt_tokens`` and ``encode_ms``.
+
+        anyres mode (cfg.image_aspect_ratio == 'anyres' with grid pinpoints,
+        a PIL image): the image becomes [global view + tiles], the sentinel
+        expands to the merged token count, and the merged tile features come
+        back as ``vision_embeds`` (the tower runs here, once over the stack,
+        timed as ``encode_ms``). An array under an anyres config is resized
+        to one image of ``num_image_tokens``, as in the JAX engine."""
+        cfg = self.cfg
+        if isinstance(image, (list, tuple)) and len(image) > 1:
+            return self._prepare_multi(prompt, list(image))
         if isinstance(image, (list, tuple)):
-            if len(image) > 1:
-                raise NotImplementedError("multi-image prompts are not yet "
-                                          "ported, see ROADMAP.md")
             image = image[0] if image else None
-        images = None
-        if image is not None:
+        anyres_mode = (cfg.image_aspect_ratio == "anyres"
+                       and cfg.image_grid_pinpoints
+                       and image is not None and hasattr(image, "convert"))
+        images = vision_embeds = None
+        encode_ms = 0.0
+        n_img_tokens = cfg.num_image_tokens
+        if anyres_mode:
+            s = cfg.vision.image_size
+            best = select_best_resolution(image.size,
+                                          list(cfg.image_grid_pinpoints))
+            tiles = process_anyres_image(image, self.processor,
+                                         cfg.image_grid_pinpoints)
+            grid_shape = (best[0] // s, best[1] // s)
+            n_img_tokens = num_merged_tokens(
+                grid_shape, cfg.vision.grid_size, cfg.mm_patch_merge_type,
+                image.size)
+            vision_embeds, encode_ms = self._timed(
+                self._encode_tiles,
+                torch.as_tensor(tiles).to(self.device, self._dtype),
+                grid_shape, tuple(image.size))
+        elif image is not None:
             if hasattr(image, "convert"):  # PIL
                 images = torch.as_tensor(
                     process_images([image], self.processor, self.cfg)
@@ -166,17 +202,70 @@ class Engine:
             else:
                 images = self.prepare_array_image(image)
         ids = tokenizer_image_token(prompt, self.tokenizer)
-        row, start = expand_image_ids(ids, self.cfg.num_image_tokens)
+        row, start = expand_image_ids(ids, n_img_tokens)
         pad_to = -(-(len(row) + 1) // self.bucket) * self.bucket
         ids_a, lens, starts = pad_batch([row], [start], pad_to)
         return {
             "images": images,
-            "vision_embeds": None,
+            "vision_embeds": vision_embeds,
             "ids": torch.as_tensor(ids_a).to(self.device),
             "lens": torch.as_tensor(lens).to(self.device),
             "starts": torch.as_tensor(starts).to(self.device),
             "prompt_tokens": int(lens[0]),
+            "encode_ms": encode_ms,
         }
+
+    def _prepare_multi(self, prompt: str, images_list) -> Dict[str, Any]:
+        """Multi-image prompts: one ``<image>`` sentinel per image; the tower
+        encodes all images in one call and each span is overlaid with its
+        image's tokens (``vision_embeds`` (1, M, N, D), starts (1, M))."""
+        cfg = self.cfg
+        ids = tokenizer_image_token(prompt, self.tokenizer)
+        row, starts = expand_image_ids_multi(ids, cfg.num_image_tokens)
+        if len(starts) != len(images_list):
+            raise ValueError(
+                f"{len(images_list)} images but {len(starts)} <image> tokens")
+        pad_to = -(-(len(row) + 1) // self.bucket) * self.bucket
+        ids_a, lens, _ = pad_batch([row], [0], pad_to)
+        proc = torch.cat([
+            torch.as_tensor(process_images([im], self.processor, cfg)).to(
+                self.device, self._dtype)
+            if hasattr(im, "convert") else self.prepare_array_image(im)
+            for im in images_list
+        ])
+        vis, encode_ms = self._timed(self._encode_multi, proc)
+        return {
+            "images": None,
+            "vision_embeds": vis[None],
+            "ids": torch.as_tensor(ids_a).to(self.device),
+            "lens": torch.as_tensor(lens).to(self.device),
+            "starts": torch.as_tensor(np.asarray([starts], np.int32)).to(
+                self.device),
+            "prompt_tokens": int(lens[0]),
+            "encode_ms": encode_ms,
+        }
+
+    def _timed(self, fn, *args):
+        """(fn(*args), its ms on the host clock, ending in a device
+        synchronise)."""
+        _sync(self.device)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        _sync(self.device)
+        return out, (time.perf_counter() - t0) * 1000
+
+    def _encode_multi(self, images: torch.Tensor) -> torch.Tensor:
+        """(M, S, S, 3) -> (M, N, hidden): every image in one tower call."""
+        return vlm.encode_images(self.params, self.cfg, images)
+
+    def _encode_tiles(self, tiles: torch.Tensor, grid_shape, original_size):
+        """AnyRes encode -> (1, N, hidden): the tower and projector once over
+        the whole [global + tiles] stack (``vlm.encode_tile_grids``), then
+        the merge with the host's crop box."""
+        grids = vlm.encode_tile_grids(self.params, self.cfg, tiles)
+        crop_box = vlm.anyres_crop_box(self.cfg, grid_shape, original_size)
+        return vlm.merge_tile_grids(self.params, self.cfg, grids, grid_shape,
+                                    crop_box)
 
     # ---------------- generation ----------------
 
@@ -206,7 +295,8 @@ class Engine:
         inputs = self.prepare(prompt, image)
         ids = inputs["ids"]
         b, t = ids.shape
-        stats = RequestStats(prompt_tokens=inputs["prompt_tokens"])
+        stats = RequestStats(prompt_tokens=inputs["prompt_tokens"],
+                             encode_ms=inputs["encode_ms"])
 
         # decode dispatches FULL chunk-wide chunks (the tail is cut on the
         # host), so the cache is sized for n_chunks * chunk writes; a verify
@@ -223,10 +313,11 @@ class Engine:
         _sync(self.device)
         t0 = time.perf_counter()
         logits, cache = vlm.prefill(self.params, cfg, inputs["images"], ids,
-                                    inputs["lens"], inputs["starts"], cache)
+                                    inputs["lens"], inputs["starts"], cache,
+                                    vision_embeds=inputs["vision_embeds"])
         tok = sample(gen, logits, sampling)
         first = int(tok[0])  # the host read waits for the device
-        stats.ttft_ms = (time.perf_counter() - t0) * 1000
+        stats.ttft_ms = inputs["encode_ms"] + (time.perf_counter() - t0) * 1000
 
         out_ids: List[int] = [] if first in self.eos_ids else [first]
         done_host = first in self.eos_ids
@@ -335,7 +426,8 @@ class Engine:
         inputs = self.prepare(prompt, image)
         ids, lens = inputs["ids"], inputs["lens"]
         b, t = ids.shape
-        stats = RequestStats(prompt_tokens=inputs["prompt_tokens"])
+        stats = RequestStats(prompt_tokens=inputs["prompt_tokens"],
+                             encode_ms=inputs["encode_ms"])
         cache = init_cache(cfg.decoder.num_layers, b,
                            vlm.spec_cache_len(t, max_new, draft_k),
                            cfg.decoder.num_kv_heads, cfg.decoder.head_dim,
@@ -343,7 +435,8 @@ class Engine:
         _sync(self.device)
         t0 = time.perf_counter()
         logits, cache = vlm.prefill(self.params, cfg, inputs["images"], ids,
-                                    lens, inputs["starts"], cache)
+                                    lens, inputs["starts"], cache,
+                                    vision_embeds=inputs["vision_embeds"])
         res = vlm.spec_decode(self.params, cfg, logits, cache, ids, lens,
                               max_new_tokens=max_new, eos_ids=self.eos_ids,
                               draft_k=draft_k)
@@ -389,20 +482,22 @@ class Engine:
         inputs = self.prepare(prompt, image)
         ids, lens = inputs["ids"], inputs["lens"]
         b, t = ids.shape
-        stats = RequestStats(prompt_tokens=inputs["prompt_tokens"])
+        stats = RequestStats(prompt_tokens=inputs["prompt_tokens"],
+                             encode_ms=inputs["encode_ms"])
         cache = init_cache(cfg.decoder.num_layers, b, t + max_new,
                            cfg.decoder.num_kv_heads, cfg.decoder.head_dim,
                            self._dtype, self.device)
         _sync(self.device)
         t0 = time.perf_counter()
         logits, cache = vlm.prefill(self.params, cfg, inputs["images"], ids,
-                                    lens, inputs["starts"], cache)
+                                    lens, inputs["starts"], cache,
+                                    vision_embeds=inputs["vision_embeds"])
         res = beam_search(self.params, cfg, logits, cache,
                           num_beams=num_beams, max_new_tokens=max_new,
                           eos_ids=self.eos_ids, length_penalty=length_penalty)
         n = int(res.lengths[0])  # the host's one read
         toks = res.tokens[0, :n].tolist()
-        stats.ttft_ms = (time.perf_counter() - t0) * 1000
+        stats.ttft_ms = inputs["encode_ms"] + (time.perf_counter() - t0) * 1000
         stats.decode_ms = stats.ttft_ms
         stats.decode_tokens = n
         if toks and toks[-1] in self.eos_ids:

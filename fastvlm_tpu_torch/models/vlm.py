@@ -1,18 +1,25 @@
 """FastVLM in PyTorch: vision encode -> projector -> splice -> prefill -> decode.
 
-Counterpart of the single-image path of ``fastvlm_tpu/models/vlm.py``. The
+Counterpart of ``fastvlm_tpu/models/vlm.py`` (FastViTHD towers). The
 JAX package compiles prefill and a ``lax.scan`` / ``while_loop`` decode; here
 the same functions run eagerly, and the decode loops are Python loops over
 ``decode_step`` that keep every tensor on the device (the host reads tokens
 once per chunk, in the engine).
 
 Prompts are right-padded to a bucket length; the image sentinel is expanded
-host-side to ``num_image_tokens`` placeholder slots (ops/splice.py); the KV
+host-side to ``num_image_tokens`` placeholder slots (ops/splice.py), or, for
+an anyres image, to its merged token count; the KV
 cache is allocated by the caller and updated in place. ``prefill``,
 ``prefill_continue`` (a suffix after cached prefix tokens: video frames,
 prefix-cache hits, chunked admissions), ``decode_step`` and
 ``decode_chunk`` take the dense ``KVCache`` or the paged ``PagedKVCache``
 of the serving scheduler (serve/batcher.py) alike.
+
+AnyRes: ``encode_tile_grids`` runs the tower and the projector once over a
+[global view + tiles] stack, ``merge_tile_grids`` merges the grids per
+``mm_patch_merge_type`` (``ops/anyres.py``); the merged tokens reach
+``prefill`` as ``vision_embeds``. Multi-image rows take (B, M, N, D)
+``vision_embeds`` or (B, M, H, W, 3) images with (B, M) image starts.
 
 Speculative decoding (prompt lookup, greedy only; ``ops/speculative.py``):
 ``spec_decode`` / ``spec_decode_from_tok`` / ``generate_spec`` run whole
@@ -37,22 +44,28 @@ from fastvlm_tpu_torch.ops.sampling import (
     RowSampling, SamplingParams, sample, sample_rows)
 from fastvlm_tpu_torch.ops.speculative import (
     SpecResult, accept_counts, masked_window_write, ngram_draft, spec_mask)
-from fastvlm_tpu_torch.ops.splice import overlay_image_embeds
+from fastvlm_tpu_torch.ops import anyres
+from fastvlm_tpu_torch.ops.splice import (
+    overlay_image_embeds, overlay_image_embeds_multi)
 
 Params = Dict[str, Any]
 
 
 def init(gen: torch.Generator, cfg: FastVLMConfig, device="cpu") -> Params:
     """Random params for the whole model, drawn from ``gen`` (a generator on
-    ``device``)."""
-    if "unpad" in cfg.mm_patch_merge_type:
-        raise NotImplementedError("unpad merges (anyres) are not yet ported, "
-                                  "see ROADMAP.md")
-    return {
+    ``device``); unpad merges add the ``image_newline`` row separator,
+    N(0, 1/d) in the decoder's param dtype."""
+    params = {
         "vision": fastvit.init(gen, cfg.vision, device),
         "projector": projector.init(gen, cfg.projector, device),
         "decoder": qwen2.init(gen, cfg.decoder, device),
     }
+    if "unpad" in cfg.mm_patch_merge_type:
+        d = cfg.decoder.hidden_size
+        params["image_newline"] = (
+            torch.randn((d,), generator=gen, device=device) / d ** 0.5
+        ).to(resolve_dtype(cfg.decoder.param_dtype))
+    return params
 
 
 def encode_images(params: Params, cfg: FastVLMConfig,
@@ -62,17 +75,83 @@ def encode_images(params: Params, cfg: FastVLMConfig,
     return projector.apply(params["projector"], feats, cfg.projector)
 
 
+def encode_tile_grids(params: Params, cfg: FastVLMConfig,
+                      tiles: torch.Tensor) -> torch.Tensor:
+    """Tower + projector over a [global view + tiles] stack (T, S, S, 3) ->
+    (T, h, w, hidden) feature grids, in one tower call."""
+    grids = fastvit.features_grid(params["vision"], tiles, cfg.vision)
+    return projector.apply(params["projector"], grids, cfg.projector)
+
+
+def merge_tile_grids(
+    params: Params,
+    cfg: FastVLMConfig,
+    grids: torch.Tensor,                 # (T, h, w, hidden)
+    grid_shape: Tuple[int, int],         # (grid_w, grid_h) in tiles
+    crop_box: Optional[Tuple[int, int, int, int]] = None,
+) -> torch.Tensor:
+    """Merge the tile grids per cfg.mm_patch_merge_type -> (1, N, hidden).
+    The newline separators exist only for unpad merges."""
+    merge = cfg.mm_patch_merge_type
+    if merge == "flat":
+        feats = anyres.merge_flat(grids)
+    else:
+        unpad = "unpad" in merge
+        feats = anyres.merge_spatial(
+            grids, grid_shape,
+            image_newline=params.get("image_newline") if unpad else None,
+            crop_box=crop_box if unpad else None, unpad=unpad)
+    return feats[None]
+
+
+def anyres_crop_box(cfg: FastVLMConfig, grid_shape: Tuple[int, int],
+                    original_size: Optional[Tuple[int, int]]):
+    """Unpad crop box of a merged anyres feature grid, shared by
+    ``encode_tiles`` and the engine. None when the merge type does not
+    unpad or the original size is unknown."""
+    if "unpad" not in cfg.mm_patch_merge_type or original_size is None:
+        return None
+    h = w = cfg.vision.grid_size
+    gw, gh = grid_shape
+    return anyres.unpad_hw((gh * h, gw * w), original_size)
+
+
+def encode_tiles(
+    params: Params,
+    cfg: FastVLMConfig,
+    tiles: torch.Tensor,                 # (T, S, S, 3) global view + tiles
+    grid_shape: Tuple[int, int],         # (grid_w, grid_h) in tiles
+    original_size: Optional[Tuple[int, int]] = None,  # (width, height)
+) -> torch.Tensor:
+    """AnyRes encode: ``encode_tile_grids`` then ``merge_tile_grids`` ->
+    (1, N, hidden)."""
+    grids = encode_tile_grids(params, cfg, tiles)
+    crop_box = anyres_crop_box(cfg, grid_shape, original_size)
+    return merge_tile_grids(params, cfg, grids, grid_shape, crop_box)
+
+
 def _spliced_prompt_embeds(params, cfg, images, ids, image_starts,
                            vision_embeds=None):
-    """Text embeddings of ids (B, T) with the image span overlaid (single
-    image per row)."""
+    """Text embeddings of ids (B, T) with the image spans overlaid: images
+    (B, H, W, 3) or vision_embeds (B, N, D) with (B,) starts, one image a
+    row; images (B, M, H, W, 3) or vision_embeds (B, M, N, D) with (B, M)
+    starts (-1 for an absent slot), M images a row."""
     cd = resolve_dtype(cfg.decoder.compute_dtype)
     text = qwen2.embed(params["decoder"], ids).to(cd)
     if vision_embeds is None and images is not None:
-        vision_embeds = encode_images(params, cfg, images)
-    if vision_embeds is not None:
-        text = overlay_image_embeds(text, vision_embeds.to(cd), image_starts)
-    return text
+        if images.dim() == 5:
+            b, m = images.shape[:2]
+            vis = encode_images(params, cfg, images.reshape(
+                (b * m,) + tuple(images.shape[2:])))
+            vision_embeds = vis.reshape(b, m, vis.shape[1], vis.shape[2])
+        else:
+            vision_embeds = encode_images(params, cfg, images)
+    if vision_embeds is None:
+        return text
+    if vision_embeds.dim() == 4:
+        return overlay_image_embeds_multi(text, vision_embeds.to(cd),
+                                          image_starts)
+    return overlay_image_embeds(text, vision_embeds.to(cd), image_starts)
 
 
 def prefill(

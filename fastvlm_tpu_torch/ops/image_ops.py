@@ -1,9 +1,9 @@
 """Image preprocessing on the tensor's device: rescale, bicubic resize,
-center crop, pad to square.
+center crop, pad to square, anyres tiles.
 
-Counterpart of ``fastvlm_tpu/ops/image_ops.py`` (less ``anyres_tiles``,
-which comes with anyres). A uint8 camera frame goes to the device once and
-is rescaled and resized there, so the encoder takes frames of any size.
+Counterpart of ``fastvlm_tpu/ops/image_ops.py``. A uint8 camera frame goes
+to the device once and is rescaled and resized there, so the encoder takes
+frames of any size.
 
 The resize is ``jax.image.resize(..., "bicubic", antialias=True)``'s: Keys'
 cubic with a = -0.5, the kernel widened by the scale factor when
@@ -16,6 +16,8 @@ Layouts are channels-last, (..., H, W, 3), as in the JAX package.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -83,3 +85,32 @@ def preprocess(image: torch.Tensor, image_size: int,
     # clip the bicubic overshoot (PIL clips at uint8 on every pass)
     x = x.clamp(0.0, 1.0)
     return x if x.dim() == 4 else x[None]
+
+
+def anyres_tiles(image: torch.Tensor, image_size: int,
+                 best_resolution: Tuple[int, int]) -> torch.Tensor:
+    """(H, W, 3) -> (1 + grid_w*grid_h, S, S, 3) float32: the global view,
+    then the tiles row-major.
+
+    The device version of ``data/preprocessing.process_anyres_image``:
+    ``best_resolution`` (width, height) comes from the host's
+    ``select_best_resolution`` on the image's size. The image is resized
+    keeping its aspect (the scaled side rounded up), pasted centred on a
+    zero canvas of that resolution, and cut into S x S tiles."""
+    x = rescale(image)
+    h, w = x.shape[0], x.shape[1]
+    tw, th = best_resolution
+    scale_w, scale_h = tw / w, th / h
+    if scale_w < scale_h:
+        nw, nh = tw, min(-(-h * tw // w), th)
+    else:
+        nh, nw = th, min(-(-w * th // h), tw)
+    canvas = torch.zeros((th, tw, 3), dtype=torch.float32, device=x.device)
+    top, left = (th - nh) // 2, (tw - nw) // 2
+    canvas[top:top + nh, left:left + nw] = resize_bicubic(x, nh, nw)
+
+    tiles = [resize_bicubic(x, image_size, image_size)]  # the global view
+    for i in range(0, th, image_size):
+        for j in range(0, tw, image_size):
+            tiles.append(canvas[i:i + image_size, j:j + image_size])
+    return torch.stack(tiles)

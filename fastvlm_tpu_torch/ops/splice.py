@@ -3,9 +3,9 @@
 The host expands the -200 sentinel into ``num_image_tokens`` placeholder
 slots when tokenizing, so the prompt length is known before the device sees
 it; the device then overlays the projected vision embeddings onto the
-placeholder span with a masked gather (one select, no per-row loop). Same
-contract as ``fastvlm_tpu/ops/splice.py``; the multi-image variants are not
-ported yet.
+placeholder span with a masked gather (one select, no per-row loop). A
+multi-image row expands every sentinel and overlays one span per image.
+Same contract as ``fastvlm_tpu/ops/splice.py``.
 """
 
 from __future__ import annotations
@@ -29,10 +29,29 @@ def expand_image_ids(
         return np.asarray(ids, np.int32), -1
     pos = ids.index(image_token_index)
     if image_token_index in ids[pos + 1:]:
-        raise ValueError("multiple <image> sentinels in a single-image row: "
-                         "multi-image prompts are not yet ported")
+        raise ValueError("multiple <image> sentinels in a single-image row; "
+                         "use expand_image_ids_multi")
     out = ids[:pos] + [pad_id] * num_image_tokens + ids[pos + 1:]
     return np.asarray(out, np.int32), pos
+
+
+def expand_image_ids_multi(
+    ids: Sequence[int],
+    num_image_tokens: int,
+    image_token_index: int = -200,
+    pad_id: int = 0,
+) -> Tuple[np.ndarray, List[int]]:
+    """Multi-image rows: every sentinel expands to N placeholder slots.
+    Returns (expanded_ids, [start0, start1, ...])."""
+    out: List[int] = []
+    starts: List[int] = []
+    for tok in ids:
+        if tok == image_token_index:
+            starts.append(len(out))
+            out.extend([pad_id] * num_image_tokens)
+        else:
+            out.append(tok)
+    return np.asarray(out, np.int32), starts
 
 
 def pad_batch(
@@ -70,3 +89,15 @@ def overlay_image_embeds(
                             rel[:, :, None].expand(b, t, d))
     return torch.where(in_span[:, :, None], gathered.to(text_embeds.dtype),
                        text_embeds)
+
+
+def overlay_image_embeds_multi(
+    text_embeds: torch.Tensor,   # (B, T, D)
+    image_embeds: torch.Tensor,  # (B, M, N, D): M images per row
+    image_starts: torch.Tensor,  # (B, M); -1 marks absent slots
+) -> torch.Tensor:
+    """Overlay M image spans per row: one select per image, in order."""
+    out = text_embeds
+    for j in range(image_embeds.shape[1]):
+        out = overlay_image_embeds(out, image_embeds[:, j], image_starts[:, j])
+    return out

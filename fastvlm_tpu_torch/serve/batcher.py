@@ -53,16 +53,27 @@ XLA cannot fuse the page gather into attention; a hand-written paged
 kernel reads the pages where they lie, and a suffix prefill reads the pool
 in place too.
 
+  * requests that cannot join a batch (an anyres PIL image or several
+    images: their token counts are ragged) are served one at a time
+    through ``engine.stream`` (the serial path; its updates are the
+    engine's, without a finish reason, as in the JAX scheduler), each
+    checked for cancellation at every update. A gathered batch holding one
+    is served wholly so; at a chunk boundary one is deferred
+    (``_deferred``), and ``_gather`` serves it first once the batch ends;
+  * ``fairness_s`` (default 2 s): once the oldest deferred request has
+    waited that long, admission stops for the rest of the batch (counter
+    "drained_for_fairness", ``trace`` "drain"), so a steady stream of
+    batchable requests cannot starve it;
+  * ``continuous=False``: window batching, the JAX benchmark's baseline. A
+    gathered batch runs to its end with no admission; later requests wait
+    for the next gather.
+
 Held back (constructor knobs; setting one on raises NotImplementedError):
-``chunk_view`` / ``persist_view`` / ``pipeline_depth``, and ``warmup()``. Left out with the
-serial path for requests that cannot join a batch (anyres, multi-image;
-the port's engine serves neither): ``fairness_s``, the drain that keeps
-such a request from starving, and ``continuous=False``, the window-batching
-baseline of the JAX benchmark. Left out as well: ``paged=False``, the JAX
-scheduler's dense per-batch cache, and its fallback to it when the pool
-cannot hold a gathered batch's prompts. Here the requests that do not fit
-wait for the next admission, and a prompt larger than the whole pool fails
-alone.
+``chunk_view`` / ``persist_view`` / ``pipeline_depth``, and ``warmup()``.
+Left out: ``paged=False``, the JAX scheduler's dense per-batch cache, and
+its fallback to it when the pool cannot hold a gathered batch's prompts.
+Here the requests that do not fit wait for the next admission, and a
+prompt larger than the whole pool fails alone.
 
 Where the port differs without changing an output:
   * the device sees the block tables cut to the page watermark (the widest
@@ -72,8 +83,8 @@ Where the port differs without changing an output:
     tokens), not to 256, and an admission's 1-row view maps only its
     prompt's pages (the JAX widths are canonical so that ``warmup()`` can
     compile them all; eager torch compiles nothing);
-  * a request whose ``prepare`` fails is failed alone, where the JAX
-    scheduler fails the gathered batch;
+  * a request whose ``prepare`` fails, or whose serial stream raises, is
+    failed alone, where the JAX scheduler fails the gathered batch;
   * speculative chunks verify on the pool in place: each pass writes its
     k+1 keys at each row's own offset through the block tables and attends
     the pages gathered into row order, with the rows' pages mapped through
@@ -329,7 +340,8 @@ class BatchScheduler:
                  prefill_chunk: Optional[int] = None, max_pending: int = 2,
                  spec: bool = False, spec_draft_k: int = 8,
                  spec_ngram_n: int = 3, spec_max_rows: int = 1,
-                 spec_min_accept: float = 0.1, chunk_view: bool = False,
+                 spec_min_accept: float = 0.1, continuous: bool = True,
+                 fairness_s: float = 2.0, chunk_view: bool = False,
                  persist_view: bool = False, pipeline_depth: int = 1):
         """``prefix_cache`` / ``prefill_chunk``: None picks the JAX
         scheduler's scale-aware default, on (256-token chunks) from 1e9
@@ -338,7 +350,10 @@ class BatchScheduler:
         but produce no tokens yet). ``spec``: speculative chunks for greedy
         batches (module docstring), with ``spec_draft_k`` draft tokens from
         ``spec_ngram_n``-grams, at most ``spec_max_rows`` live rows, banned
-        for the batch below an acceptance EMA of ``spec_min_accept``."""
+        for the batch below an acceptance EMA of ``spec_min_accept``.
+        ``continuous=False``: window batching, no admission into a running
+        batch. ``fairness_s``: how long the oldest deferred request may wait
+        before admission stops and the batch drains (module docstring)."""
         held = {"chunk_view": chunk_view, "persist_view": persist_view,
                 "pipeline_depth": pipeline_depth > 1}
         for name, on in held.items():
@@ -351,6 +366,8 @@ class BatchScheduler:
         self.engine = engine
         self.max_batch = max_batch
         self.window_s = window_ms / 1000.0
+        self.continuous = continuous
+        self.fairness_s = fairness_s
         self.page_size = page_size
         self.pool = PagePool(max(1, pool_tokens // page_size))
         # a suffix prefill skips the prefix's compute, which pays for the
@@ -516,6 +533,36 @@ class BatchScheduler:
                         r.out.put(_SENTINEL)
                 if self.trace is not None:
                     self.trace.append((time.perf_counter(), "batch_end"))
+
+    def _batchable(self, r: _Request) -> bool:
+        """Requests the batched decode loop can serve: not an anyres PIL
+        merge, not several images (ragged token counts, served serially)."""
+        cfg = self.engine.cfg
+        anyres = (cfg.image_aspect_ratio == "anyres"
+                  and cfg.image_grid_pinpoints
+                  and hasattr(r.image, "convert"))
+        multi = isinstance(r.image, (list, tuple)) and len(r.image) > 1
+        return not (anyres or multi)
+
+    def _serve_serial(self, r: _Request) -> None:
+        """One request through ``engine.stream``; the stream stops at the
+        first update after the client cancels, and a failure fails this
+        request alone."""
+        stream = self.engine.stream(
+            r.prompt, r.image, max_new_tokens=r.max_new_tokens,
+            sampling=r.sampling, stop_strings=r.stop_strings)
+        try:
+            for update in stream:
+                if r.cancelled:
+                    self.counters["cancelled"] += 1
+                    break
+                r.out.put(update)
+        except Exception as e:  # a bad request must not fail the others
+            logger.exception("serial request failed")
+            r.out.put({"error": str(e)})
+        finally:
+            stream.close()
+            r.out.put(_SENTINEL)
 
     def _alloc_pages(self, n: int) -> Optional[List[int]]:
         """pool.alloc with prefix-cache eviction: pages the registry pins
@@ -707,14 +754,24 @@ class BatchScheduler:
         engine = self.engine
         cfg = engine.cfg
         dev = engine.device
-        # requests cancelled while queued never prefill; a request that
-        # cannot be prepared fails alone
-        ready = []
+        # requests cancelled while queued never prefill
+        live = []
         for r in batch:
             if r.cancelled:
                 self.counters["cancelled"] += 1
                 r.out.put(_SENTINEL)
-                continue
+            else:
+                live.append(r)
+        # anyres merges and multi-image prompts have ragged token counts:
+        # the batch is served one request at a time, decided before
+        # prepare() so the tower runs once per request
+        if not all(self._batchable(r) for r in live):
+            for r in live:
+                self._serve_serial(r)
+            return
+        # a request that cannot be prepared fails alone
+        ready = []
+        for r in live:
             try:
                 ready.append((r, engine.prepare(r.prompt, r.image)))
             except Exception as e:
@@ -930,16 +987,33 @@ class BatchScheduler:
             live. The prompt prefills through a 1-row PagedKVCache view over
             the SAME pool tensors, so its KV lands in the pages just
             allocated for it."""
-            nonlocal tables_dirty, spec_live
+            nonlocal tables_dirty, spec_live, admitting
             ht = hd = None  # lazy host copies of (tok, done)
+            if self._deferred and (time.perf_counter()
+                                   - min(d.t_submit for d in self._deferred)
+                                   > self.fairness_s):
+                # a deferred request (one that cannot join this batch, or
+                # one that kept failing to place) has waited past the
+                # fairness bound: stop admitting so the batch drains, and
+                # the next _gather serves the deferred requests first
+                admitting = False
+                self.counters["drained_for_fairness"] += 1
+                if self.trace is not None:
+                    self.trace.append((time.perf_counter(), "drain",
+                                       len(self._deferred)))
+                return cache, tok, done
             # bound the admissions per boundary to the requests already
             # waiting when it started, so in-flight rows keep getting decode
             # service under a steady stream of arrivals
             budget = len(self._deferred) + self.queue.qsize()
             while not self._stop and budget > 0:
                 budget -= 1
-                if self._deferred:
-                    r = self._deferred.pop(0)
+                # deferred batchable requests first: a freed slot goes to
+                # them before fresh arrivals
+                r = next((d for d in self._deferred if self._batchable(d)),
+                         None)
+                if r is not None:
+                    self._deferred.remove(r)
                 else:
                     try:
                         r = self.queue.get_nowait()
@@ -948,6 +1022,14 @@ class BatchScheduler:
                 if r.cancelled:
                     self.counters["cancelled"] += 1
                     r.out.put(_SENTINEL)
+                    continue
+                if not self._batchable(r):
+                    # an anyres / multi-image request waits for the batch
+                    # to end; batchable requests behind it may still admit
+                    self._deferred.append(r)
+                    if self.trace is not None:
+                        self.trace.append((time.perf_counter(), "defer",
+                                           "shape"))
                     continue
                 if n_active() >= b:
                     new_b = _round_batch(n_active() + 1)
@@ -1288,14 +1370,18 @@ class BatchScheduler:
                 [finished[i] or slots[i] is None for i in range(b)],
                 device=dev)
             under_occ = 0  # consecutive under-occupied boundaries
+            # window batching (continuous=False) never admits; a fairness
+            # drain stops admission for the rest of the batch
+            admitting = self.continuous
 
-            while n_active() > 0 or (not self._stop
+            while n_active() > 0 or (admitting and not self._stop
                                      and not self.queue.empty()):
                 if self.trace is not None:
                     self.trace.append((time.perf_counter(), "iter",
                                        n_active(), b))
                 sweep_cancelled()
-                cache, tok, done = try_admit(cache, tok, done)
+                if admitting:
+                    cache, tok, done = try_admit(cache, tok, done)
                 if pending:
                     cache, tok, done = advance_pending(cache, tok, done)
                 # decide speculation after admission: one live row can

@@ -5,8 +5,11 @@ JAX engine's; concurrent requests share one decode loop over the paged pool
 (kernel K3's plain version here); admission, grow, shrink, pool exhaustion,
 cancellation, page accounting; speculative chunks (``spec=True``) give the
 greedy ids, switch off when a second row joins and are banned at low
-acceptance; the held-back knobs raise; per-row sampling masks agree with
-the JAX package's.
+acceptance; anyres and multi-image requests take the serial path, the
+fairness drain serves a deferred one under a steady stream, and window
+batching (``continuous=False``) admits nothing and gives the JAX
+scheduler's ids; the held-back knobs raise; per-row sampling masks agree
+with the JAX package's.
 
 Tiny f32 engines built from the same numpy-drawn weights (utils/convert.py),
 a tokenizer whose text is the token ids, and 128 px images (4 image
@@ -14,7 +17,9 @@ tokens), so every request carries an image. Waits are on events and bounded
 joins; the window sleeps of the JAX tests are replaced by a wide gather
 window."""
 
+import dataclasses
 import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +31,7 @@ from fastvlm_tpu import config as jcfg
 from fastvlm_tpu import engine as jengine
 from fastvlm_tpu.models import vlm as jvlm
 from fastvlm_tpu.ops import sampling as jsampling
+from fastvlm_tpu.serve import batcher as jbatcher
 from fastvlm_tpu_torch import config as tcfg
 from fastvlm_tpu_torch import engine
 from fastvlm_tpu_torch.data import preprocessing
@@ -95,6 +101,21 @@ def eng_noeos(weights):
                          eos_ids=(-1,))
 
 
+@pytest.fixture(scope="module")
+def eng_anyres(weights):
+    """The tiny engine under an anyres spatial_unpad config (128 px tiles,
+    grids up to 2 x 2), with a numpy-drawn ``image_newline``."""
+    tok = IdTokenizer()
+    tc = dataclasses.replace(
+        _tiny(tcfg), image_aspect_ratio="anyres",
+        image_grid_pinpoints=((256, 128), (128, 256), (256, 256)),
+        mm_patch_merge_type="spatial_unpad")
+    params = from_jax_params(weights[1], tc)
+    params["image_newline"] = torch.from_numpy(
+        np.random.RandomState(1).randn(64).astype(np.float32) / 8)
+    return engine.Engine(tc, params, tok, eos_ids=(tok.eos_token_id,))
+
+
 def _image(seed):
     return np.random.RandomState(seed).randint(0, 256, (128, 128, 3),
                                                dtype=np.uint8)
@@ -133,6 +154,27 @@ class Client:
         last = self.updates[-1]
         assert "error" not in last, last
         return last
+
+
+class Request:
+    """One request with any image (a PIL image, an array, a list) on its own
+    thread."""
+
+    def __init__(self, sched, prompt, image, cap):
+        self.updates = []
+        self.thread = threading.Thread(target=self._run,
+                                       args=(sched, prompt, image, cap))
+        self.thread.start()
+
+    def _run(self, sched, prompt, image, cap):
+        for u in sched.submit(prompt, image, max_new_tokens=cap):
+            self.updates.append(u)
+
+    def result(self):
+        self.thread.join(timeout=JOIN_S)
+        assert not self.thread.is_alive(), "request did not finish"
+        assert self.updates and "error" not in self.updates[-1], self.updates
+        return self.updates[-1]
 
 
 def _pool_clean(sched):
@@ -549,6 +591,137 @@ def test_spec_low_acceptance_bans_spec(eng_noeos):
         assert _pool_clean(sched)
     finally:
         sched.shutdown()
+
+
+def test_anyres_and_multi_image_served_serially(eng_anyres):
+    """A gathered batch holding an anyres PIL request or a multi-image one
+    is served one request at a time through engine.stream: each gets the
+    engine's ids, no batched prefill runs, the pool is untouched."""
+    from PIL import Image
+
+    eng = eng_anyres
+    wide = Image.fromarray(np.random.RandomState(21).randint(
+        0, 256, (100, 230, 3), dtype=np.uint8))
+    jobs = [(eng.build_prompt("describe the wide one"), wide, 6),
+            (eng.build_prompt("compare <image> with it"),
+             [_image(22), _image(23)], 6),
+            (eng.build_prompt("just one array"), _image(24), 6)]
+    want = [eng.generate(p, im, max_new_tokens=cap)[0] for p, im, cap in jobs]
+    assert eng.prepare(*jobs[0][:2])["prompt_tokens"] > \
+        eng.prepare(*jobs[2][:2])["prompt_tokens"]  # the tiles' tokens
+    sched = BatchScheduler(eng, window_ms=300, page_size=16)
+    sched.trace = []
+    try:
+        reqs = [Request(sched, *job) for job in jobs]
+        assert [r.result()["text"] for r in reqs] == want
+        assert sched.counters["prefills"] == 0
+        starts = [e for e in sched.trace if e[1] == "batch_start"]
+        assert starts[0][2] == 3  # one gathered batch, served serially
+        assert sched.pool.min_free == sched.pool.num_pages
+        assert _pool_clean(sched)
+    finally:
+        sched.shutdown()
+
+
+def test_serial_path_cancellation(eng_noeos):
+    """A serial request cancelled mid-stream closes at its next update and
+    counts as cancelled; the next request is served."""
+    sched = BatchScheduler(eng_noeos, window_ms=5, page_size=16)
+    try:
+        prompt = eng_noeos.build_prompt("compare <image> with it")
+        cancel = threading.Event()
+        got = []
+        for u in sched.submit(prompt, [_image(25), _image(26)],
+                              max_new_tokens=4096, cancel=cancel):
+            got.append(u)
+            cancel.set()
+        # the stream closed at the first update after the cancel
+        assert sched.counters["cancelled"] == 1
+        assert len(got) < 8 and got[-1]["stats"]["decode_tokens"] < 128
+        want = eng_noeos.generate(prompt, [_image(25), _image(26)],
+                                  max_new_tokens=5)[0]
+        last = Request(sched, prompt, [_image(25), _image(26)], 5).result()
+        assert last["text"] == want
+        assert _pool_clean(sched)
+    finally:
+        sched.shutdown()
+
+
+def test_fairness_drain_serves_deferred_request(eng_noeos):
+    """A steady stream of batchable requests keeps the batch alive through
+    admission; a multi-image request arriving meanwhile is deferred, and
+    once it has waited fairness_s admission stops, the batch drains and the
+    request is served first, with the engine's ids."""
+    eng = eng_noeos
+    prompt = eng.build_prompt("compare <image> with it")
+    imgs = [_image(30), _image(31)]
+    want = eng.generate(prompt, imgs, max_new_tokens=4)[0]
+    sched = BatchScheduler(eng, window_ms=10, page_size=16, fairness_s=0.3)
+    sched.trace = []
+    stop = threading.Event()
+    fillers = []
+
+    def feeder():
+        while not stop.is_set():
+            fillers.append(Client(sched, eng, f"filler {len(fillers)}",
+                                  40 + len(fillers) % 4, 24))
+            time.sleep(0.05)
+
+    try:
+        long = Client(sched, eng, "the long one", 6, 160)
+        assert long.decoding.wait(JOIN_S)
+        feed = threading.Thread(target=feeder)
+        feed.start()
+        try:
+            late = Request(sched, prompt, imgs, 4).result()
+        finally:
+            stop.set()
+            feed.join(timeout=JOIN_S)
+        assert late["text"] == want
+        long.result()
+        for c in fillers:
+            c.result()
+        assert sched.counters["drained_for_fairness"] >= 1, \
+            dict(sched.counters)
+        events = [e[1:] for e in sched.trace]
+        assert ("defer", "shape") in events
+        assert any(e[0] == "drain" for e in events)
+        assert _pool_clean(sched)
+    finally:
+        stop.set()
+        sched.shutdown()
+
+
+def test_window_batching_matches_jax_scheduler(weights, eng_noeos):
+    """continuous=False: a gathered batch runs to its end and requests that
+    arrive meanwhile wait for the next gather (no admission). The same
+    traffic through the JAX scheduler with continuous=False gives the same
+    ids, which are the serial engine's; every page comes back."""
+    je = jengine.Engine(weights[0], jax.tree.map(jnp.asarray, weights[1]),
+                        IdTokenizer(), eos_ids=(-1,))
+    first = [("alpha", 0, 24), ("beta gamma", 1, 16)]
+    late = [("delta", 2, 8), ("epsilon", 3, 8)]
+    results = {}
+    for name, eng, make in (
+            ("port", eng_noeos, lambda: BatchScheduler(
+                eng_noeos, window_ms=200, page_size=16, continuous=False)),
+            ("jax", je, lambda: jbatcher.BatchScheduler(
+                je, window_ms=200, paged=True, page_size=16,
+                pool_tokens=4096, continuous=False))):
+        sched = make()
+        try:
+            clients = [Client(sched, eng, *u) for u in first]
+            assert clients[0].decoding.wait(JOIN_S)
+            clients += [Client(sched, eng, *u) for u in late]
+            results[name] = [c.result()["text"] for c in clients]
+            assert sched.counters["admitted"] == 0, dict(sched.counters)
+            assert _pool_clean(sched)
+        finally:
+            sched.shutdown()
+    assert results["port"] == results["jax"]
+    assert results["port"] == [eng_noeos.chat(p, _image(i),
+                                              max_new_tokens=cap)[0]
+                               for p, i, cap in first + late]
 
 
 @pytest.mark.parametrize("knob", [

@@ -535,3 +535,55 @@ def test_verify_checkpoint_goldens(checkpoint_dir, tiny_tower, tmp_path,
     assert predict.main(["--model-path", checkpoint_dir, "--verify-checkpoint",
                          "--goldens", gpath, "--device", "cpu"]) == 0
     assert capsys.readouterr().err.strip().endswith("PASS")
+
+
+def test_anyres_checkpoint_roundtrip_gives_same_ids(tiny_tower, tmp_path):
+    """An anyres spatial_unpad model exported through utils/hf_export (its
+    image_newline, image_grid_pinpoints and mm_patch_merge_type included)
+    and loaded back by build_engine gives the exported engine's greedy ids
+    on a PIL image that takes a 2 x 1 tile grid."""
+    from PIL import Image
+
+    from fastvlm_tpu_torch.utils import hf_export as texport
+
+    vision = _qwen2_cfgs()[1].vision
+    decoder = tcfg.Qwen2Config(vocab_size=258, hidden_size=64, num_layers=2,
+                               num_heads=4, num_kv_heads=2, head_dim=16,
+                               intermediate_size=128)
+    pins = ((256, 128), (128, 256), (256, 256))
+    tc = tcfg.FastVLMConfig(
+        vision=vision, decoder=decoder,
+        projector=tcfg.ProjectorConfig(mm_hidden_size=vision.out_channels,
+                                       hidden_size=64),
+        image_aspect_ratio="anyres", image_grid_pinpoints=pins,
+        mm_patch_merge_type="spatial_unpad")
+    jc = dataclasses.replace(
+        _qwen2_cfgs()[0], image_aspect_ratio="anyres",
+        image_grid_pinpoints=pins, mm_patch_merge_type="spatial_unpad")
+    rng = np.random.RandomState(11)
+
+    def draw(path, leaf):
+        scale = 0.2 if path[0].key == "decoder" and leaf.ndim >= 2 else 0.05
+        if path[-1].key in ("ln1", "ln2", "final_norm", "norm_scale"):
+            return (1 + 0.02 * rng.randn(*leaf.shape)).astype(np.float32)
+        return (scale * rng.randn(*leaf.shape)).astype(np.float32)
+
+    shapes = jax.eval_shape(lambda k: jvlm.init(k, jc), jax.random.PRNGKey(0))
+    params = from_jax_params(jax.tree_util.tree_map_with_path(draw, shapes),
+                             tc)
+    out = texport.export_hf(params, tc, str(tmp_path / "anyres"))
+    tok = IdTokenizer()
+    src = engine.Engine(tc, params, tok, eos_ids=(tok.eos_token_id,))
+    got = engine.build_engine(out, dtype="float32", device="cpu",
+                              tokenizer=tok, eos_ids=(tok.eos_token_id,))
+    assert (got.cfg.image_aspect_ratio, got.cfg.image_grid_pinpoints,
+            got.cfg.mm_patch_merge_type) == ("anyres", pins, "spatial_unpad")
+    assert torch.equal(got.params["image_newline"], params["image_newline"])
+    img = Image.fromarray(np.random.RandomState(12).randint(
+        0, 256, (100, 230, 3), dtype=np.uint8))
+    prompt = src.build_prompt("Describe the image.")
+    want, wstats = src.generate(prompt, img, max_new_tokens=10)
+    text, stats = got.generate(prompt, img, max_new_tokens=10)
+    assert text == want and len(set(text.split(","))) >= 3
+    assert stats["prompt_tokens"] == wstats["prompt_tokens"] > \
+        src.prepare(prompt, np.array(img))["prompt_tokens"]
