@@ -17,13 +17,15 @@ non-zero):
               kernel's time, TFLOP/s and share of its bound, the plain
               version's and the bf16 cuBLAS chain's (context)
   4. K2       decode_attention vs decode_attention_reference at the 0.5B,
-              1.5B and 7B head geometries, bf16 and f32, lengths at the
+              1.5B and 7B head geometries and LLaVA-1.5-7B's 32/32/128
+              (one query row a KV head), bf16 and f32, lengths at the
               split size's edges (1, split-1, split, split+1, one leaving
               whole splits empty, S_max); then the main-path call timed:
               kernel (profiler), per call by events, the wrapper's host us,
               against scaled_dot_product_attention (library_ms)
   5. K3       paged_decode_attention vs paged_decode_attention_reference at
-              the 0.5B, 1.5B and 7B head geometries, bf16 and f32, pages of
+              the 0.5B, 1.5B, 7B and 32/32/128 head geometries, bf16 and
+              f32, pages of
               8, 64 and 128: at a 4096-position table, lengths at the split
               size's edges (1, split-1, split, split+1, 2 split+7, 4096) and
               a pad row, one row a call (several splits, the counter merge)
@@ -139,7 +141,39 @@ non-zero):
               or a dense replay within the tie margin). Prints each
               request's ms and tok/s, peak memory, and a beam step's wall
               ms, device ms and launches beside a greedy step's
- 13. small    a small f32 model on the card (kernels) agrees with the same
+ 13. llava15  LLaVA-1.5-7B at full width (CLIP ViT-L/14-336, penultimate
+              layer, 576 patch tokens of 1024 channels; mlp2x_gelu 1024 ->
+              4096; Vicuna-7B = llama_7b, 32 layers, 32/32/128), bf16,
+              random weights from a seed, byte tokenizer, template v1, after
+              the anyres and serve-1.5b engines are freed: the tower's
+              features finite and non-zero (mean |x|), another image moving
+              the first-token logits; 4 greedy requests of 32 tokens with a
+              576-token image span (K1 0, K2 32 a step), two of them replayed
+              teacher-forced within the tie margin; warm TTFT, decode tok/s,
+              tower + projector ms by events and kernel time, a decode
+              step's wall / device ms and launches; K2 at 32/32/128 against
+              its plain version at the phase's cached length, B = 1 and
+              B = 4 (kernel time, bound, SDPA); S2 (336/672/1008, 14 crops,
+              3072 channels) ms, its first 1024 channels against the
+              single-scale features
+ 14. worker   serve/worker.ModelWorker in process, pumped through
+              generate_stream as the HTTP routes pump it (the card's machine
+              has no aiohttp): (a) serially over phase 6's engine: base64
+              PNG payloads stream engine.generate's text, a spec payload
+              engine.stream(spec=True)'s, spec + temperature one
+              CLIENT_ERROR chunk, an OpenAI body with a data: URI image the
+              native payload's text; (b) with continuous batching over it:
+              BatchScheduler.warmup's count and seconds, then
+              scripts/soak_serving.py's plan at n = 16 from threads (mixed
+              greedy and sampled, budgets, a shared template prefix, 2
+              cancelled through the cancel event at their first token):
+              clean closes, cancels counted, the pool whole, status() =
+              the counters, K1 44 an image prefill, K3 24 a step, no K2;
+              TTFT and served tok/s; (c) with continuous batching over the
+              7B: 4 concurrent image requests, each its serial ids, K3 32 a
+              step; the batch-4 step's wall / device ms and K3 at that call
+              (B = 4, 32/32/128) against its plain version and its bound
+ 15. small    a small f32 model on the card (kernels) agrees with the same
               model on the CPU (plain versions), logits and greedy ids,
               spec_decode's tokens, counts, passes and acceptances, and
               beam_search's tokens, lengths and scores (W = 3, K2 at batch
@@ -165,12 +199,14 @@ The line before last is a JSON object {"kernels": [...]}; the last line is
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -188,6 +224,9 @@ K2_TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (2e-5, 2e-5)}
 HBM_BPS = 3.35e12      # H100 SXM device memory, bytes/s
 BF16_FLOPS = 989e12    # H100 SXM dense bf16 tensor-core peak
 K3_TOL = K2_TOL  # the same formula, the same summation order per split
+# (Hq, Hkv, D) of the decoders K2 and K3 serve: Qwen2-0.5B, Qwen2-1.5B,
+# Qwen2-7B, and LLaVA-1.5-7B's Vicuna-7B (MHA: one query row a KV head)
+K_GEOMETRIES = ((14, 2, 64), (12, 2, 128), (28, 4, 128), (32, 32, 128))
 # teacher-forced replay: the batch's token must score within this many bf16
 # ulps (of the dense maximum's magnitude) of the dense maximum. The logits
 # are bf16 values, so gaps come in whole ulps. Random bf16 weights put the
@@ -392,6 +431,37 @@ def phase_k1(gen):
     return max_abs, img
 
 
+def _k2_point(gen, b, hq, hkv, d, s_max, length):
+    """K2 at one decode call (b rows of ``length`` keys in an ``s_max``
+    cache, bf16) against its plain version: max abs error, kernel time
+    (profiler), ms a call by events, the wrapper's host us a call, plain
+    ms, the bound, and SDPA's kernel time and ms a call."""
+    from fastvlm_tpu_torch.ops.cuda.decode_attention import (
+        decode_attention, decode_attention_reference)
+
+    dt = torch.bfloat16
+    q = torch.randn((b, hq, d), generator=gen, device="cuda").to(dt)
+    k, v = (torch.randn((b, s_max, hkv, d), generator=gen,
+                        device="cuda").to(dt) for _ in range(2))
+    ln = torch.full((b,), length, dtype=torch.int32, device="cuda")
+    err, ratio = compare(decode_attention(q, k, v, ln),
+                         decode_attention_reference(q, k, v, ln),
+                         K2_TOL[dt], f"K2 {hq}/{hkv}/{d} B={b}")
+    call = lambda: decode_attention(q, k, v, ln)
+    mask = (torch.arange(s_max, device="cuda")[None, :]
+            < ln[:, None])[:, None, None, :]
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q.view(b, hq, 1, d), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, enable_gqa=True)
+    return dict(err=err, ratio=ratio, kernel_ms=kernel_time_ms(call, reps=50),
+                ms=time_ms(call, reps=50), host_us=host_us(call),
+                plain_ms=time_ms(lambda: decode_attention_reference(q, k, v, ln),
+                                 reps=50),
+                bound_ms=attn_bound_ms(q, ln, hkv, 2),
+                library_kernel_ms=kernel_time_ms(sdpa, reps=50),
+                library_ms=time_ms(sdpa, reps=50))
+
+
 def phase_k2(gen):
     from fastvlm_tpu_torch.ops.cuda.decode_attention import (
         decode_attention, decode_attention_reference, split_size)
@@ -402,12 +472,15 @@ def phase_k2(gen):
 
     s_max = 4096
     max_abs = 0.0
-    for hq, hkv, d in ((14, 2, 64), (12, 2, 128), (28, 4, 128)):
+    for hq, hkv, d in K_GEOMETRIES:
         for dtype in (torch.bfloat16, torch.float32):
             # a row alone takes several splits (one cluster each) at this
             # cache size; lengths 1 .. 2 split + 7 leave whole splits empty
             split = split_size(1, hkv, d, s_max, dtype)
-            lens = [1, split - 1, split, split + 1, 2 * split + 7, s_max]
+            # at 32 KV heads a row alone is one split of the whole cache:
+            # the edges past it count as S_max
+            lens = [min(n, s_max) for n in
+                    (1, split - 1, split, split + 1, 2 * split + 7, s_max)]
             q, k, v = draw(len(lens), hq, hkv, d, s_max, dtype)
             lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
             want = decode_attention_reference(q, k, v, lengths)
@@ -427,34 +500,21 @@ def phase_k2(gen):
                           f"(tol ratio {ratio:.3f} <= 1)")
     # the main path's own call: batch 1, 0.5B heads, bf16, a 416-slot cache
     # holding 400 keys
-    q, k, v = draw(1, 14, 2, 64, 416, torch.bfloat16)
-    ln = torch.tensor([400], dtype=torch.int32, device="cuda")
-    err, ratio = compare(decode_attention(q, k, v, ln),
-                         decode_attention_reference(q, k, v, ln),
-                         K2_TOL[torch.bfloat16], "K2 main-path call")
-    max_abs = max(max_abs, err)
-    call = lambda: decode_attention(q, k, v, ln)
-    ms = time_ms(call, reps=50)
-    k_ms = kernel_time_ms(call, reps=50)
-    h_us = host_us(call)
-    plain_ms = time_ms(lambda: decode_attention_reference(q, k, v, ln), reps=50)
-    mask = (torch.arange(416, device="cuda")[None, :] < ln[:, None])[:, None, None, :]
-    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-        q.view(1, 14, 1, 64), k.transpose(1, 2), v.transpose(1, 2),
-        attn_mask=mask, enable_gqa=True)
-    lib_ms = time_ms(sdpa, reps=50)
-    lib_k_ms = kernel_time_ms(sdpa, reps=50)
-    bound = attn_bound_ms(q, ln, 2, 2)
+    pt = _k2_point(gen, 1, 14, 2, 64, 416, 400)
+    max_abs = max(max_abs, pt["err"])
     log("K2", f"main-path call (B=1, 14/2/64 bf16, S_max=416, length 400, "
               f"split {split_size(1, 2, 64, 416, torch.bfloat16)} keys): "
-              f"max_abs_err {err:.3e}; kernel time {fmt_ms(k_ms)} (profiler, one "
-              f"launch), {ms:.4f} ms a call by events, wrapper host "
-              f"{h_us:.2f} us a call; bound {bound * 1e3:.4f} us (bytes); plain "
-              f"{plain_ms:.4f} ms; scaled_dot_product_attention kernel time "
-              f"{fmt_ms(lib_k_ms)}, {lib_ms:.4f} ms a call by events")
-    return max_abs, dict(ms=ms, kernel_ms=k_ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, library_kernel_ms=lib_k_ms,
-                         bound_ms=bound, host_us=h_us)
+              f"max_abs_err {pt['err']:.3e}; kernel time "
+              f"{fmt_ms(pt['kernel_ms'])} (profiler, one launch), "
+              f"{pt['ms']:.4f} ms a call by events, wrapper host "
+              f"{pt['host_us']:.2f} us a call; bound "
+              f"{pt['bound_ms'] * 1e3:.4f} us (bytes); plain "
+              f"{pt['plain_ms']:.4f} ms; scaled_dot_product_attention kernel "
+              f"time {fmt_ms(pt['library_kernel_ms'])}, "
+              f"{pt['library_ms']:.4f} ms a call by events")
+    return max_abs, {k: pt[k] for k in ("ms", "kernel_ms", "plain_ms",
+                                        "library_ms", "library_kernel_ms",
+                                        "bound_ms", "host_us")}
 
 
 def kernel_profile(fn, reps: int = 20):
@@ -528,7 +588,7 @@ def phase_k3(gen):
         return f"{err:.3e} (ratio {ratio:.3f})"
 
     s_cap = 4096
-    for hq, hkv, d in ((14, 2, 64), (12, 2, 128), (28, 4, 128)):
+    for hq, hkv, d in K_GEOMETRIES:
         for dtype in (torch.bfloat16, torch.float32):
             for page in (8, 64, 128):
                 geo = f"{hq}/{hkv}/{d} {str(dtype)[6:]} page {page}"
@@ -537,7 +597,9 @@ def phase_k3(gen):
                 # leave whole splits empty; row 6 is a pad row (table all
                 # -1, reads page 0)
                 split = split_size(1, hkv, d, s_cap, dtype)
-                lens = [1, split - 1, split, split + 1, 2 * split + 7, s_cap, 5]
+                lens = [min(n, s_cap) for n in (1, split - 1, split,
+                                                split + 1, 2 * split + 7,
+                                                s_cap, 5)]
                 args = _k3_case(gen, rng, hq, hkv, d, page, lens, dtype,
                                 width=s_cap // page, pad_rows=(6,))
                 q, kp, vp, tables, lengths = args
@@ -842,13 +904,15 @@ def _check_replay(phase, what, engine, prompt, image, text, system=None):
             f"{TIE_ULPS})")
 
 
-def _step_profile(engine, rng):
-    """Steady-state decode at the serve phase's batch and lengths: 8 rows
-    of 330-370 tokens, text only, greedy, 8-token chunks; the scheduler's
-    pool (256 pages of 64, each row's pages scattered over it) against a
-    dense cache of the same rows. Step ms by the host clock from dispatch
-    to the host read (the scheduler's own measure), over passes in the
-    order paged, dense, dense, paged; then one profiled pass of each:
+def _step_profile(engine, rng, b=8, lengths=(330, 371), pool=256,
+                  n_chunks=4):
+    """Steady-state decode at a serving batch: ``b`` rows of ``lengths``
+    (low, high + 1) tokens (the serve phase's: 8 rows of 330-370), text
+    only, greedy, the engine's chunks; the scheduler's pool (``pool`` pages
+    of 64, each row's pages scattered over it) against a dense cache of the
+    same rows. Step ms by the host clock from dispatch to the host read
+    (the scheduler's own measure), over passes of ``n_chunks`` chunks in
+    the order paged, dense, dense, paged; then one profiled pass of each:
     kernels, device ms and attention-kernel ms a step (K3 paged, K2
     dense)."""
     import dataclasses
@@ -861,8 +925,8 @@ def _step_profile(engine, rng):
     from fastvlm_tpu_torch.ops.sampling import RowSampling, SamplingParams
 
     dec = engine.cfg.decoder
-    b, k, page, pool = 8, engine.chunk, 64, 256
-    lengths = rng.randint(330, 371, size=b).astype(np.int32)
+    k, page = engine.chunk, 64
+    lengths = rng.randint(*lengths, size=b).astype(np.int32)
     span = -(-(int(lengths.max()) + 5 * k) // page)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
@@ -900,7 +964,8 @@ def _step_profile(engine, rng):
     step_ms = {"paged": [], "dense": []}
     with torch.inference_mode():
         for name in ("paged", "dense", "dense", "paged"):
-            step_ms[name].append(statistics.median(chunks(caches[name], 4)) / k)
+            step_ms[name].append(
+                statistics.median(chunks(caches[name], n_chunks)) / k)
         prof_out = {}
         for name, cache in caches.items():
             chunks(cache, 0)
@@ -1423,9 +1488,6 @@ def _spec_pass_profile(engine, image):
     pass / step, and K2's launches in the passes."""
     import dataclasses
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from fastvlm_tpu_torch.models import vlm
     from fastvlm_tpu_torch.ops.kv_cache import init_cache
 
@@ -1483,20 +1545,8 @@ def _spec_pass_profile(engine, image):
             else:
                 ms = steps(8)
             wall[what] += ms
-        prof = {}
-        for what, fn in (("pass", lambda: passes(4)), ("step", lambda: steps(4))):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as pr:
-                fn()
-                torch.cuda.synchronize()
-            rows = [e for e in pr.key_averages()
-                    if e.device_type == DeviceType.CUDA]
-            prof[what] = {
-                "launches": sum(e.count for e in rows) / 4,
-                "device_ms": sum(e.self_device_time_total for e in rows) / 4
-                / 1000,
-                "k2": sum(e.count for e in rows if "decode_kernel" in e.key)
-                / 4}
+        prof = {what: _cuda_step_profile(fn, 4) for what, fn in
+                (("pass", lambda: passes(4)), ("step", lambda: steps(4)))}
     return {"wall_ms": {w: statistics.median(v) for w, v in wall.items()},
             "tokens_per_pass": committed / 16, "profile": prof}
 
@@ -1855,6 +1905,61 @@ def _beam_score_replay(engine, prompt, image, toks):
     return float(total)
 
 
+def _greedy_decoder(engine, prompt, image):
+    """Batch-1 greedy decoding after ``prompt``'s prefill, as two closures
+    (call them under ``torch.inference_mode``): ``prefilled(steps)`` ->
+    (logits, cache) with room for ``steps`` more tokens, and
+    ``greedy(logits, cache, steps)``, which runs ``steps // engine.chunk``
+    decode chunks and reads each chunk's tokens on the host."""
+    from fastvlm_tpu_torch.models import vlm
+    from fastvlm_tpu_torch.ops.kv_cache import init_cache
+    from fastvlm_tpu_torch.ops.sampling import SamplingParams
+
+    cfg, dec, k = engine.cfg, engine.cfg.decoder, engine.chunk
+    inputs = engine.prepare(prompt, image)
+    t = inputs["ids"].shape[1]
+
+    def prefilled(steps):
+        cache = init_cache(dec.num_layers, 1, t + steps, dec.num_kv_heads,
+                           dec.head_dim, torch.bfloat16, "cuda")
+        return vlm.prefill(engine.params, cfg, inputs["images"],
+                           inputs["ids"], inputs["lens"], inputs["starts"],
+                           cache)
+
+    def greedy(logits, cache, steps):
+        tok = logits.argmax(-1).to(torch.int32)
+        done = torch.zeros((1,), dtype=torch.bool, device="cuda")
+        for _ in range(steps // k):
+            toks, done, tok, cache = vlm.decode_chunk(
+                engine.params, cfg, tok, done, cache, None, k=k,
+                eos_ids=(-1,), sampling=SamplingParams())
+            toks.cpu()
+
+    return prefilled, greedy
+
+
+def _cuda_step_profile(fn, steps):
+    """One profiled call of ``fn`` (``steps`` decode steps or passes) on the
+    card: launches, device ms, K2 / K3 launches and their ms, each a
+    step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as pr:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in pr.key_averages() if e.device_type == DeviceType.CUDA]
+    # K2's decode_kernel, K3's paged_decode_kernel
+    attn = [e for e in rows if "decode_kernel" in e.key]
+    return {"launches": sum(e.count for e in rows) / steps,
+            "device_ms": sum(e.self_device_time_total for e in rows)
+            / steps / 1000,
+            "k2": sum(e.count for e in attn) / steps,
+            "k2_ms": sum(e.self_device_time_total for e in attn)
+            / steps / 1000}
+
+
 def _beam_step_profile(engine, image):
     """A beam step (W = 4 rows, one decode_step, the top-2W sort, the
     hypothesis updates and the cache reorder) against a greedy step (batch
@@ -1862,47 +1967,23 @@ def _beam_step_profile(engine, image):
     dispatch to the host read over 32-token runs (in turns beam, greedy,
     greedy, beam, beam, greedy), then one profiled run of 16 steps of each:
     device ms, launches and K2 launches a step."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from fastvlm_tpu_torch.models import vlm
     from fastvlm_tpu_torch.ops.beam import beam_search
-    from fastvlm_tpu_torch.ops.kv_cache import init_cache
-    from fastvlm_tpu_torch.ops.sampling import SamplingParams
 
-    cfg, dec = engine.cfg, engine.cfg.decoder
     with torch.inference_mode():
-        inputs = engine.prepare(engine.build_prompt(SPEC_PROMPTS[0]), image)
-        t = inputs["ids"].shape[1]
-
-        def prefilled():
-            cache = init_cache(dec.num_layers, 1, t + BEAM_NEW,
-                               dec.num_kv_heads, dec.head_dim,
-                               torch.bfloat16, "cuda")
-            return vlm.prefill(engine.params, cfg, inputs["images"],
-                               inputs["ids"], inputs["lens"],
-                               inputs["starts"], cache)
+        prefilled, greedy = _greedy_decoder(
+            engine, engine.build_prompt(SPEC_PROMPTS[0]), image)
 
         def beam(logits, cache, steps):
-            res = beam_search(engine.params, cfg, logits, cache,
+            res = beam_search(engine.params, engine.cfg, logits, cache,
                               num_beams=BEAM_W, max_new_tokens=steps + 1,
                               eos_ids=engine.eos_ids)
             int(res.lengths[0])
-
-        def greedy(logits, cache, steps):
-            tok = logits.argmax(-1).to(torch.int32)
-            done = torch.zeros((1,), dtype=torch.bool, device="cuda")
-            for _ in range(steps // engine.chunk):
-                toks, done, tok, cache = vlm.decode_chunk(
-                    engine.params, cfg, tok, done, cache, None,
-                    k=engine.chunk, eos_ids=(-1,), sampling=SamplingParams())
-                toks.cpu()
 
         fns = {"beam": (beam, BEAM_NEW - 1), "greedy": (greedy, BEAM_NEW)}
         wall = {"beam": [], "greedy": []}
         for what in ("beam", "greedy", "greedy", "beam", "beam", "greedy"):
             fn, steps = fns[what]
-            logits, cache = prefilled()
+            logits, cache = prefilled(BEAM_NEW)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn(logits, cache, steps)
@@ -1910,19 +1991,9 @@ def _beam_step_profile(engine, image):
         prof = {}
         steps = engine.chunk
         for what, (fn, _) in fns.items():
-            logits, cache = prefilled()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as pr:
-                fn(logits, cache, steps)
-                torch.cuda.synchronize()
-            rows = [e for e in pr.key_averages()
-                    if e.device_type == DeviceType.CUDA]
-            prof[what] = {
-                "launches": sum(e.count for e in rows) / steps,
-                "device_ms": sum(e.self_device_time_total for e in rows)
-                / steps / 1000,
-                "k2": sum(e.count for e in rows if "decode_kernel" in e.key)
-                / steps}
+            logits, cache = prefilled(BEAM_NEW)
+            prof[what] = _cuda_step_profile(
+                lambda: fn(logits, cache, steps), steps)
     return {"wall_ms": {w: statistics.median(v) for w, v in wall.items()},
             "wall_all": wall, "profile": prof}
 
@@ -2511,6 +2582,567 @@ def phase_anyres(card):
             "drain_ms": drain_ms, "wait_ms": wait_ms}
 
 
+# ---------------------------------------------------------------------------
+# LLaVA-1.5-7B (CLIP ViT-L/14-336 + mlp2x_gelu + Vicuna-7B) and the worker
+# ---------------------------------------------------------------------------
+
+LLAVA_NEW = 32
+LLAVA_PROMPTS = ["Describe the image.", "What is in the picture?",
+                 "Describe the scene in detail.", "What colour dominates?"]
+LLAVA_S2 = (336, 672, 1008)
+
+
+def _greedy_step_profile(engine, prompt, image, chunks=2):
+    """A batch-1 greedy decode step after ``prompt``'s prefill: wall ms a
+    step from dispatch to the host read over two runs of ``chunks`` chunks,
+    then one profiled chunk (the prefill outside the profile): device ms,
+    launches, K2 launches and K2 ms a step."""
+    k = engine.chunk
+    with torch.inference_mode():
+        prefilled, greedy = _greedy_decoder(engine, prompt, image)
+        wall = []
+        for _ in range(2):
+            logits, cache = prefilled(chunks * k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            greedy(logits, cache, chunks * k)
+            wall.append((time.perf_counter() - t0) * 1000 / (chunks * k))
+        logits, cache = prefilled(k)
+        prof = _cuda_step_profile(lambda: greedy(logits, cache, k), k)
+    return {"wall_ms": wall, **prof}
+
+
+def _tree_stats(tree):
+    """(parameter count, bytes) of a params tree."""
+    ts = list(_leaves(tree).values())
+    return sum(t.numel() for t in ts), sum(t.numel() * t.element_size()
+                                           for t in ts)
+
+
+def phase_llava15(card):
+    """LLaVA-1.5-7B at full width: CLIP ViT-L/14-336 (penultimate layer,
+    576 patch tokens of 1024 channels), mlp2x_gelu 1024 -> 4096 and
+    Vicuna-7B (llama_7b: 32 layers, 32/32/128), bf16, random weights from a
+    seed, the byte tokenizer, template v1."""
+    from fastvlm_tpu_torch import config as C
+    from fastvlm_tpu_torch.engine import Engine
+    from fastvlm_tpu_torch.models import clip_vit, projector, qwen2, vlm
+
+    t_phase = time.perf_counter()
+    vision = clip_vit.CLIPViTConfig()
+    decoder = C.llama_7b(param_dtype="bfloat16", compute_dtype="bfloat16")
+    cfg = C.FastVLMConfig(
+        vision=vision, decoder=decoder,
+        projector=C.ProjectorConfig(mm_hidden_size=vision.out_hidden_size,
+                                    hidden_size=decoder.hidden_size))
+    if (cfg.num_image_tokens, vision.out_channels) != (576, 1024):
+        raise AssertionError(f"CLIP ViT-L/14-336 geometry: "
+                             f"{cfg.num_image_tokens} tokens of "
+                             f"{vision.out_channels}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    t0 = time.perf_counter()
+    params = {"vision": clip_vit.init(gen, vision, "cuda",
+                                      dtype=torch.bfloat16),
+              "projector": projector.init(gen, cfg.projector, "cuda"),
+              "decoder": qwen2.init(gen, decoder, "cuda")}
+    params["decoder"] = qwen2.fuse_decoder_params(params["decoder"], decoder)
+    engine = Engine(cfg, params, IdTokenizer(), conv_mode="v1")
+    torch.cuda.synchronize()
+    counts = {k: _tree_stats(v) for k, v in params.items()}
+    log("llava15", f"LLaVA-1.5-7B built on the card in "
+                   f"{time.perf_counter() - t0:.1f} s: tower "
+                   f"{counts['vision'][0] / 1e6:.1f} M params, projector "
+                   f"{counts['projector'][0] / 1e6:.1f} M, decoder "
+                   f"{counts['decoder'][0] / 1e9:.3f} B ("
+                   f"{counts['decoder'][1] / 2 ** 30:.2f} GiB); device memory "
+                   f"allocated {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+                   f"GiB")
+    images = [_scene(336, 336, 40 + i) for i in range(len(LLAVA_PROMPTS) + 1)]
+    prompts = [engine.build_prompt(p) for p in LLAVA_PROMPTS]
+
+    # the tower's features are alive (finite, non-zero) and the image
+    # moves the answer: another image, other first-token logits
+    with torch.inference_mode():
+        x = engine.prepare_array_image(images[0])
+        feats = clip_vit.features(engine.params["vision"], x, vision)
+    if feats.shape != (1, 576, 1024) or not bool(torch.isfinite(feats).all()):
+        raise AssertionError(f"CLIP features {tuple(feats.shape)} or "
+                             f"non-finite")
+    mean_abs = float(feats.float().abs().mean())
+    if mean_abs == 0.0:
+        raise AssertionError("CLIP features are all zero")
+    _, first_a = _replay_ids(engine, prompts[0], images[0], 1)
+    _, first_b = _replay_ids(engine, prompts[0], images[-1], 1)
+    moved = float((first_a - first_b).abs().max())
+    if moved == 0.0:
+        raise AssertionError("another image left the first-token logits "
+                             "unchanged")
+    log("llava15", f"tower features (1, 576, 1024) finite, mean |x| "
+                   f"{mean_abs:.4f}; another image moves the first-token "
+                   f"logits by up to {moved:.4f}")
+
+    # 4 greedy requests of 32 tokens (the first cold)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    results = [engine.generate(p, img, max_new_tokens=LLAVA_NEW)
+               for p, img in zip(prompts, images)]
+    launches = _launches()
+    k1, k2, k3 = (int(n) for n in launches)
+    steps = sum(st["decode_steps"] for _, st in results)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    for n, (text, st) in enumerate(results):
+        log("llava15", f"request {n}: ttft {st['ttft_ms']:.2f} ms, "
+                       f"{st['decode_tokens']} tokens at {st['tok_per_s']:.2f} "
+                       f"tok/s, {st['decode_steps']} steps, prompt "
+                       f"{st['prompt_tokens']} tokens; ids {text[:60]}...")
+    if k1 != 0 or k3 != 0 or steps == 0 \
+            or k2 != decoder.num_layers * steps:
+        raise AssertionError(f"K1 {k1} (expected 0: CLIP has none), K2 {k2} "
+                             f"for {steps} steps (expected "
+                             f"{decoder.num_layers} a step), K3 {k3} "
+                             f"(expected 0: a dense cache)")
+    if results[0][1]["prompt_tokens"] < cfg.num_image_tokens:
+        raise AssertionError(f"prompt of {results[0][1]['prompt_tokens']} "
+                             f"tokens holds no 576-token image span")
+    for n in (0, 3):
+        _check_replay("llava15", f"request {n}", engine, LLAVA_PROMPTS[n],
+                      images[n], results[n][0])
+    warm = results[1:]
+    ttft = [st["ttft_ms"] for _, st in warm]
+    tps = statistics.mean(st["tok_per_s"] for _, st in warm)
+    log("llava15", f"launch counts: K1 {k1}, K2 {k2} = {decoder.num_layers} "
+                   f"x {steps} steps, K3 {k3}; warm TTFT {[round(t, 3) for t in ttft]} "
+                   f"ms (median {statistics.median(ttft):.3f}), decode "
+                   f"{tps:.2f} tok/s; peak device memory {peak_gb:.2f} GiB on "
+                   f"{card}")
+
+    # tower + projector, one image, by events and kernel time
+    with torch.inference_mode():
+        enc = lambda: vlm.encode_images(engine.params, cfg, x)
+        enc_ms = time_ms(enc, reps=10)
+        enc_k_ms = kernel_time_ms(enc, reps=5)
+    step = _greedy_step_profile(engine, prompts[0], images[0])
+    log("llava15", f"tower + projector (576 tokens -> 4096): {enc_ms:.3f} ms "
+                   f"by events, {fmt_ms(enc_k_ms)} of kernels; a decode step: "
+                   f"{step['wall_ms'][0]:.3f} / {step['wall_ms'][1]:.3f} ms "
+                   f"wall (two runs), {step['device_ms']:.4f} ms of device "
+                   f"time, {step['launches']:.1f} launches, K2 "
+                   f"{step['k2']:.1f} launches and {step['k2_ms']:.4f} ms "
+                   f"(profiler) on {card}")
+
+    # K2 at 32/32/128 against its plain version at the phase's cache: B = 1
+    # and B = 4 rows of the cached length
+    plen = results[0][1]["prompt_tokens"]
+    s_max = -(-(plen + 1) // engine.bucket) * engine.bucket + LLAVA_NEW
+    k2pts = {}
+    for b in (1, 4):
+        pt = _k2_point(gen, b, 32, 32, 128, s_max, plen + LLAVA_NEW // 2)
+        k2pts[b] = pt
+        share = ("not measured" if pt["kernel_ms"] is None
+                 else f"{pt['bound_ms'] / pt['kernel_ms']:.4f}")
+        log("llava15", f"K2 32/32/128 bf16 B={b}, S_max {s_max}, length "
+                       f"{plen + LLAVA_NEW // 2}: max_abs_err {pt['err']:.3e} "
+                       f"(tol ratio {pt['ratio']:.3f} <= 1); kernel time "
+                       f"{fmt_us(pt['kernel_ms'])}, {pt['ms']:.4f} ms a call "
+                       f"by events; bound {pt['bound_ms'] * 1e3:.4f} us "
+                       f"(bytes), share {share}; plain {pt['plain_ms']:.4f} "
+                       f"ms; scaled_dot_product_attention kernel time "
+                       f"{fmt_us(pt['library_kernel_ms'])}, "
+                       f"{pt['library_ms']:.4f} ms a call")
+
+    # S2 (336/672/1008): 1 + 4 + 9 crops, 3072 channels; its first scale is
+    # the single-scale features
+    s2cfg = dataclasses.replace(vision, s2_scales=LLAVA_S2)
+    with torch.inference_mode():
+        s2 = clip_vit.features_s2(engine.params["vision"], x, s2cfg)
+        s2_ms = time_ms(lambda: clip_vit.features_s2(
+            engine.params["vision"], x, s2cfg), reps=5, warmup=1)
+    if s2.shape != (1, 576, 3072) or not bool(torch.isfinite(s2).all()):
+        raise AssertionError(f"S2 features {tuple(s2.shape)} or non-finite")
+    s2_err, s2_ratio = compare(s2[..., :1024], feats, K2_TOL[torch.bfloat16],
+                               "S2's first scale vs the single-scale features")
+    log("llava15", f"S2 {LLAVA_S2}: (1, 576, 3072) finite in {s2_ms:.3f} ms "
+                   f"by events (14 crops); its first 1024 channels vs the "
+                   f"single-scale features: max_abs_err {s2_err:.3e} "
+                   f"(bitwise {bool(torch.equal(s2[..., :1024], feats))}; "
+                   f"tol atol=rtol=1e-2, ratio {s2_ratio:.3f}); phase "
+                   f"{time.perf_counter() - t_phase:.1f} s")
+    return {"engine": engine, "images": images, "launches": launches,
+            "k2_err": max(pt["err"] for pt in k2pts.values()), "k2": k2pts,
+            "ttft_ms": ttft, "tok_s": tps, "encode_ms": enc_ms,
+            "encode_kernel_ms": enc_k_ms, "step": step, "s2_ms": s2_ms}
+
+
+def _png_b64(arr):
+    import base64
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def _pil_of(b64):
+    import base64
+    import io
+
+    from PIL import Image
+
+    return Image.open(io.BytesIO(base64.b64decode(b64))).convert("RGB")
+
+
+def _launches():
+    from fastvlm_tpu_torch.ops.cuda.decode_attention import decode_attention
+    from fastvlm_tpu_torch.ops.cuda.ffn import fused_ffn
+    from fastvlm_tpu_torch.ops.cuda.paged_decode_attention import (
+        paged_decode_attention)
+
+    return np.array([fused_ffn.launches, decode_attention.launches,
+                     paged_decode_attention.launches])
+
+
+def _zero_launches():
+    from fastvlm_tpu_torch.ops.cuda.decode_attention import decode_attention
+    from fastvlm_tpu_torch.ops.cuda.ffn import fused_ffn
+    from fastvlm_tpu_torch.ops.cuda.paged_decode_attention import (
+        paged_decode_attention)
+
+    fused_ffn.launches = 0
+    decode_attention.launches = 0
+    paged_decode_attention.launches = 0
+
+
+SOAK_TEMPLATE = ("You are a meticulous visual assistant. Answer precisely "
+                 "and cite what you can see. ")
+
+
+def phase_worker(card, engine, llava, llava_images):
+    """ModelWorker in process (no controller, no HTTP: the card's machine
+    has no aiohttp), driven through generate_stream as the HTTP routes pump
+    it: (a) serially over phase main's 0.5B engine, (b) with continuous
+    batching over it (warmup, then the soak plan of
+    scripts/soak_serving.py at n = 16), (c) with continuous batching over
+    LLaVA-1.5-7B (4 concurrent image requests)."""
+    from fastvlm_tpu_torch.serve.protocol import ErrorCode, iter_chunks
+    from fastvlm_tpu_torch.serve.worker import (
+        ModelWorker, _openai_to_worker_payload)
+    from fastvlm_tpu_torch.utils.logging import profile_trace
+
+    t_phase = time.perf_counter()
+    layers = engine.cfg.decoder.num_layers
+    k1_per = sum(engine.cfg.vision.layers)  # K1 launches an image: 44
+
+    def stream(w, payload, cancel=None):
+        return list(iter_chunks(w.generate_stream(payload, cancel=cancel)))
+
+    # (a) serial
+    w = ModelWorker(engine, "fastvlm-0.5b")
+    b64 = _png_b64(np.random.RandomState(21).randint(0, 256, (1024, 1024, 3),
+                                                     dtype=np.uint8))
+    image = _pil_of(b64)
+    prompt = engine.build_prompt("Describe the image.")
+    native = {"prompt": prompt, "images": [b64], "temperature": 0.0,
+              "max_new_tokens": 32}
+    _zero_launches()
+    plain = stream(w, native)
+    serial_l = _launches()
+    spec = stream(w, {**native, "spec": True})
+    spec_l = _launches() - serial_l
+    body = {"messages": [{"role": "user", "content": [
+        {"type": "image_url", "image_url": {"url": "data:image/png;base64,"
+                                            + b64}},
+        {"type": "text", "text": "Describe the image."}]}],
+        "max_tokens": 32, "temperature": 0}
+    payload = _openai_to_worker_payload(body, w)
+    before = _launches()
+    openai = stream(w, payload)
+    openai_l = _launches() - before
+    bad = stream(w, {**native, "spec": True, "temperature": 0.7})
+    worker_l = _launches()
+    want = engine.generate(prompt, image, max_new_tokens=32)[0]
+    want_spec = None
+    for u in engine.stream(prompt, image, max_new_tokens=32, spec=True):
+        want_spec = u["text"]
+    for what, msgs in (("plain", plain), ("spec", spec), ("openai", openai)):
+        if not msgs or any(m["error_code"] != ErrorCode.OK for m in msgs):
+            raise AssertionError(f"worker {what}: {msgs[-1:]}")
+    steps = plain[-1]["stats"]["decode_steps"] \
+        + openai[-1]["stats"]["decode_steps"]
+    if plain[-1]["text"] != want:
+        raise AssertionError("the worker's text differs from "
+                             "engine.generate's")
+    if spec[-1]["text"] != want_spec:
+        raise AssertionError("the spec payload's text differs from "
+                             "engine.stream(spec=True)'s")
+    if payload["prompt"] != prompt or openai[-1]["text"] != want:
+        raise AssertionError("the OpenAI body's text differs from the native "
+                             "payload's")
+    if len(bad) != 1 or bad[0]["error_code"] != ErrorCode.CLIENT_ERROR:
+        raise AssertionError(f"spec with temperature > 0: {bad}")
+    if tuple(serial_l) != (k1_per, layers
+                           * plain[-1]["stats"]["decode_steps"], 0) \
+            or spec_l[0] != k1_per or spec_l[1] != 0 \
+            or tuple(openai_l) != (k1_per, layers
+                                   * openai[-1]["stats"]["decode_steps"], 0):
+        raise AssertionError(f"worker launches: plain {serial_l}, spec "
+                             f"{spec_l}, openai {openai_l}")
+    log("worker", f"(a) serial over the 0.5B engine: the streamed text of a "
+                  f"base64 PNG payload equals engine.generate's ({len(plain)} "
+                  f"chunks, ttft {plain[-1]['stats']['ttft_ms']} ms); the "
+                  f"spec payload's equals engine.stream(spec=True)'s "
+                  f"({spec[-1]['stats'].get('spec_steps')} verify passes; "
+                  f"{'the same as' if spec[-1]['text'] == want else 'other than'}"
+                  f" the plain text); spec + temperature 0.7 gave one "
+                  f"CLIENT_ERROR chunk; the OpenAI body (a data: URI image) "
+                  f"gave the native payload's text; launches K1/K2/K3 "
+                  f"{tuple(int(n) for n in worker_l)} = {k1_per} x 3 "
+                  f"requests, "
+                  f"{layers} x {steps} plain steps, 0")
+
+    # utils/logging.profile_trace over one more serial request (outside the
+    # counted run): its Chrome trace holds the card's kernels, K2's among
+    # them (a profiler session now and then records no device activity:
+    # up to 3 tries)
+    for _ in range(3):
+        with tempfile.TemporaryDirectory() as tmp:
+            with profile_trace(tmp) as path:
+                traced = stream(w, {**native, "max_new_tokens": 8})
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        kern = [e for e in events if e.get("cat") == "kernel"]
+        k2_ev = sum("decode_kernel" in e.get("name", "") for e in kern)
+        if k2_ev:
+            break
+    t_steps = traced[-1]["stats"]["decode_steps"]
+    if traced[-1]["error_code"] != ErrorCode.OK or not k2_ev:
+        raise AssertionError(f"profile_trace: {len(kern)} kernel events, "
+                             f"K2 {k2_ev}; last chunk {traced[-1]}")
+    log("worker", f"profile_trace over an 8-token request: a Chrome trace of "
+                  f"{len(events)} events, {len(kern)} of them kernels on the "
+                  f"card, K2 {k2_ev} (expected {layers} x {t_steps} steps = "
+                  f"{layers * t_steps})")
+
+    # (b) continuous batching over the 0.5B engine: warmup, then the soak
+    w = ModelWorker(engine, "fastvlm-0.5b", continuous_batching=True)
+    sched = w.scheduler
+    rng = np.random.RandomState(22)
+    simg = _png_b64(rng.randint(0, 256, (1024, 1024, 3), dtype=np.uint8))
+
+    def plan(i):
+        cancel = i % 7 == 3
+        return dict(
+            prompt=engine.build_prompt(
+                (SOAK_TEMPLATE if i % 2 == 0 else "") + f"describe scene {i}"),
+            images=[simg] if i % 4 == 0 else [],
+            max_new=96 if cancel else (16, 48, 96)[i % 3],
+            temperature=0.8 if i % 5 == 1 else 0.0, cancel=cancel)
+
+    plans = [plan(i) for i in range(16)]
+    plen = max(engine.prepare(pl["prompt"], _pil_of(simg) if pl["images"]
+                              else None)["prompt_tokens"] for pl in plans)
+    t0 = time.perf_counter()
+    n_warm = sched.warmup(prompt_len=plen, max_new_tokens=96)
+    warm_s = time.perf_counter() - t0
+    if n_warm != 7 or sched.counters or \
+            sched.pool.free_pages != sched.pool.num_pages:
+        raise AssertionError(f"warmup: {n_warm} dispatches, counters "
+                             f"{dict(sched.counters)}, pool "
+                             f"{sched.pool.free_pages}/{sched.pool.num_pages}")
+    _zero_launches()
+    outs = [None] * len(plans)
+    walls = [None] * len(plans)
+
+    def run(i):
+        pl = plans[i]
+        ev = threading.Event()
+        msgs = []
+        t_start = time.perf_counter()
+        for piece in w.generate_stream(
+                {"prompt": pl["prompt"], "images": pl["images"],
+                 "temperature": pl["temperature"], "top_p": 0.9,
+                 "max_new_tokens": pl["max_new"]}, cancel=ev):
+            msgs.extend(iter_chunks([piece]))
+            if pl["cancel"]:
+                ev.set()  # mid-stream: after its first token
+        walls[i] = time.perf_counter() - t_start
+        outs[i] = msgs
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in
+               range(len(plans))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+        time.sleep(0.15)
+    for t in threads:
+        t.join(JOIN_S)
+        if t.is_alive():
+            raise AssertionError("worker soak: a stream did not close")
+    makespan = time.perf_counter() - t0
+    sched.shutdown()
+    status = w.status()
+    counters = dict(sched.counters)
+    soak_l = _launches()
+    n_cancel = 0  # cancels that met a live stream
+    ttfts, tokens = [], 0
+    for i, (pl, msgs) in enumerate(zip(plans, outs)):
+        if not msgs or any(m["error_code"] != ErrorCode.OK for m in msgs):
+            raise AssertionError(f"worker soak request {i}: {msgs[-1:]}")
+        reason = msgs[-1]["stats"].get("finish_reason")
+        tokens += msgs[-1]["stats"]["decode_tokens"]
+        if pl["cancel"] and reason in (None, "cancelled"):
+            n_cancel += 1
+            if len(msgs) > 1:
+                raise AssertionError(f"cancelled request {i} streamed on: "
+                                     f"{len(msgs)} chunks")
+        elif reason not in ("stop", "length", "truncated"):
+            raise AssertionError(f"worker soak request {i}: {reason}")
+        else:
+            ttfts.append(msgs[-1]["stats"]["ttft_ms"])
+    # a cancelled row whose chunk ended it (EOS) before the boundary that
+    # sweeps the cancel closes as finished, uncounted
+    if not 1 <= counters.get("cancelled", 0) <= n_cancel:
+        raise AssertionError(f"{n_cancel} cancels, counters {counters}")
+    if sched.pool.free_pages != sched.pool.num_pages:
+        raise AssertionError(f"worker soak: {sched.pool.free_pages} of "
+                             f"{sched.pool.num_pages} pages free")
+    if status["batching"] != counters or \
+            status["kv_pool"]["num_pages"] != sched.pool.num_pages:
+        raise AssertionError(f"status() {status} against counters {counters}")
+    if soak_l[0] != k1_per * counters["image_prefills"] or soak_l[1] != 0 \
+            or soak_l[2] == 0 or soak_l[2] != layers * counters["decode_steps"]:
+        raise AssertionError(f"worker soak launches K1/K2/K3 {soak_l}, "
+                             f"counters {counters}")
+    log("worker", f"(b) continuous batching over the 0.5B engine: warmup("
+                  f"prompt_len={plen}) {n_warm} dummy dispatches in "
+                  f"{warm_s:.3f} s; soak of {len(plans)} requests (one every "
+                  f"0.15 s; 4 with images, 3 sampled, half with a shared "
+                  f"template prefix, budgets 16/48/96, "
+                  f"{sum(pl['cancel'] for pl in plans)} cancelled "
+                  f"at their first token, {n_cancel} of them while live): "
+                  f"every uncancelled stream closed with error "
+                  f"code 0 and a finish reason, cancels counted "
+                  f"{counters['cancelled']}, pool {sched.pool.free_pages}/"
+                  f"{sched.pool.num_pages} pages free, min free "
+                  f"{sched.pool.min_free}; status() reports the counters; "
+                  f"TTFT median {statistics.median(ttfts):.3f} ms, max "
+                  f"{max(ttfts):.3f} ms; served {tokens} tokens in "
+                  f"{makespan:.3f} s: {tokens / makespan:.3f} tok/s; launches "
+                  f"K1/K2/K3 {tuple(int(n) for n in soak_l)} = {k1_per} x "
+                  f"{counters['image_prefills']} image prefills, 0, {layers} "
+                  f"x {counters['decode_steps']} steps; counters {counters}")
+
+    # (c) continuous batching over LLaVA-1.5-7B: 4 concurrent image
+    # requests, each the engine's serial ids
+    lcfg = llava.cfg
+    llayers = lcfg.decoder.num_layers
+    b64s = [_png_b64(img) for img in llava_images[:len(LLAVA_PROMPTS)]]
+    lprompts = [llava.build_prompt(p) for p in LLAVA_PROMPTS]
+    serial = [llava.generate(p, _pil_of(b), max_new_tokens=LLAVA_NEW)[0]
+              for p, b in zip(lprompts, b64s)]
+    w = ModelWorker(llava, "llava-1.5-7b", continuous_batching=True,
+                    pool_tokens=8192)
+    sched = w.scheduler
+    sched.window_s = 0.25  # gather all four into one batch
+    _zero_launches()
+    outs = [None] * 4
+
+    def run7(i):
+        outs[i] = list(iter_chunks(w.generate_stream(
+            {"prompt": lprompts[i], "images": [b64s[i]], "temperature": 0.0,
+             "max_new_tokens": LLAVA_NEW})))
+
+    threads = [threading.Thread(target=run7, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(JOIN_S)
+        if t.is_alive():
+            raise AssertionError("worker-llava: a stream did not close")
+    counters7 = dict(sched.counters)
+    sched.shutdown()
+    llava_l = _launches()
+    for i, msgs in enumerate(outs):
+        if not msgs or any(m["error_code"] != ErrorCode.OK for m in msgs):
+            raise AssertionError(f"worker-llava request {i}: {msgs[-1:]}")
+        if msgs[-1]["text"] != serial[i]:
+            raise AssertionError(f"worker-llava request {i}: batched ids "
+                                 f"{msgs[-1]['text'][:80]} differ from the "
+                                 f"serial {serial[i][:80]}")
+    if llava_l[0] != 0 or llava_l[1] != 0 \
+            or llava_l[2] != llayers * counters7["decode_steps"]:
+        raise AssertionError(f"worker-llava launches K1/K2/K3 {llava_l}, "
+                             f"counters {counters7}")
+    # the prefix registry (on from 1e9 decoder parameters) pins pages
+    pinned = set() if sched.prefix is None else {
+        p for pages in sched.prefix.entries.values() for p in pages}
+    if sched.pool.free_pages + len(pinned) != sched.pool.num_pages:
+        raise AssertionError(f"worker-llava: {sched.pool.free_pages} free + "
+                             f"{len(pinned)} pinned of {sched.pool.num_pages}")
+    if sched.prefix is not None:
+        sched.prefix.clear()
+    if sched.pool.free_pages != sched.pool.num_pages:
+        raise AssertionError("worker-llava: pages held after clearing the "
+                             "prefix registry")
+    # the batch-4 step of the 7B on the pool against a dense cache, and K3
+    # at that call against its plain version and its bound
+    plen7 = llava.prepare(lprompts[0], _pil_of(b64s[0]))["prompt_tokens"]
+    prof = _step_profile(llava, np.random.RandomState(23), b=4,
+                         lengths=(plen7, plen7 + LLAVA_NEW), pool=64,
+                         n_chunks=2)
+    p, dn = prof["profile"]["paged"], prof["profile"]["dense"]
+    from fastvlm_tpu_torch.ops.cuda.paged_decode_attention import (
+        paged_decode_attention, paged_decode_attention_reference)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(24)
+    lens = [plen7 + i for i in range(4)]
+    args = _k3_case(gen, np.random.RandomState(25), 32, 32, 128, 64, lens,
+                    torch.bfloat16, pool_pages=65,
+                    width=-(-max(lens) // 64))
+    k3_err, k3_ratio = compare(paged_decode_attention(*args),
+                               paged_decode_attention_reference(*args),
+                               K3_TOL[torch.bfloat16], "K3 32/32/128 B=4")
+    call = lambda: paged_decode_attention(*args)
+    k3_k_ms = kernel_time_ms(call, reps=50)
+    k3_ms = time_ms(call, reps=50)
+    k3_plain = time_ms(lambda: paged_decode_attention_reference(*args), reps=20)
+    k3_bound = attn_bound_ms(args[0], args[4], 32, 2) \
+        + args[3].numel() * 4 / HBM_BPS * 1e3
+    share = "not measured" if k3_k_ms is None else f"{k3_bound / k3_k_ms:.4f}"
+    log("worker", f"(c) continuous batching over LLaVA-1.5-7B: 4 concurrent "
+                  f"image requests of {LLAVA_NEW} greedy tokens, each the "
+                  f"engine's serial ids; counters {counters7}; launches "
+                  f"K1/K2/K3 {tuple(int(n) for n in llava_l)} = 0, 0, "
+                  f"{llayers} x {counters7['decode_steps']} steps")
+    log("worker", f"batch-4 7B step, lengths {prof['lengths']}: paged "
+                  f"{prof['step_ms']['paged'][0]:.3f} / "
+                  f"{prof['step_ms']['paged'][1]:.3f} ms wall, "
+                  f"{p['device_ms']:.4f} ms of device time, "
+                  f"{p['kernels']:.1f} device ops, K3 {p['attn_ms']:.4f} ms in "
+                  f"{p['attn_ops']:.1f} launches a step; dense "
+                  f"{dn['device_ms']:.4f} ms of device time, K2 "
+                  f"{dn['attn_ms']:.4f} ms a step; K3 at the call (B=4, "
+                  f"32/32/128 bf16, page 64, lengths {lens}): max_abs_err "
+                  f"{k3_err:.3e} (tol ratio {k3_ratio:.3f} <= 1), kernel time "
+                  f"{fmt_us(k3_k_ms)}, {k3_ms:.4f} ms a call by events; bound "
+                  f"{k3_bound * 1e3:.4f} us (bytes), share {share}; plain "
+                  f"{k3_plain:.4f} ms; phase {time.perf_counter() - t_phase:.1f}"
+                  f" s on {card}")
+    return {"worker": tuple(int(n) for n in worker_l),
+            "batch": tuple(int(n) for n in soak_l),
+            "llava": tuple(int(n) for n in llava_l),
+            "k3_err": k3_err, "warmup": (n_warm, warm_s),
+            "soak_ttft_ms": statistics.median(ttfts),
+            "soak_tok_s": tokens / makespan,
+            "k3": dict(kernel_ms=k3_k_ms, ms=k3_ms, plain_ms=k3_plain,
+                       bound_ms=k3_bound),
+            "step": prof}
+
+
+
 def phase_small():
     from fastvlm_tpu_torch.engine import Engine, tiny_config
     from fastvlm_tpu_torch.models import vlm
@@ -2690,6 +3322,19 @@ def main() -> int:
                                 main_res.pop("answers"))
     beam_res = phase_beam(card, ckpt_res.pop("engine"), engine)
     anyres_res = phase_anyres(card)
+    # the anyres and serve-1.5b engines are out of scope: give their memory
+    # back before the 7B
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("llava15", f"device memory before the 7B: "
+                   f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+                   f"allocated (phase main's engine)")
+    llava_res = phase_llava15(card)
+    llava = llava_res.pop("engine")
+    worker_res = phase_worker(card, engine, llava, llava_res.pop("images"))
+    del llava
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_small()
 
     kernels = {"kernels": [
@@ -2709,7 +3354,11 @@ def main() -> int:
                               "anyres": anyres_res["anyres_k1"],
                               "multi-image": anyres_res["multi_k1"],
                               "serve-fairness": anyres_res["fair"][0],
-                              "serve-window": anyres_res["window"][0]},
+                              "serve-window": anyres_res["window"][0],
+                              "llava-1.5-7b": int(llava_res["launches"][0]),
+                              "worker": worker_res["worker"][0],
+                              "worker-batch": worker_res["batch"][0],
+                              "worker-llava": worker_res["llava"][0]},
          "max_abs_err": max(k1_err, anyres_res["k1_err"]),
          "ms": k1["ms"], "kernel_ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": "operations",
@@ -2729,16 +3378,27 @@ def main() -> int:
                               "beam": beam_res["k2_launches"],
                               "anyres": anyres_res["anyres_k2"],
                               "multi-image": anyres_res["multi_k2"],
-                              "serve-fairness": anyres_res["fair"][1]},
-         "max_abs_err": max(k2_err, beam_res["k2_max_abs_err"]),
+                              "serve-fairness": anyres_res["fair"][1],
+                              "llava-1.5-7b": int(llava_res["launches"][1]),
+                              "worker": worker_res["worker"][1],
+                              "worker-batch": worker_res["batch"][1],
+                              "worker-llava": worker_res["llava"][1]},
+         "max_abs_err": max(k2_err, beam_res["k2_max_abs_err"],
+                            llava_res["k2_err"]),
          "ms": k2["ms"], "kernel_ms": k2["kernel_ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": "bytes",
          "library_ms": k2["library_ms"],
          "library_kernel_ms": k2["library_kernel_ms"], "host_us": k2["host_us"],
          "timed_as": "one call, B=1, 14/2/64 bf16, S_max 416, length 400; "
                      "ms by events per call; max_abs_err also over the "
-                     "beam's B=4 call; library: "
-                     "scaled_dot_product_attention with enable_gqa"},
+                     "beam's B=4 call and LLaVA-1.5-7B's 32/32/128 calls "
+                     "at B=1 and B=4; library: "
+                     "scaled_dot_product_attention with enable_gqa",
+         "llava_32_32_128": {
+             f"B={b}": {k: pt[k] for k in ("kernel_ms", "ms", "plain_ms",
+                                           "bound_ms", "library_ms",
+                                           "library_kernel_ms")}
+             for b, pt in llava_res["k2"].items()}},
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "fastvlm_tpu_torch/csrc/paged_decode_attention.cu",
          "replaces": "fastvlm_tpu/ops/pallas/decode_attention.py:215",
@@ -2747,15 +3407,22 @@ def main() -> int:
                               "serve-1.5b": serve15_res["k3_launches"],
                               "spec-serve": spec_res["serve_k3"],
                               "serve-fairness": anyres_res["fair"][2],
-                              "serve-window": anyres_res["window"][2]},
-         "max_abs_err": k3_err,
+                              "serve-window": anyres_res["window"][2],
+                              "llava-1.5-7b": int(llava_res["launches"][2]),
+                              "worker": worker_res["worker"][2],
+                              "worker-batch": worker_res["batch"][2],
+                              "worker-llava": worker_res["llava"][2]},
+         "max_abs_err": max(k3_err, worker_res["k3_err"]),
          "ms": k3["ms"], "kernel_ms": k3["kernel_ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": "bytes", "library_ms": None,
          "host_us": k3["host_us"], "dense_k2_kernel_ms": k3["dense_k2_kernel_ms"],
          "timed_as": "one call, B=8, 14/2/64 bf16, page 64, lengths "
                      "400-600, watermark table; ms by events per call; "
                      "launches from the serve phase; dense_k2_kernel_ms: K2 "
-                     "on a dense cache of the same rows, context only"},
+                     "on a dense cache of the same rows, context only; "
+                     "max_abs_err also over the 7B worker's B=4 32/32/128 "
+                     "call",
+         "llava_32_32_128_b4": worker_res["k3"]},
     ]}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,9 +15,12 @@ import json
 import os
 import re
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import TYPE_CHECKING, Any, Dict, Optional, Tuple, Union
 
 import torch
+
+if TYPE_CHECKING:
+    from fastvlm_tpu_torch.models.clip_vit import CLIPViTConfig
 
 # dtype policy names -> torch dtypes
 _DTYPES = {
@@ -196,9 +199,13 @@ def mistral_7b(**kw) -> Qwen2Config:
 @dataclass(frozen=True)
 class FastVLMConfig:
     """Top-level VLM config: vision tower + projector + decoder + token
-    plumbing, with the mm_* keys the reference writes into config.json."""
+    plumbing, with the mm_* keys the reference writes into config.json.
+    The tower is FastViTHD or a CLIP ViT (``models/clip_vit.CLIPViTConfig``,
+    which has the same ``image_size`` / ``grid_size`` / ``num_tokens`` /
+    ``out_channels``)."""
 
-    vision: FastViTConfig = dataclasses.field(default_factory=FastViTConfig)
+    vision: Union[FastViTConfig, "CLIPViTConfig"] = dataclasses.field(
+        default_factory=FastViTConfig)
     projector: ProjectorConfig = dataclasses.field(default_factory=ProjectorConfig)
     decoder: Qwen2Config = dataclasses.field(default_factory=Qwen2Config)
 
@@ -274,7 +281,10 @@ def mpt_decoder_from_hf_dict(d: Dict[str, Any], **overrides) -> Qwen2Config:
 def vlm_config_from_hf_dict(d: Dict[str, Any], **overrides) -> FastVLMConfig:
     """Build a FastVLMConfig from a reference-style HF config.json dict: the
     mm_* keys, the ``mobileclip_l_1024`` tower name whose suffix sets the
-    input resolution, and the llava_mpt model type."""
+    input resolution, and the llava_mpt model type. The tower is always
+    FastViTHD, as in the JAX loader: ``models/builder.py``'s
+    ``build_vision_tower_config`` is not consulted, so no config.json
+    yields a CLIP tower."""
     if d.get("model_type") in ("llava_mpt", "mpt") or "d_model" in d:
         decoder = mpt_decoder_from_hf_dict(d)
     else:

@@ -99,9 +99,13 @@ class Engine:
             raise NotImplementedError("the int8 KV cache is not yet ported, "
                                       "see ROADMAP.md")
         self.cfg = cfg
-        # inference build: fold the layer scales into the adjacent weights
-        # (exact; the FFN kernel then skips its layer-scale multiply)
-        self.params = {**params, "vision": fold_layer_scale(params["vision"])}
+        # inference build: fold FastViTHD's layer scales into the adjacent
+        # weights (exact; the FFN kernel then skips its layer-scale
+        # multiply). A CLIP tower has none.
+        self.params = params
+        if "stages" in params["vision"]:
+            self.params = {**params,
+                           "vision": fold_layer_scale(params["vision"])}
         self.device = params["decoder"]["embed"].device
         self.tokenizer = tokenizer
         self.conv_mode = conv_mode
@@ -558,12 +562,16 @@ def tiny_config():
 
 
 def _with_dtype(cfg: FastVLMConfig, dtype: str) -> FastVLMConfig:
-    """The config with the vision tower's and decoder's param and compute
-    dtypes set to ``dtype`` (the projector computes in its input's)."""
+    """The config with the decoder's param and compute dtypes set to
+    ``dtype``, and the vision tower's where its config has them (FastViTHD;
+    a CLIP tower computes in its input's dtype, which is the decoder's
+    compute dtype, and the projector in its input's)."""
     kw = {"param_dtype": dtype, "compute_dtype": dtype}
+    vision = cfg.vision
+    if hasattr(vision, "compute_dtype"):
+        vision = dataclasses.replace(vision, **kw)
     return dataclasses.replace(
-        cfg, vision=dataclasses.replace(cfg.vision, **kw),
-        decoder=dataclasses.replace(cfg.decoder, **kw))
+        cfg, vision=vision, decoder=dataclasses.replace(cfg.decoder, **kw))
 
 
 def build_engine(model_path: Optional[str] = None, *, random_tiny: bool = False,

@@ -1,6 +1,8 @@
 """FastVLM in PyTorch: vision encode -> projector -> splice -> prefill -> decode.
 
-Counterpart of ``fastvlm_tpu/models/vlm.py`` (FastViTHD towers). The
+Counterpart of ``fastvlm_tpu/models/vlm.py``. The tower is FastViTHD or
+a CLIP ViT (``models/clip_vit.py``, with S2), picked by the vision config's
+type in ``init`` and ``encode_images`` / ``encode_tile_grids``. The
 JAX package compiles prefill and a ``lax.scan`` / ``while_loop`` decode; here
 the same functions run eagerly, and the decode loops are Python loops over
 ``decode_step`` that keep every tensor on the device (the host reads tokens
@@ -38,7 +40,7 @@ from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple, Union
 import torch
 
 from fastvlm_tpu_torch.config import FastVLMConfig, resolve_dtype
-from fastvlm_tpu_torch.models import fastvit, projector, qwen2
+from fastvlm_tpu_torch.models import clip_vit, fastvit, projector, qwen2
 from fastvlm_tpu_torch.ops.kv_cache import KVCache, PagedKVCache, init_cache
 from fastvlm_tpu_torch.ops.sampling import (
     RowSampling, SamplingParams, sample, sample_rows)
@@ -54,9 +56,14 @@ Params = Dict[str, Any]
 def init(gen: torch.Generator, cfg: FastVLMConfig, device="cpu") -> Params:
     """Random params for the whole model, drawn from ``gen`` (a generator on
     ``device``); unpad merges add the ``image_newline`` row separator,
-    N(0, 1/d) in the decoder's param dtype."""
+    N(0, 1/d) in the decoder's param dtype. A CLIP tower is drawn in f32,
+    as the JAX ``vlm.init`` draws it."""
+    if isinstance(cfg.vision, clip_vit.CLIPViTConfig):
+        vision = clip_vit.init(gen, cfg.vision, device)
+    else:
+        vision = fastvit.init(gen, cfg.vision, device)
     params = {
-        "vision": fastvit.init(gen, cfg.vision, device),
+        "vision": vision,
         "projector": projector.init(gen, cfg.projector, device),
         "decoder": qwen2.init(gen, cfg.decoder, device),
     }
@@ -68,17 +75,33 @@ def init(gen: torch.Generator, cfg: FastVLMConfig, device="cpu") -> Params:
     return params
 
 
+def _tower_features(params: Params, cfg: FastVLMConfig,
+                    images: torch.Tensor) -> torch.Tensor:
+    """The tower picked by the vision config's type: FastViTHD, or a CLIP
+    ViT (S2 when ``s2_scales`` is set) -> (B, N, C) features."""
+    if isinstance(cfg.vision, clip_vit.CLIPViTConfig):
+        if cfg.vision.s2_scales:
+            return clip_vit.features_s2(params["vision"], images, cfg.vision)
+        return clip_vit.features(params["vision"], images, cfg.vision)
+    return fastvit.apply(params["vision"], images, cfg.vision)
+
+
 def encode_images(params: Params, cfg: FastVLMConfig,
                   images: torch.Tensor) -> torch.Tensor:
     """images (B, H, W, 3) -> projected vision embeddings (B, N, hidden)."""
-    feats = fastvit.apply(params["vision"], images, cfg.vision)
+    feats = _tower_features(params, cfg, images)
     return projector.apply(params["projector"], feats, cfg.projector)
 
 
 def encode_tile_grids(params: Params, cfg: FastVLMConfig,
                       tiles: torch.Tensor) -> torch.Tensor:
     """Tower + projector over a [global view + tiles] stack (T, S, S, 3) ->
-    (T, h, w, hidden) feature grids, in one tower call."""
+    (T, h, w, hidden) feature grids, in one tower call. FastViTHD only: a
+    CLIP tower raises (the JAX function calls FastViTHD's
+    ``features_grid`` for any tower, so a CLIP tower fails there too)."""
+    if isinstance(cfg.vision, clip_vit.CLIPViTConfig):
+        raise ValueError("anyres tiles need a FastViTHD tower, got a CLIP "
+                         "ViT")
     grids = fastvit.features_grid(params["vision"], tiles, cfg.vision)
     return projector.apply(params["projector"], grids, cfg.projector)
 

@@ -69,7 +69,9 @@ in place too.
     for the next gather.
 
 Held back (constructor knobs; setting one on raises NotImplementedError):
-``chunk_view`` / ``persist_view`` / ``pipeline_depth``, and ``warmup()``.
+``chunk_view`` / ``persist_view`` / ``pipeline_depth``. ``warmup()`` runs
+one dummy dispatch of each kind (its docstring), where the JAX one
+compiles every (batch, view width) program.
 Left out: ``paged=False``, the JAX scheduler's dense per-batch cache, and
 its fallback to it when the pool cannot hold a gathered batch's prompts.
 Here the requests that do not fit wait for the next admission, and a
@@ -122,7 +124,8 @@ import torch
 
 from fastvlm_tpu_torch.models import vlm
 from fastvlm_tpu_torch.ops.cuda.paged_decode_attention import PAGE_SIZES
-from fastvlm_tpu_torch.ops.kv_cache import PagedKVCache, init_paged_cache
+from fastvlm_tpu_torch.ops.kv_cache import (
+    PagedKVCache, init_cache, init_paged_cache)
 from fastvlm_tpu_torch.ops.sampling import (
     RowSampling, SamplingParams, sample, sample_rows)
 from fastvlm_tpu_torch.ops.splice import pad_batch
@@ -410,9 +413,104 @@ class BatchScheduler:
         self.thread = threading.Thread(target=self._loop, daemon=True)
         self.thread.start()
 
-    def warmup(self, *args, **kwargs) -> int:
-        raise NotImplementedError("BatchScheduler.warmup is not yet ported, "
-                                  "see ROADMAP.md")
+    def warmup(self, prompt_len: int = 64, max_new_tokens: int = 256,
+               sampling: Optional[SamplingParams] = None,
+               admission_prefill: bool = True, images: bool = True) -> int:
+        """Run one dummy dispatch of each kind a workload with prompts up to
+        ``prompt_len`` tokens and ``max_new_tokens`` generation meets, so no
+        live request pays a first use: on the card, the kernels' nvcc builds
+        and loads (K3 in the decode chunks, K1 in an image prefill, K2 in
+        the serial path's step), cuBLAS's set-up and the allocator's growth.
+        Call it before the first ``submit``.
+
+        * a decode chunk at each batch bucket {1, 2, 4, 8} up to
+          ``max_batch``, and a speculative chunk at each bucket up to
+          ``spec_max_rows`` when ``spec`` is on and ``sampling`` is greedy
+          (the JAX warmup's decode dispatches at one view bucket: the port
+          has no view buckets);
+        * ``admission_prefill``: a 1-row text prefill at the prompt bucket
+          into the pool, with ``images`` an image prefill too when the
+          bucket holds the image's tokens, and one decode step of the
+          serial path on a dense 1-row cache.
+
+        Every block-table entry is -1, so the writes land in the sink page
+        and the pool is never mapped; the pool, the counters and the
+        scheduler's generator are left as they were. Returns the number of
+        dummy dispatches."""
+        engine = self.engine
+        cfg, dec, dev = engine.cfg, engine.cfg.decoder, engine.device
+        sampling = sampling or SamplingParams()
+        k = engine.chunk
+        spec_on = self.spec and sampling.temperature <= 0.0
+        spec_k = self.spec_draft_k
+        spec_m = max(1, -(-k // (spec_k + 1)))
+        spec_slack = spec_m * (spec_k + 1) + spec_k + 1 if spec_on else 0
+        # the engine pads a prompt (plus its first token) to its bucket
+        pad_to = -(-(max(prompt_len, 1) + 1) // engine.bucket) * engine.bucket
+        pps = min(self.pool.num_pages, -(-(pad_to + max_new_tokens
+                                          + spec_slack) // self.page_size))
+        if self._pool_kv is None:
+            c0 = init_paged_cache(
+                dec.num_layers, 1, self.pool.num_pages, self.page_size, 1,
+                dec.num_kv_heads, dec.head_dim, engine._dtype, dev)
+            self._pool_kv = (c0.k_pages, c0.v_pages)
+        hw = self._hist_width(pad_to + max_new_tokens + spec_slack)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+
+        def blank(nb, width):
+            return PagedKVCache(
+                k_pages=self._pool_kv[0], v_pages=self._pool_kv[1],
+                block_tables=torch.full((nb, width), -1, dtype=torch.int32,
+                                        device=dev),
+                lengths=torch.zeros((nb,), dtype=torch.int32, device=dev))
+
+        def zeros(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        n = 0
+        with torch.inference_mode():
+            for nb in (c for c in (1, 2, 4, 8) if c <= self.max_batch):
+                vlm.decode_chunk(
+                    engine.params, cfg, zeros(nb), zeros(nb, dtype=torch.bool),
+                    blank(nb, pps), gen, k=k, eos_ids=engine.eos_ids,
+                    row_sampling=RowSampling.build([sampling] * nb, nb, dev))
+                self._warm_shapes.add(("plain", nb, k))
+                n += 1
+                if spec_on and nb <= _round_batch(self.spec_max_rows):
+                    carry = vlm.SpecCarry(
+                        last_tok=zeros(nb), done=zeros(nb, dtype=torch.bool),
+                        num=zeros(nb) + 1, cache=blank(nb, pps),
+                        hist=zeros(nb, hw), hist_len=zeros(nb) + 1)
+                    vlm.spec_stream_chunk(
+                        engine.params, cfg, carry, m=spec_m,
+                        max_new_tokens=pps * self.page_size,
+                        eos_ids=engine.eos_ids, draft_k=spec_k,
+                        ngram_n=self.spec_ngram_n)
+                    self._warm_shapes.add(("spec", nb, spec_m, hw))
+                    n += 1
+            if admission_prefill:
+                width = -(-pad_to // self.page_size)
+                s = cfg.vision.image_size
+                kinds = [(None, -1)]
+                if images and pad_to >= cfg.num_image_tokens:
+                    kinds.append((zeros(1, s, s, 3, dtype=engine._dtype), 0))
+                for image, start in kinds:
+                    vlm.prefill(engine.params, cfg, image, zeros(1, pad_to),
+                                torch.tensor([pad_to], dtype=torch.int32,
+                                             device=dev),
+                                torch.tensor([start], dtype=torch.int32,
+                                             device=dev),
+                                blank(1, width))
+                    n += 1
+                dense = init_cache(dec.num_layers, 1, pad_to + k,
+                                   dec.num_kv_heads, dec.head_dim,
+                                   engine._dtype, dev)
+                vlm.decode_step(engine.params, cfg, zeros(1), dense)
+                n += 1
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return n
 
     # ------------- speculative auto-tuner -------------
 

@@ -9,8 +9,8 @@ own dtype. The conversion:
   * conv kernels HWIO (kh, kw, in/groups, out) -> OIHW;
   * 1x1 convs used as matmuls (the ConvFFN's fc1/fc2) -> (in, out) matrices;
   * linears stay (in, out);
-  * scan-stacked leading axes (``stages[i]["blocks"]``, decoder
-    ``layers``) -> one dict per block / layer;
+  * scan-stacked leading axes (``stages[i]["blocks"]``, decoder and CLIP
+    tower ``layers``) -> one dict per block / layer;
   * fused (``qkv``, ``gateup``) and unfused decoder layouts both pass
     through as they are; folded trees (no ``ls`` leaves) and unfolded ones
     both work.
@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from fastvlm_tpu_torch.config import FastVLMConfig, FastViTConfig
+from fastvlm_tpu_torch.models.clip_vit import CLIPViTConfig
 
 Params = Dict[str, Any]
 
@@ -111,6 +112,19 @@ def fastvit_from_jax(tree: Params, cfg: FastViTConfig) -> Params:
             "conv_exp": conv_exp}
 
 
+def clip_from_jax(tree: Params, num_layers: int) -> Params:
+    """The JAX CLIP tower (HWIO patch embedding, scan-stacked layers) -> the
+    port's (OIHW patch embedding, a list of layers)."""
+    out = {k: _tensor(v) for k, v in tree.items()
+           if k not in ("patch_embed", "layers")}
+    out["patch_embed"] = _conv(tree["patch_embed"])
+    out["layers"] = [
+        {k: (_linear_p(v) if isinstance(v, dict) else _tensor(v))
+         for k, v in lp.items()}
+        for lp in _unstack(tree["layers"], num_layers)]
+    return out
+
+
 def projector_from_jax(tree: Params) -> Params:
     return {"layers": [_linear_p(lp) for lp in tree["layers"]]}
 
@@ -130,9 +144,14 @@ def qwen2_from_jax(tree: Params, num_layers: int) -> Params:
 def from_jax_params(np_tree: Params, cfg: FastVLMConfig) -> Params:
     """Whole-model tree {"vision", "projector", "decoder"[, "image_newline"]}
     -> port params (CPU tensors in the source dtypes; move them with
-    ``to_device``)."""
+    ``to_device``). The tower is FastViTHD's or a CLIP ViT's, by the vision
+    config's type."""
+    if isinstance(cfg.vision, CLIPViTConfig):
+        vision = clip_from_jax(np_tree["vision"], cfg.vision.num_layers)
+    else:
+        vision = fastvit_from_jax(np_tree["vision"], cfg.vision)
     out = {
-        "vision": fastvit_from_jax(np_tree["vision"], cfg.vision),
+        "vision": vision,
         "projector": projector_from_jax(np_tree["projector"]),
         "decoder": qwen2_from_jax(np_tree["decoder"], cfg.decoder.num_layers),
     }

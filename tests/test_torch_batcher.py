@@ -736,10 +736,22 @@ def test_unported_knobs_raise(eng, knob):
 
 
 def test_warmup_is_not_ported(eng):
-    sched = BatchScheduler(eng, prefix_cache=None, prefill_chunk=0)
+    """Named for the stub that raised, which warmup() replaced (the name is
+    kept so the test keeps its history): it now runs its dummy dispatches
+    (4 decode chunks, 2 admission prefills, the serial step; the count
+    against the JAX scheduler's is in tests/test_torch_serving.py), maps no
+    page, counts nothing, and a request served after it gets the serial
+    engine's ids."""
+    sched = BatchScheduler(eng, prefix_cache=None, prefill_chunk=0,
+                           page_size=16)
     try:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            sched.warmup()
+        assert sched.warmup(prompt_len=40, max_new_tokens=16) == 7
+        assert sched.pool.free_pages == sched.pool.num_pages
+        assert not sched.counters
+        prompt = eng.build_prompt("Describe the image.")
+        got = list(sched.submit(prompt, _image(0), max_new_tokens=8))
+        assert got[-1]["text"] == eng.generate(prompt, _image(0),
+                                               max_new_tokens=8)[0]
     finally:
         sched.shutdown()
 
