@@ -173,7 +173,38 @@ non-zero):
               7B: 4 concurrent image requests, each its serial ids, K3 32 a
               step; the batch-4 step's wall / device ms and K3 at that call
               (B = 4, 32/32/128) against its plain version and its bound
- 15. small    a small f32 model on the card (kernels) agrees with the same
+ 15. quant    FastVLM-7B (FastViTHD @1024 re-drawn live, mlp2x_gelu 3072 ->
+              3584, Qwen2-7B: 28 layers, 28/4/128, FFN 18944, untied head,
+              vocab 152064) with its decoder drawn in bf16 a layer at a
+              time and quantized at once: int8 weight-only (7b-batch8,
+              7b-caption), W8A8 (7b-batch8-w8a8: the same int8 weights with
+              the a8 marker) and int4 (7b-int4, batch 1). The products at
+              7B's widths against their plain versions (the _int_mm
+              accumulator and W8A8's output bitwise, weight-only within
+              WO_ULPS), _int_mm with a K-major against a row-major weight,
+              and each width's ms (bf16 F.linear, int8, W8A8, int4) at
+              M = 1, 8 and 2560. Per path: 3 batch-1 requests of 32 tokens
+              (TTFT, tok/s; K1 44 a request, K2 28 a step, a replay within
+              the tie margin) and, but for int4, a batch-8 prefill of 8
+              images (TTFT, K1 44) and 32 decode steps (tok/s, K2 28 a
+              step; rows 0 and 7 replayed at batch 1); peak memory. K2 at
+              28/4/128, B = 8 against its plain version, its bound and
+              SDPA. Then the 0.5B decode at int8 and W8A8 (decode-int8,
+              decode-w8a8) beside phase main's bf16 tok/s
+ 16. kv-int8  the 0.5B with kv_cache_dtype="int8": 2 requests (replays;
+              ids beside the bf16 cache's), generate_beam W = 4,
+              generate_spec (replay), VideoQA over two 1080x1920 frames
+              and the first again (equal ids), a BatchScheduler's dense
+              batch of 8 (one prefill, replays of two rows); K2 and K3 0
+              throughout; a batch-8 step's wall / device ms and launches
+              beside the bf16 cache's
+ 17. export   the full-width tower exported on the card
+              (export.export_vision_encoder, torch.export) and loaded back:
+              44 fastvlm::fused_ffn ops, K1 44 launches a call, bitwise
+              equal to eager, ms beside eager; a 1.5B int8 bundle
+              (export.quantize_checkpoint) written, restored onto the card
+              and served: the in-memory quantized engine's ids
+ 18. small    a small f32 model on the card (kernels) agrees with the same
               model on the CPU (plain versions), logits and greedy ids,
               spec_decode's tokens, counts, passes and acceptances, and
               beam_search's tokens, lengths and scores (W = 3, K2 at batch
@@ -856,8 +887,8 @@ def _logit_gaps(row, tok):
 
 def _dense_replay(engine, prompt, image, ids, system=None):
     """Teacher-force ``ids`` through the dense single-request path (full
-    prefill, kernel K2); the (gap, top-1/top-2 gap) of every step, in bf16
-    ulps."""
+    prefill, kernel K2; an int8-KV engine's int8 cache, no kernel); the
+    (gap, top-1/top-2 gap) of every step, in bf16 ulps."""
     from fastvlm_tpu_torch.models import vlm
     from fastvlm_tpu_torch.ops.kv_cache import init_cache
 
@@ -868,7 +899,7 @@ def _dense_replay(engine, prompt, image, ids, system=None):
         t = inputs["ids"].shape[1]
         cache = init_cache(cfg.decoder.num_layers, 1, t + len(ids),
                            cfg.decoder.num_kv_heads, cfg.decoder.head_dim,
-                           torch.bfloat16, "cuda")
+                           engine._kv_dtype, "cuda")
         logits, cache = vlm.prefill(engine.params, cfg, inputs["images"],
                                     inputs["ids"], inputs["lens"],
                                     inputs["starts"], cache)
@@ -3294,6 +3325,709 @@ def phase_small():
                  f"({sched.counters['disp_spec@1']} spec chunks) too")
 
 
+# ---------------------------------------------------------------------------
+# quantized inference, the int8 KV cache, export
+# ---------------------------------------------------------------------------
+
+Q7_NEW = 32      # new tokens a 7B request
+Q7_B = 8         # the 7b-batch8 cells' batch
+Q_PROMPT = "Describe the image."
+# the weight-only product on the card (torch.mm with an f32 result) against
+# its plain version (an f32 matmul): both sum the same exact products in
+# f32, in other orders, then scale and round once to bf16. So they may
+# differ by the f32 summation bound, K * 2^-24 * (|x| @ |w_q|) * scale,
+# plus one bf16 ulp of the result (the two sums may round to neighbours);
+# the check divides each difference by that bound and requires <= 1. Where
+# the sum cancels, the bound is many ulps of the result (the phase prints
+# the largest difference in ulps too)
+WO_ULPS = 1
+# prefill rows of a batch-8 7B request (8 prompts of ~330 tokens): the M of
+# the matmul timings beside decode's 1 and 8
+Q_PREFILL_M = 2560
+
+
+def _q7_decoder_cfg():
+    """Qwen2-7B as FastVLM-7B ships it: 28 layers, 28/4/128, FFN 18944, an
+    untied LM head over the published 152064-entry vocabulary."""
+    from fastvlm_tpu_torch import config as C
+
+    return C.qwen2_7b(vocab_size=152064, param_dtype="bfloat16",
+                      compute_dtype="bfloat16")
+
+
+def _fastvithd_cfg(decoder):
+    """FastViTHD @1024 and mlp2x_gelu 3072 -> the decoder's width, bf16."""
+    from fastvlm_tpu_torch import config as C
+
+    vision = C.FastViTConfig(image_size=1024, param_dtype="bfloat16",
+                             compute_dtype="bfloat16")
+    return C.FastVLMConfig(
+        vision=vision, decoder=decoder,
+        projector=C.ProjectorConfig(mm_hidden_size=vision.out_channels,
+                                    hidden_size=decoder.hidden_size))
+
+
+def _live_encoder(cfg, seed):
+    """(tower, projector) at full width on the card: the tower re-drawn
+    with ``_live_tower`` (the init's 0.02 std leaves its features 0)."""
+    from fastvlm_tpu_torch.models import fastvit, projector
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    tower = _live_tower(fastvit.init(gen, cfg.vision, "cuda"), gen)
+    return tower, projector.init(gen, cfg.projector, "cuda")
+
+
+def _quantized_decoder(dcfg, seed, bits):
+    """The decoder drawn as qwen2.init draws it (bf16, on the card) but a
+    layer at a time: each layer fused (qkv, gateup) and quantized at once,
+    so the 15.2 GB bf16 decoder never exists whole beside its int8 copy."""
+    from fastvlm_tpu_torch.models import qwen2
+    from fastvlm_tpu_torch.ops.quant import quantize_linear
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    embed = (torch.randn((dcfg.vocab_size, dcfg.hidden_size), generator=gen,
+                         device="cuda") * 0.02).to(bf)
+    layers = []
+    for _ in range(dcfg.num_layers):
+        lp = qwen2._layer_init(gen, dcfg, bf, "cuda")
+        lp = qwen2.fuse_decoder_params({"layers": [lp]}, dcfg)["layers"][0]
+        layers.append({k: quantize_linear(v, bits) if isinstance(v, dict)
+                       else v for k, v in lp.items()})
+        del lp
+    head = qwen2._dense(gen, dcfg.hidden_size, dcfg.vocab_size, bf, "cuda",
+                        bias=False)
+    return {"embed": embed, "layers": layers,
+            "final_norm": torch.ones((dcfg.hidden_size,), dtype=bf,
+                                     device="cuda"),
+            "lm_head": quantize_linear(head, bits)}
+
+
+def _with_a8(dec):
+    """The same quantized decoder run W8A8: every quantized linear gains
+    the ``a8`` marker (the JAX bench's ``_add_act_quant``); the weights are
+    shared."""
+    def mark(p):
+        if not (isinstance(p, dict) and "w_q" in p):
+            return p
+        return {**p, "a8": torch.ones(p["scale"].shape[:-1] + (1,),
+                                      dtype=torch.int8, device="cuda")}
+
+    out = {**dec, "layers": [{k: mark(v) for k, v in lp.items()}
+                             for lp in dec["layers"]]}
+    if "lm_head" in dec:
+        out["lm_head"] = mark(dec["lm_head"])
+    return out
+
+
+def _bf16_ulp(x):
+    return torch.exp2(torch.floor(torch.log2(x.float().abs().clamp(
+        min=1e-30))) - 7)
+
+
+def _wo_error(x, p, got, want):
+    """(largest |got - want| over WO_ULPS bf16 ulps plus the f32 summation
+    bound, largest |got - want| in bf16 ulps of want)."""
+    k = x.shape[-1]
+    mag = torch.mm(x.float().abs(), p["w_q"].float().abs()) * p["scale"]
+    bound = WO_ULPS * _bf16_ulp(want) + k * 2.0 ** -24 * mag
+    err = (got.float() - want.float()).abs()
+    return float((err / bound).max()), float((err / _bf16_ulp(want)).max())
+
+
+def _quant_products(dec, card):
+    """The quantized products at 7B's widths against their plain versions
+    (the int8 accumulator exactly; the weight-only output within WO_ULPS),
+    then each width's ms, bf16 F.linear beside int8 weight-only, W8A8 and
+    int4 weight-only, at M = 1, 8 and the batch-8 prefill's rows."""
+    from fastvlm_tpu_torch.ops import quant
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(33)
+    lp = dec["layers"][0]
+    widths = {"qkv": lp["qkv"], "o": lp["o"], "gateup": lp["gateup"],
+              "down": lp["down"]}
+    worst_wo = worst_ulps = 0.0
+    for m in (Q7_B, Q_PREFILL_M):
+        for name, p in list(widths.items()) + (
+                [("lm_head", dec["lm_head"])] if m == Q7_B else []):
+            cin = p["w_q"].shape[0]
+            x = (torch.randn((m, cin), generator=gen, device="cuda")
+                 ).to(torch.bfloat16)
+            xq, _ = quant.quantize_activations(x)
+            acc = quant.int8_matmul(xq, p["w_q"])
+            if not torch.equal(acc, quant.int8_matmul_reference(xq,
+                                                                 p["w_q"])):
+                raise AssertionError(f"_int_mm accumulator at {name} "
+                                     f"(M={m}) differs from the exact one")
+            a8 = {**p, "a8": torch.ones((1,), dtype=torch.int8,
+                                        device="cuda")}
+            if not torch.equal(quant.quantized_matmul(x, a8),
+                               quant.quantized_matmul_reference(x, a8)):
+                raise AssertionError(f"W8A8 output at {name} (M={m}) "
+                                     f"differs from its plain version")
+            ratio, ulps = _wo_error(x, p, quant.quantized_matmul(x, p),
+                                    quant.quantized_matmul_reference(x, p))
+            worst_wo = max(worst_wo, ratio)
+            worst_ulps = max(worst_ulps, ulps)
+            if ratio > 1.0:
+                raise AssertionError(f"weight-only product at {name} (M={m})"
+                                     f": error {ratio:.2f} x its bound (f32 "
+                                     f"summation + {WO_ULPS} bf16 ulp)")
+    log("quant", f"the _int_mm accumulator equals the exact (float64) one "
+                 f"and W8A8's output its plain version's bitwise at qkv, o, "
+                 f"gateup, down (M = {Q7_B}, {Q_PREFILL_M}) and the LM head "
+                 f"(M = {Q7_B}); the weight-only output (torch.mm with an "
+                 f"f32 result) is within {worst_wo:.3f} of its bound from "
+                 f"its plain version's (f32 summation + {WO_ULPS} bf16 "
+                 f"ulp; at most {worst_ulps:.1f} ulps of the result where "
+                 f"the sum cancels)")
+
+    # _int_mm's weight layout: the port's K-major w_q against the same
+    # values row-major (JAX's layout), at the qkv width
+    w_k = widths["qkv"]["w_q"]
+    w_r = w_k.contiguous()
+    for m in (Q7_B, Q_PREFILL_M):
+        xq = torch.randint(-127, 128, (m, w_k.shape[0]), generator=gen,
+                           device="cuda", dtype=torch.int8)
+        k_ms = time_batch_ms(lambda: quant.int8_matmul(xq, w_k))
+        r_ms = time_batch_ms(lambda: quant.int8_matmul(xq, w_r))
+        log("quant", f"_int_mm at qkv {tuple(w_k.shape)} M={m}: K-major "
+                     f"weight {k_ms:.4f} ms, row-major {r_ms:.4f} ms on "
+                     f"{card}")
+
+    table = {}
+    for name, p in widths.items():
+        cin, cout = p["w_q"].shape
+        w = (torch.randn((cin, cout), generator=gen, device="cuda") * 0.02
+             ).to(torch.bfloat16)
+        wt = w.t().contiguous()  # F.linear's (out, in) weight
+        q8 = quant.quantize_linear({"w": w}, 8)
+        q4 = quant.quantize_linear({"w": w}, 4)
+        a8 = {**q8, "a8": torch.ones((1,), dtype=torch.int8, device="cuda")}
+        for m in (1, Q7_B, Q_PREFILL_M):
+            x = torch.randn((m, cin), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            fns = {"bf16": lambda: torch.nn.functional.linear(x, wt)}
+            for tag, qp in (("int8", q8), ("w8a8", a8), ("int4", q4)):
+                fns[tag] = (lambda qp=qp: quant.quantized_matmul(x, qp))
+            row = {tag: (time_batch_ms(fn), kernel_time_ms(fn, reps=5))
+                   for tag, fn in fns.items()}
+            table[f"{name} {cin}x{cout} M={m}"] = row
+            log("quant", f"matmul {name} {cin}x{cout} M={m}, ms by events "
+                         f"(kernels): " + ", ".join(
+                             f"{tag} {t:.4f} ({fmt_ms(k)})"
+                             for tag, (t, k) in row.items())
+                + f" on {card}")
+        del w, wt, q8, q4, a8
+    return table, (worst_wo, worst_ulps)
+
+
+def _batch_inputs(engine, images, prompt):
+    """One prepared row per image, stacked: (images, ids, lens, starts)."""
+    rows = [engine.prepare(engine.build_prompt(prompt), im) for im in images]
+    return (torch.cat([r["images"] for r in rows]),
+            torch.cat([r["ids"] for r in rows]),
+            torch.cat([r["lens"] for r in rows]),
+            torch.cat([r["starts"] for r in rows]))
+
+
+def _quant_path(name, engine, images, card, batch8=True):
+    """One quantized 7B engine: batch-1 requests (TTFT, decode tok/s), and
+    with ``batch8`` a batch-8 prefill (TTFT) and decode (tok/s); the K1 / K2
+    launch counts, teacher-forced replays and peak memory."""
+    from fastvlm_tpu_torch.models import vlm
+    from fastvlm_tpu_torch.ops.kv_cache import init_cache
+    from fastvlm_tpu_torch.ops.sampling import SamplingParams
+
+    cfg, dec = engine.cfg, engine.cfg.decoder
+    layers, k = dec.num_layers, engine.chunk
+    out = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    results = [engine.generate(engine.build_prompt(Q_PROMPT), images[0],
+                               max_new_tokens=Q7_NEW) for _ in range(3)]
+    k1, k2, k3 = (int(n) for n in _launches())
+    steps = sum(st["decode_steps"] for _, st in results)
+    if k1 != 44 * 3 or k3 != 0 or steps == 0 or k2 != layers * steps:
+        raise AssertionError(f"{name} batch 1: K1 {k1} (expected 132), K2 "
+                             f"{k2} for {steps} steps (expected {layers} a "
+                             f"step), K3 {k3}")
+    if len({text for text, _ in results}) != 1:
+        raise AssertionError(f"{name}: identical requests gave other ids")
+    out["ttft_b1_ms"] = [st["ttft_ms"] for _, st in results]
+    out["tok_s_b1"] = [st["tok_per_s"] for _, st in results]
+    out["launches"] = [k1, k2, k3]
+    log("quant", f"{name} batch 1: TTFT {out['ttft_b1_ms'][0]:.2f} (cold) / "
+                 f"{out['ttft_b1_ms'][1]:.2f} / {out['ttft_b1_ms'][2]:.2f} ms,"
+                 f" decode {out['tok_s_b1'][1]:.2f} / {out['tok_s_b1'][2]:.2f}"
+                 f" tok/s, prompt {results[0][1]['prompt_tokens']} tokens; K1"
+                 f" {k1} = 44 x 3 requests, K2 {k2} = {layers} x {steps} "
+                 f"steps on {card}")
+    _check_replay("quant", f"{name} batch-1 request", engine, Q_PROMPT,
+                  images[0], results[1][0])
+    if batch8:
+        imgs, ids, lens, starts = _batch_inputs(engine, images[:Q7_B],
+                                                Q_PROMPT)
+        t = ids.shape[1]
+        n_chunks = Q7_NEW // k
+        ttft = []
+        with torch.inference_mode():
+            for _ in range(3):
+                cache = init_cache(layers, Q7_B, t + Q7_NEW, dec.num_kv_heads,
+                                   dec.head_dim, engine._kv_dtype, "cuda")
+                _zero_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, cache = vlm.prefill(engine.params, cfg, imgs, ids,
+                                            lens, starts, cache)
+                tok = logits.argmax(-1).to(torch.int32)
+                first = tok.cpu()
+                ttft.append((time.perf_counter() - t0) * 1000)
+                k1 = int(_launches()[0])
+                if k1 != 44:
+                    raise AssertionError(f"{name} batch 8: K1 {k1} in one "
+                                         f"prefill, expected 44")
+            done = torch.zeros((Q7_B,), dtype=torch.bool, device="cuda")
+            toks = []
+            _zero_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n_chunks):
+                chunk, done, tok, cache = vlm.decode_chunk(
+                    engine.params, cfg, tok, done, cache, None, k=k,
+                    eos_ids=(-1,), sampling=SamplingParams())
+                toks.append(chunk.cpu())
+            dt = time.perf_counter() - t0
+            k2 = int(_launches()[1])
+        if k2 != layers * n_chunks * k:
+            raise AssertionError(f"{name} batch 8: K2 {k2} for "
+                                 f"{n_chunks * k} steps, expected {layers} a "
+                                 f"step")
+        seq = torch.cat([first[:, None]] + toks, dim=1)
+        out["ttft_b8_ms"] = ttft
+        out["tok_s_b8"] = Q7_B * n_chunks * k / dt
+        out["b8_step_ms"] = dt * 1000 / (n_chunks * k)
+        out["b8_prompt"] = int(t)
+        log("quant", f"{name} batch 8: TTFT {ttft[0]:.2f} (cold) / "
+                     f"{ttft[1]:.2f} / {ttft[2]:.2f} ms for 8 images of "
+                     f"{int(lens[0])}-token prompts, K1 44 a prefill; decode "
+                     f"{out['tok_s_b8']:.2f} tok/s ({out['b8_step_ms']:.2f} "
+                     f"ms a step), K2 {k2} = {layers} x {n_chunks * k} steps"
+                     f" on {card}")
+        # teacher-forced replay of all 8 rows at batch 8 (step by step,
+        # K2): each emitted token within the tie margin of its row's maximum
+        gaps = _batch_replay(engine, (imgs, ids, lens, starts), seq)
+        worst = max(g for row in gaps for g, _ in row)
+        log("quant", f"{name} batch-8 decode replayed step by step at batch "
+                     f"8: {seq.shape[1]} steps x 8 rows within {worst:.2f} "
+                     f"bf16 ulps of each row's maximum (limit {TIE_ULPS})")
+        if worst > TIE_ULPS:
+            raise AssertionError(f"{name} batch-8 replay: a token "
+                                 f"{worst:.1f} ulps below its maximum")
+        # context, not a check: rows 0 and 7 replayed at batch 1, where the
+        # tower, the projector and attention see other shapes and may round
+        # elsewhere (W8A8's per-token int8 rounding can amplify that)
+        cross = [max(g for g, _ in _dense_replay(
+            engine, Q_PROMPT, images[r], [int(x) for x in seq[r]]))
+            for r in (0, Q7_B - 1)]
+        out["b8_vs_b1_ulps"] = cross
+        log("quant", f"{name} batch-8 rows 0 and 7 replayed at batch 1 "
+                     f"(context): tokens {cross[0]:.2f} / {cross[1]:.2f} "
+                     f"bf16 ulps below the batch-1 maximum")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log("quant", f"{name}: peak device memory {out['peak_gib']:.2f} GiB")
+    return out
+
+
+def _batch_replay(engine, inputs, seq):
+    """Teacher-force every row of ``seq`` (B, n) through a batch-B prefill of
+    ``inputs`` (images, ids, lens, starts) and n - 1 decode steps; each
+    row's (gap, top-1/top-2 gap) a step, in bf16 ulps."""
+    from fastvlm_tpu_torch.models import vlm
+    from fastvlm_tpu_torch.ops.kv_cache import init_cache
+
+    cfg, dec = engine.cfg, engine.cfg.decoder
+    imgs, ids, lens, starts = inputs
+    b, n = seq.shape
+    gaps = [[] for _ in range(b)]
+    with torch.inference_mode():
+        cache = init_cache(dec.num_layers, b, ids.shape[1] + n,
+                           dec.num_kv_heads, dec.head_dim, engine._kv_dtype,
+                           "cuda")
+        logits, cache = vlm.prefill(engine.params, cfg, imgs, ids, lens,
+                                    starts, cache)
+        for step in range(n):
+            rows = logits.float().cpu()
+            if not bool(torch.isfinite(rows).all()):
+                raise AssertionError(f"batch replay step {step}: non-finite "
+                                     f"logits")
+            for r in range(b):
+                gaps[r].append(_logit_gaps(rows[r], int(seq[r, step])))
+            if step < n - 1:
+                logits, cache = vlm.decode_step(
+                    engine.params, cfg, seq[:, step].to(torch.int32).to(
+                        "cuda"), cache)
+    return gaps
+
+
+def phase_quant(card, main_engine, main_res, gen):
+    """FastVLM-7B int8 weight-only (7b-batch8, 7b-caption), W8A8
+    (7b-batch8-w8a8) and int4 (7b-int4, batch 1) at full width, and the
+    0.5B decode at int8 and W8A8 (decode-int8, decode-w8a8)."""
+    from fastvlm_tpu_torch.engine import Engine
+    from fastvlm_tpu_torch.ops import quant
+
+    t_phase = time.perf_counter()
+    dcfg = _q7_decoder_cfg()
+    cfg = _fastvithd_cfg(dcfg)
+    tower, proj = _live_encoder(cfg, 31)
+    images = [_scene(1024, 1024, 60 + i) for i in range(Q7_B)]
+    res = {}
+
+    t0 = time.perf_counter()
+    dec8 = _quantized_decoder(dcfg, 32, 8)
+    torch.cuda.synchronize()
+    n_int8 = sum(t.numel() for lp in dec8["layers"] for p in lp.values()
+                 if isinstance(p, dict) for t in (p["w_q"],))
+    log("quant", f"FastVLM-7B int8 decoder drawn and quantized a layer at a "
+                 f"time on the card in {time.perf_counter() - t0:.1f} s: "
+                 f"{n_int8 / 1e9:.3f} B int8 layer weights; device memory "
+                 f"allocated {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+                 f"GiB")
+    res["products"], res["wo_ulps"] = _quant_products(dec8, card)
+    for name, dec in (("7b-int8", dec8), ("7b-w8a8", _with_a8(dec8))):
+        engine = Engine(cfg, {"vision": tower, "projector": proj,
+                              "decoder": dec}, IdTokenizer())
+        res[name] = _quant_path(name, engine, images, card)
+        if name == "7b-int8":
+            # K2 at this path's call: 28/4/128, B = 8, the batch's lengths
+            t = res[name]["b8_prompt"]
+            res["k2_7b_b8"] = _k2_point(gen, Q7_B, dcfg.num_heads,
+                                        dcfg.num_kv_heads, dcfg.head_dim,
+                                        t + Q7_NEW, t + Q7_NEW // 2)
+            pt = res["k2_7b_b8"]
+            log("quant", f"K2 at 7B's 28/4/128, B = 8, {t + Q7_NEW // 2} "
+                         f"keys: kernel {fmt_us(pt['kernel_ms'])}, "
+                         f"{fmt_us(pt['ms'])} a call (events), bound "
+                         f"{fmt_us(pt['bound_ms'])}, plain "
+                         f"{fmt_ms(pt['plain_ms'])}, SDPA kernel "
+                         f"{fmt_us(pt['library_kernel_ms'])} "
+                         f"({fmt_us(pt['library_ms'])} a call); max abs err "
+                         f"{pt['err']:.3e}")
+        del engine, dec
+    del dec8
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dec4 = _quantized_decoder(dcfg, 32, 4)
+    torch.cuda.synchronize()
+    log("quant", f"FastVLM-7B int4 decoder drawn and quantized in "
+                 f"{time.perf_counter() - t0:.1f} s")
+    engine = Engine(cfg, {"vision": tower, "projector": proj,
+                          "decoder": dec4}, IdTokenizer())
+    res["7b-int4"] = _quant_path("7b-int4", engine, images, card,
+                                 batch8=False)
+    del engine, dec4
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 0.5B decode at int8 and W8A8 beside phase main's bf16 decode
+    q05 = quant.quantize_decoder(main_engine.params["decoder"], 8)
+    image = np.random.RandomState(0).randint(0, 256, (1024, 1024, 3),
+                                             dtype=np.uint8)
+    for name, dec in (("decode-int8", q05), ("decode-w8a8", _with_a8(q05))):
+        engine = Engine(main_engine.cfg, {**main_engine.params,
+                                          "decoder": dec}, IdTokenizer())
+        _zero_launches()
+        results = [engine.generate(engine.build_prompt(Q_PROMPT), image,
+                                   max_new_tokens=Q7_NEW) for _ in range(3)]
+        k1, k2, k3 = (int(n) for n in _launches())
+        steps = sum(st["decode_steps"] for _, st in results)
+        layers = main_engine.cfg.decoder.num_layers
+        if k1 != 44 * 3 or k3 != 0 or steps == 0 or k2 != layers * steps:
+            raise AssertionError(f"{name}: K1 {k1}, K2 {k2} for {steps} "
+                                 f"steps, K3 {k3}")
+        res[name] = {"tok_s": [st["tok_per_s"] for _, st in results],
+                     "ttft_ms": [st["ttft_ms"] for _, st in results],
+                     "launches": [k1, k2, k3]}
+        log("quant", f"{name} (0.5B): decode {results[1][1]['tok_per_s']:.2f}"
+                     f" / {results[2][1]['tok_per_s']:.2f} tok/s beside bf16 "
+                     f"{main_res['tok_per_s'][1]:.2f} / "
+                     f"{main_res['tok_per_s'][2]:.2f} (phase main); TTFT "
+                     f"{results[1][1]['ttft_ms']:.2f} ms; K1 {k1}, K2 {k2} = "
+                     f"{layers} x {steps} steps")
+        _check_replay("quant", f"{name} request", engine, Q_PROMPT, image,
+                      results[1][0])
+        del engine
+    res["tower"], res["cfg"] = tower, cfg
+    log("quant", f"phase took {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
+def _step_ms(engine, images, prompt, steps=16):
+    """A batch-8 decode step after a batch-8 prefill of ``images``: wall ms
+    a step over one chunk with a host read, then device ms and launches a
+    step by the profiler over another."""
+    from fastvlm_tpu_torch.models import vlm
+    from fastvlm_tpu_torch.ops.kv_cache import init_cache
+    from fastvlm_tpu_torch.ops.sampling import SamplingParams
+
+    cfg, dec = engine.cfg, engine.cfg.decoder
+    imgs, ids, lens, starts = _batch_inputs(engine, images, prompt)
+    b, t = ids.shape
+    with torch.inference_mode():
+        cache = init_cache(dec.num_layers, b, t + 3 * steps, dec.num_kv_heads,
+                           dec.head_dim, engine._kv_dtype, "cuda")
+        logits, cache = vlm.prefill(engine.params, cfg, imgs, ids, lens,
+                                    starts, cache)
+        tok = logits.argmax(-1).to(torch.int32)
+        done = torch.zeros((b,), dtype=torch.bool, device="cuda")
+
+        def chunk():
+            nonlocal tok, done, cache
+            toks, done, tok, cache = vlm.decode_chunk(
+                engine.params, cfg, tok, done, cache, None, k=steps,
+                eos_ids=(-1,), sampling=SamplingParams())
+            toks.cpu()
+
+        chunk()  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunk()
+        wall = (time.perf_counter() - t0) * 1000 / steps
+        prof = _cuda_step_profile(chunk, steps)
+    return {"wall_ms": wall, "lengths": int(lens.min()) + steps, **prof}
+
+
+def phase_kv_int8(card, main_engine):
+    """The 0.5B with an int8 KV cache: generate, beam W = 4, spec, two video
+    frames and the scheduler's dense batch of 8; no K2 or K3 anywhere (the
+    int8 path attends through the plain _attend_quant, as JAX)."""
+    from fastvlm_tpu_torch.engine import Engine
+    from fastvlm_tpu_torch.serve.batcher import BatchScheduler
+    from fastvlm_tpu_torch.video import VideoQA
+
+    t_phase = time.perf_counter()
+    base = main_engine.cfg
+    cfg = dataclasses.replace(base, decoder=dataclasses.replace(
+        base.decoder, kv_cache_dtype="int8"))
+    engine = Engine(cfg, main_engine.params, IdTokenizer())
+    if engine._kv_dtype != torch.int8:
+        raise AssertionError("the int8-KV engine's cache is not int8")
+    images = [_scene(1024, 1024, 80 + i) for i in range(8)]
+    res = {}
+
+    def counted(what, fn, k1_want):
+        _zero_launches()
+        out = fn()
+        k1, k2, k3 = (int(n) for n in _launches())
+        if k1 != k1_want or k2 != 0 or k3 != 0:
+            raise AssertionError(f"kv-int8 {what}: K1 {k1} (expected "
+                                 f"{k1_want}), K2 {k2}, K3 {k3} (expected 0)")
+        res.setdefault("launches", {})[what] = [k1, k2, k3]
+        return out
+
+    prompts = [Q_PROMPT, "What is in the picture?"]
+    gens = counted("generate", lambda: [
+        engine.generate(engine.build_prompt(p), images[i],
+                        max_new_tokens=Q7_NEW)
+        for i, p in enumerate(prompts)], 44 * len(prompts))
+    bf16 = [main_engine.generate(main_engine.build_prompt(p), images[i],
+                                 max_new_tokens=Q7_NEW)[0]
+            for i, p in enumerate(prompts)]
+    for i, (p, (text, st)) in enumerate(zip(prompts, gens)):
+        same = sum(a == b for a, b in zip(text.split(","), bf16[i].split(",")))
+        log("kv-int8", f"generate {i}: TTFT {st['ttft_ms']:.2f} ms, "
+                       f"{st['tok_per_s']:.2f} tok/s; {same} of "
+                       f"{len(text.split(','))} ids as the bf16 cache's")
+        _check_replay("kv-int8", f"generate {i}", engine, p, images[i], text)
+    res["generate"] = [st for _, st in gens]
+
+    beam = counted("beam", lambda: engine.generate_beam(
+        engine.build_prompt(Q_PROMPT), images[0], num_beams=4,
+        max_new_tokens=Q7_NEW), 44)
+    if not beam[0]:
+        raise AssertionError("kv-int8 beam: empty answer")
+    log("kv-int8", f"generate_beam W = 4: {beam[1]['decode_tokens']} tokens "
+                   f"in {beam[1]['ttft_ms']:.2f} ms (prefill and search)")
+    spec_prompt = "Describe the image. Describe the image. Describe it."
+    spec = counted("spec", lambda: engine.generate_spec(
+        engine.build_prompt(spec_prompt), images[1], max_new_tokens=64), 44)
+    log("kv-int8", f"generate_spec: {spec[1]['decode_tokens']} tokens in "
+                   f"{spec[1]['spec_steps']} passes")
+    _check_replay("kv-int8", "generate_spec", engine, spec_prompt, images[1],
+                  spec[0])
+
+    frames = [_scene(1920, 1080, 90 + i) for i in range(2)]
+    vq = VideoQA(engine, "What is happening?", max_new_tokens=16)
+    if vq.cache.k.dtype != torch.int8:
+        raise AssertionError("VideoQA's prefix cache is not int8")
+    answers = counted("video", lambda: [vq.ask(f)[0] for f in frames]
+                      + [vq.ask(frames[0])[0]], 44 * 3)
+    if answers[2] != answers[0]:
+        raise AssertionError("kv-int8 video: the same frame asked again gave"
+                             " other ids")
+    log("kv-int8", f"VideoQA over 2 1080x1920 frames (+ the first again): "
+                   f"K1 44 a frame, no K2 / K3; the repeated frame's ids "
+                   f"equal")
+
+    sched = BatchScheduler(engine, max_batch=8, window_ms=500)
+    rows = [Q_PROMPT if i % 2 else "What is in the picture?"
+            for i in range(8)]
+
+    def serve():
+        clients = [Client(sched, engine, p, images[i], Q7_NEW)
+                   for i, p in enumerate(rows)]
+        for i, c in enumerate(clients):
+            c.result(f"kv-int8 dense row {i}")
+        return clients
+
+    try:
+        if sched.paged or sched.pool is not None:
+            raise AssertionError("an int8-KV engine got the paged pool")
+        t0 = time.perf_counter()
+        clients = counted("serve-dense", serve, 44)
+        wall = time.perf_counter() - t0
+    finally:
+        sched.shutdown()
+    texts = [c.updates[-1]["text"] for c in clients]
+    tokens = sum(len(t.split(",")) for t in texts)
+    ttfts = [c.updates[-1]["stats"]["ttft_ms"] for c in clients]
+    if sched.counters["prefills"] != 1 or sched.counters["admitted"]:
+        raise AssertionError(f"dense batch: {dict(sched.counters)}")
+    log("kv-int8", f"BatchScheduler dense batch of 8 (int8 cache): one "
+                   f"prefill, TTFT {statistics.median(ttfts):.2f} ms median, "
+                   f"served {tokens / wall:.2f} tok/s, K1 44, no K2 / K3")
+    for i in (0, 5):
+        _check_replay("kv-int8", f"dense batch row {i}", engine, rows[i],
+                      images[i], texts[i])
+    res["serve_dense"] = {"ttft_ms": ttfts, "tok_s": tokens / wall}
+
+    step8 = _step_ms(engine, images, Q_PROMPT)
+    step16 = _step_ms(main_engine, images, Q_PROMPT)
+    res["step"] = {"int8": step8, "bf16": step16}
+    log("kv-int8", f"batch-8 decode step at ~{step8['lengths']} keys: int8 "
+                   f"cache {step8['wall_ms']:.2f} ms wall, "
+                   f"{step8['device_ms']:.3f} ms device, "
+                   f"{step8['launches']:.1f} launches, K2 {step8['k2']:.0f};"
+                   f" bf16 cache {step16['wall_ms']:.2f} ms wall, "
+                   f"{step16['device_ms']:.3f} ms device, "
+                   f"{step16['launches']:.1f} launches, K2 "
+                   f"{step16['k2']:.0f} ({step16['k2_ms']:.4f} ms) a step on "
+                   f"{card}")
+    log("kv-int8", f"phase took {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
+def phase_export(card, tower, cfg7):
+    """The full-width encoder exported on the card and loaded back (K1 44
+    launches, bitwise eager); a 1.5B int8 bundle written and restored,
+    serving the in-memory quantized engine's ids."""
+    from fastvlm_tpu_torch import config as C
+    from fastvlm_tpu_torch import export
+    from fastvlm_tpu_torch.engine import Engine
+    from fastvlm_tpu_torch.models import fastvit, projector, qwen2
+    from fastvlm_tpu_torch.ops.quant import quantize_decoder
+    from fastvlm_tpu_torch.utils.checkpoint import restore_native
+
+    t_phase = time.perf_counter()
+    res = {}
+    vcfg = cfg7.vision
+    s = vcfg.image_size
+    x = torch.from_numpy(_scene(s, s, 99)).to("cuda").to(
+        torch.bfloat16)[None] / 255
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        path = export.export_vision_encoder(cfg7, tower, d)
+        t_export = time.perf_counter() - t0
+        program = export.load_exported_encoder(path)
+        with torch.inference_mode():
+            want = fastvit.apply(tower, x, vcfg)
+            _zero_launches()
+            got = program(tower, x)
+            torch.cuda.synchronize()
+            k1 = int(_launches()[0])
+        n_ops = sum("fastvlm.fused_ffn" in str(n.target)
+                    for n in torch.export.load(path).graph.nodes)
+        size = os.path.getsize(path)
+    if k1 != 44 or n_ops != 44:
+        raise AssertionError(f"exported encoder: {n_ops} fused_ffn ops, K1 "
+                             f"launched {k1} times (expected 44)")
+    if not torch.equal(got, want) or float(want.float().abs().mean()) == 0:
+        raise AssertionError("the exported encoder differs from eager (or "
+                             "its features are zero)")
+    with torch.inference_mode():
+        eager_ms = time_batch_ms(lambda: fastvit.apply(tower, x, vcfg),
+                                 reps=5)
+        prog_ms = time_batch_ms(lambda: program(tower, x), reps=5)
+        eager_k = kernel_time_ms(lambda: fastvit.apply(tower, x, vcfg),
+                                 reps=3)
+        prog_k = kernel_time_ms(lambda: program(tower, x), reps=3)
+    res["encoder"] = {"export_s": t_export, "ms": prog_ms,
+                      "eager_ms": eager_ms, "kernel_ms": prog_k,
+                      "eager_kernel_ms": eager_k, "k1": k1}
+    log("export", f"FastViTHD @1024 exported on the card in {t_export:.1f} s "
+                  f"({size / 2 ** 20:.1f} MiB program, 44 fastvlm::fused_ffn "
+                  f"ops); loaded, it launched K1 {k1} times and equals eager "
+                  f"bitwise (features mean |x| "
+                  f"{float(want.float().abs().mean()):.4f}); "
+                  f"{prog_ms:.3f} ms an image by events beside eager "
+                  f"{eager_ms:.3f} ms, kernels {fmt_ms(prog_k)} beside "
+                  f"{fmt_ms(eager_k)} on {card}")
+
+    # a 1.5B int8 bundle: written, restored, served
+    dcfg = C.qwen2_1_5b(param_dtype="bfloat16", compute_dtype="bfloat16")
+    cfg = _fastvithd_cfg(dcfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(41)
+    params = {"vision": tower, "projector": projector.init(gen, cfg.projector,
+                                                           "cuda"),
+              "decoder": qwen2.init(gen, dcfg, "cuda")}
+    image = _scene(1024, 1024, 98)
+    prompts = [Q_PROMPT, "What is in the picture?"]
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        export.quantize_checkpoint(cfg, params, 8, d)
+        t_write = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(r, f))
+                   for r, _, fs in os.walk(d) for f in fs)
+        t0 = time.perf_counter()
+        restored = restore_native(os.path.join(d, "params"), device="cuda")
+        torch.cuda.synchronize()
+        t_read = time.perf_counter() - t0
+        meta = json.load(open(os.path.join(d, "quantization.json")))
+    in_memory = {**params, "decoder": quantize_decoder(params["decoder"], 8)}
+    del params
+    a = Engine(cfg, restored, IdTokenizer())
+    b = Engine(cfg, in_memory, IdTokenizer())
+    for p in prompts:
+        _zero_launches()
+        ta = a.generate(a.build_prompt(p), image, max_new_tokens=16)[0]
+        k1, k2, _ = (int(n) for n in _launches())
+        tb = b.generate(b.build_prompt(p), image, max_new_tokens=16)[0]
+        if ta != tb or not ta:
+            raise AssertionError(f"1.5B int8 bundle: {p!r} gave other ids "
+                                 f"than the in-memory engine")
+        if k1 != 44 or k2 == 0 or k2 % dcfg.num_layers:
+            raise AssertionError(f"1.5B int8 bundle: K1 {k1}, K2 {k2}")
+    res["bundle"] = {"gib": size / 2 ** 30, "write_s": t_write,
+                     "restore_s": t_read}
+    log("export", f"1.5B int8 bundle ({meta['bits']}-bit, "
+                  f"{size / 2 ** 30:.2f} GiB) written in {t_write:.1f} s and "
+                  f"restored to the card in {t_read:.1f} s; its engine gives "
+                  f"the in-memory quantized engine's ids for "
+                  f"{len(prompts)} prompts (K1 44, K2 28 a step)")
+    del a, b, restored, in_memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("export", f"phase took {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
 def main() -> int:
     # fail before printing anything without a card or outside a checkout
     if not torch.cuda.is_available():
@@ -3335,7 +4069,17 @@ def main() -> int:
     del llava
     gc.collect()
     torch.cuda.empty_cache()
+    quant_res = phase_quant(card, engine, main_res, gen)
+    kv_res = phase_kv_int8(card, engine)
+    export_res = phase_export(card, quant_res.pop("tower"),
+                              quant_res.pop("cfg"))
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_small()
+    quant_paths = ("7b-int8", "7b-w8a8", "7b-int4", "decode-int8",
+                   "decode-w8a8")
+    kv_launches = np.sum(list(kv_res["launches"].values()), axis=0)
+    k2_7b = quant_res["k2_7b_b8"]
 
     kernels = {"kernels": [
         {"name": "fused_ffn", "route": "cuda",
@@ -3358,7 +4102,11 @@ def main() -> int:
                               "llava-1.5-7b": int(llava_res["launches"][0]),
                               "worker": worker_res["worker"][0],
                               "worker-batch": worker_res["batch"][0],
-                              "worker-llava": worker_res["llava"][0]},
+                              "worker-llava": worker_res["llava"][0],
+                              **{p: quant_res[p]["launches"][0]
+                                 for p in quant_paths},
+                              "kv-int8": int(kv_launches[0]),
+                              "export": export_res["encoder"]["k1"]},
          "max_abs_err": max(k1_err, anyres_res["k1_err"]),
          "ms": k1["ms"], "kernel_ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": "operations",
@@ -3382,9 +4130,12 @@ def main() -> int:
                               "llava-1.5-7b": int(llava_res["launches"][1]),
                               "worker": worker_res["worker"][1],
                               "worker-batch": worker_res["batch"][1],
-                              "worker-llava": worker_res["llava"][1]},
+                              "worker-llava": worker_res["llava"][1],
+                              **{p: quant_res[p]["launches"][1]
+                                 for p in quant_paths},
+                              "kv-int8": int(kv_launches[1])},
          "max_abs_err": max(k2_err, beam_res["k2_max_abs_err"],
-                            llava_res["k2_err"]),
+                            llava_res["k2_err"], k2_7b["err"]),
          "ms": k2["ms"], "kernel_ms": k2["kernel_ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": "bytes",
          "library_ms": k2["library_ms"],
@@ -3398,7 +4149,10 @@ def main() -> int:
              f"B={b}": {k: pt[k] for k in ("kernel_ms", "ms", "plain_ms",
                                            "bound_ms", "library_ms",
                                            "library_kernel_ms")}
-             for b, pt in llava_res["k2"].items()}},
+             for b, pt in llava_res["k2"].items()},
+         "qwen2_7b_28_4_128_b8": {
+             k: k2_7b[k] for k in ("kernel_ms", "ms", "plain_ms", "bound_ms",
+                                   "library_ms", "library_kernel_ms")}},
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "fastvlm_tpu_torch/csrc/paged_decode_attention.cu",
          "replaces": "fastvlm_tpu/ops/pallas/decode_attention.py:215",
@@ -3411,7 +4165,8 @@ def main() -> int:
                               "llava-1.5-7b": int(llava_res["launches"][2]),
                               "worker": worker_res["worker"][2],
                               "worker-batch": worker_res["batch"][2],
-                              "worker-llava": worker_res["llava"][2]},
+                              "worker-llava": worker_res["llava"][2],
+                              "kv-int8": int(kv_launches[2])},
          "max_abs_err": max(k3_err, worker_res["k3_err"]),
          "ms": k3["ms"], "kernel_ms": k3["kernel_ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": "bytes", "library_ms": None,

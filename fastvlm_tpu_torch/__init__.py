@@ -15,16 +15,21 @@ version. The package imports ``torch`` and never ``jax``.
 
 Layout:
     models/    FastViTHD encoder, projector, Qwen2 decoder, FastVLM glue
-    ops/       conv/norm helpers, KV caches (dense, paged), sampling,
-               prompt-lookup speculative decoding, beam search, splice,
-               image resize, CUDA kernels
+    ops/       conv/norm helpers, KV caches (dense, int8, paged),
+               sampling, prompt-lookup speculative decoding, beam search,
+               splice, image resize, int8 / int4 / W8A8 quantization, CUDA
+               kernels
     data/      conversation templates, constants, host preprocessing
     utils/     HF checkpoint import (branch fusion, BN fold, key audit) and
-               export, and the weight bridge from the JAX package's tree
-    serve/     the continuous-batching scheduler over the paged pool
+               export, native bundles, weight deltas, and the weight bridge
+               from the JAX package's tree
+    serve/     the continuous-batching scheduler over the paged pool (or a
+               dense per-batch cache), the HTTP tier
+    eval/      the batch evaluation harness
     engine.py  host API (prepare / stream / generate / generate_spec /
                generate_beam; build_engine loads a checkpoint directory),
                predict.py its CLI
+    export.py  torch.export of the encoder, quantized bundles
     video.py   video-frame QA with the prompt prefix's KV reused
 """
 

@@ -105,7 +105,8 @@ class Qwen2Config:
 
     Defaults are Qwen2-0.5B; see ``qwen2_0_5b`` / ``qwen2_1_5b`` /
     ``qwen2_7b``. The family knobs (window, ALiBi, LayerNorm, GELU MLP) run
-    on the plain path; ``kv_cache_dtype="int8"`` is not ported yet.
+    on the plain path; ``kv_cache_dtype="int8"`` stores the dense KV cache
+    in int8 with per-token scales (``ops/kv_cache.py``).
     """
 
     vocab_size: int = 151936

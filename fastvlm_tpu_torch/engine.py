@@ -12,8 +12,10 @@ token on the host) and decode time, both ending in a device synchronise on
 the card.
 Greedy requests may decode speculatively (prompt lookup): ``stream(...,
 spec=True)`` and ``generate_spec``; ``generate_beam`` decodes by beam
-search. ``build_engine`` loads a HF checkpoint directory or builds the tiny
-random model.
+search. The dense cache is int8 for a decoder with
+``kv_cache_dtype="int8"``; quantized decoder linears (``ops/quant.py``)
+run as they come. ``build_engine`` loads a HF checkpoint directory or
+builds the tiny random model.
 
 Used by: predict CLI, serve/batcher.py, video.py, chip_smoke.py.
 """
@@ -95,9 +97,6 @@ class Engine:
         chunk: int = 16,
         eos_ids: Optional[Tuple[int, ...]] = None,
     ):
-        if cfg.decoder.kv_cache_dtype is not None:
-            raise NotImplementedError("the int8 KV cache is not yet ported, "
-                                      "see ROADMAP.md")
         self.cfg = cfg
         # inference build: fold FastViTHD's layer scales into the adjacent
         # weights (exact; the FFN kernel then skips its layer-scale
@@ -124,6 +123,9 @@ class Engine:
                 eos_ids = (QWEN_IM_END_ID,)
         self.eos_ids = tuple(eos_ids)
         self._dtype = resolve_dtype(cfg.decoder.compute_dtype)
+        # the dense KV cache's storage: int8 (with scale planes) for a
+        # decoder with kv_cache_dtype="int8", else the compute dtype
+        self._kv_dtype = vlm.kv_cache_dtype(cfg)
 
     # ---------------- prompt/image preparation ----------------
 
@@ -310,7 +312,7 @@ class Engine:
                            (vlm.spec_cache_len(t, max_new, draft_k) if spec
                             else t + n_chunks * self.chunk),
                            cfg.decoder.num_kv_heads, cfg.decoder.head_dim,
-                           self._dtype, self.device)
+                           self._kv_dtype, self.device)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed if seed is not None else time.time_ns() % 2**31)
 
@@ -435,7 +437,7 @@ class Engine:
         cache = init_cache(cfg.decoder.num_layers, b,
                            vlm.spec_cache_len(t, max_new, draft_k),
                            cfg.decoder.num_kv_heads, cfg.decoder.head_dim,
-                           self._dtype, self.device)
+                           self._kv_dtype, self.device)
         _sync(self.device)
         t0 = time.perf_counter()
         logits, cache = vlm.prefill(self.params, cfg, inputs["images"], ids,
@@ -490,7 +492,7 @@ class Engine:
                              encode_ms=inputs["encode_ms"])
         cache = init_cache(cfg.decoder.num_layers, b, t + max_new,
                            cfg.decoder.num_kv_heads, cfg.decoder.head_dim,
-                           self._dtype, self.device)
+                           self._kv_dtype, self.device)
         _sync(self.device)
         t0 = time.perf_counter()
         logits, cache = vlm.prefill(self.params, cfg, inputs["images"], ids,

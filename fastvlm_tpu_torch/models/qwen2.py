@@ -21,8 +21,16 @@ Attention routes, over a dense ``KVCache`` or a paged ``PagedKVCache``:
     with ``ops/speculative.spec_mask`` for a speculative verify pass (T =
     k + 1 tokens written at each row's own offset; the kernels take T = 1
     only, as the JAX Pallas routes do), the paged cache gathered into each
-    row's virtual order first.
+    row's virtual order first;
+  * an int8 dense cache (``kv_cache_dtype="int8"``) runs no kernel, as in
+    JAX (its Pallas route requires a float cache): a decode step or verify
+    pass attends through ``_attend_quant`` (the per-token scales applied to
+    the scores and the probabilities, no dequantized copy), a continued
+    prefill over ``dequantize_view``.
 The cache is updated in place (``ops/kv_cache.py``).
+
+Quantized linears (``ops/quant.py``: ``w_q`` / ``scale`` / ``a8`` leaves)
+run through ``quantized_matmul`` in ``_project`` and in an untied LM head.
 """
 
 from __future__ import annotations
@@ -40,8 +48,9 @@ from fastvlm_tpu_torch.ops.cuda.decode_attention import decode_attention
 from fastvlm_tpu_torch.ops.cuda.paged_decode_attention import (
     paged_decode_attention)
 from fastvlm_tpu_torch.ops.kv_cache import (
-    KVCache, PagedKVCache, gather_pages, prompt_dest, token_dest, write_paged,
-    write_prompt, write_token)
+    KVCache, PagedKVCache, dequantize_view, gather_pages, prompt_dest,
+    token_dest, write_paged, write_prompt, write_token)
+from fastvlm_tpu_torch.ops.quant import card_layout, quantized_matmul
 
 Params = Dict[str, Any]
 
@@ -95,21 +104,33 @@ def init(gen: torch.Generator, cfg: Qwen2Config, device="cpu") -> Params:
     return params
 
 
+def _cat_linears(parts) -> Params:
+    """One linear from several along cout: "w" and "b" concatenate, as the
+    JAX fusion does, and so do a quantized linear's "w_q" (kept K-major,
+    ``ops/quant.card_layout``) and "scale": the scales are per output
+    channel, so fusing then quantizing equals quantizing then fusing. The
+    W8A8 marker is kept once."""
+    out: Params = {}
+    for key in ("w", "w_q", "scale", "b"):
+        if key in parts[0]:
+            out[key] = torch.cat([p[key] for p in parts], -1)
+    if "w_q" in out:
+        out["w_q"] = card_layout(out["w_q"])
+    if "a8" in parts[0]:
+        out["a8"] = parts[0]["a8"]
+    return out
+
+
 def fuse_decoder_params(params: Params, cfg: Qwen2Config) -> Params:
     """Concatenate q/k/v -> qkv and gate/up -> gateup in every layer: one
-    product instead of three / two per layer at decode. Returns a new tree."""
+    product instead of three / two per layer at decode. Float and quantized
+    linears alike (``_cat_linears``). Returns a new tree."""
     layers = []
     for lp in params["layers"]:
         lp = dict(lp)
-        qkv = {"w": torch.cat([lp["q"]["w"], lp["k"]["w"], lp["v"]["w"]], -1)}
-        if "b" in lp["q"]:
-            qkv["b"] = torch.cat([lp["q"]["b"], lp["k"]["b"], lp["v"]["b"]], -1)
-        lp["qkv"] = qkv
-        for k in ("q", "k", "v"):
-            del lp[k]
+        lp["qkv"] = _cat_linears([lp.pop(k) for k in ("q", "k", "v")])
         if "gate" in lp:
-            lp["gateup"] = {"w": torch.cat([lp.pop("gate")["w"],
-                                            lp.pop("up")["w"]], -1)}
+            lp["gateup"] = _cat_linears([lp.pop("gate"), lp.pop("up")])
         layers.append(lp)
     return {**params, "layers": layers}
 
@@ -145,9 +166,24 @@ def _norm(x, w, cfg: Qwen2Config):
     return rms_norm(x, w, cfg.rms_eps)
 
 
+def _lora_delta(x, p):
+    """scale * (x @ A) @ B in f32: a low-rank adapter's contribution, the
+    inner product rounded to x's dtype as in JAX."""
+    low = torch.matmul(x.float(), p["lora_a"].float()).to(x.dtype)
+    delta = torch.matmul(low.float(), p["lora_b"].float())
+    return p["lora_scale"].float() * delta
+
+
 def _project(x, p):
     """x @ w (+ b): f32 accumulation, bias added before the output rounding
-    (``F.linear`` with the bias fused)."""
+    (``F.linear`` with the bias fused). A quantized linear goes through
+    ``quantized_matmul`` (scale and bias inside, one rounding), then a
+    QLoRA adapter adds its delta in f32 and rounds again, as in JAX."""
+    if "w_q" in p:
+        out = quantized_matmul(x, p)
+        if "lora_a" in p:
+            out = (out.float() + _lora_delta(x, p)).to(x.dtype)
+        return out
     return F.linear(x, p["w"].to(x.dtype).t(),
                     None if "b" not in p else p["b"].to(x.dtype))
 
@@ -215,15 +251,37 @@ def _attend(q, k, v, mask, bias=None):
     return out.to(v.dtype).reshape(b, t, hq * d)
 
 
+def _attend_quant(q, k8, ks, v8, vs, mask):
+    """Attention over an int8 dense cache without a dequantized copy: the
+    per-token scales come out of the products, scores[s] = (q . k8[s]) *
+    k_scale[s], and the value scale folds into the probabilities (p * v_scale)
+    before P.V (JAX ``_attend_quant``). q: (B,T,Hq,D); k8/v8: (B,S,Hkv,D)
+    int8; ks/vs: (B,S,Hkv) f32; mask: (B,1,T,S) bool -> (B, T, Hq*D)."""
+    b, t, hq, d = q.shape
+    hkv = k8.shape[2]
+    g = hq // hkv
+    qg = q.reshape(b, t, hkv, g, d)
+    scores = torch.einsum("bthgd,bshd->bhgts", qg.float(), k8.float()) \
+        * (d ** -0.5)
+    scores = scores * ks.permute(0, 2, 1)[:, :, None, None, :]
+    scores = torch.where(mask[:, :, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    probs = (probs * vs.permute(0, 2, 1)[:, :, None, None, :]).to(q.dtype)
+    out = torch.einsum("bhgts,bshd->bthgd", probs.float(), v8.float())
+    return out.to(q.dtype).reshape(b, t, hq * d)
+
+
 def _layer(x, lp, cfg: Qwen2Config, cos, sin, cache_k, cache_v, mask,
            lengths, prefill, bias=None, prefill_offset=0, block_tables=None,
-           dest=None, kv_lens=None):
+           dest=None, kv_lens=None, cache_ks=None, cache_vs=None):
     """One decoder layer. cache_k/v: (B, S_max, Hkv, D) views of the dense
     cache, (P + 1, page, Hkv, D) pool slices when ``block_tables`` is given
     (the paged serving layout; ``dest`` holds the flat pool rows of this
     forward's writes), both written in place; or None (no cache: plain
     causal attention). kv_lens: lengths + 1, the valid keys of a decode
-    step once its token is written (computed once per forward)."""
+    step once its token is written (computed once per forward).
+    cache_ks/vs: (B, S_max, Hkv) scales when the dense cache is int8."""
     b, t, d = x.shape
     h = _norm(x, lp["ln1"], cfg)
     if "qkv" in lp:
@@ -239,12 +297,14 @@ def _layer(x, lp, cfg: Qwen2Config, cos, sin, cache_k, cache_v, mask,
         k = apply_rope(k, cos, sin)
 
     attn = None
+    quant_kv = cache_k is not None and cache_k.dtype == torch.int8
     use_kernel = t == 1 and bias is None and cfg.attn_window is None
     if cache_k is None:
         keys, values = k, v
     elif prefill:
         if block_tables is None:
-            write_prompt(cache_k, cache_v, k, v, prefill_offset)
+            write_prompt(cache_k, cache_v, k, v, prefill_offset, cache_ks,
+                         cache_vs)
         else:
             write_paged(cache_k, cache_v, k, v, dest)
         if mask.shape[-1] == t and prefill_offset == 0:
@@ -254,10 +314,18 @@ def _layer(x, lp, cfg: Qwen2Config, cos, sin, cache_k, cache_v, mask,
             # the cache: its prefix lies there)
             keys, values = k, v
         elif block_tables is None:
-            keys, values = cache_k, cache_v
+            keys = dequantize_view(cache_k, cache_ks, q.dtype)
+            values = dequantize_view(cache_v, cache_vs, q.dtype)
         else:
             keys = gather_pages(cache_k, block_tables)
             values = gather_pages(cache_v, block_tables)
+    elif block_tables is None and quant_kv:  # dense int8 decode step
+        write_token(cache_k, cache_v, k, v, lengths, cache_ks, cache_vs)
+        if bias is None:
+            attn = _attend_quant(q, cache_k, cache_ks, cache_v, cache_vs, mask)
+        else:
+            keys = dequantize_view(cache_k, cache_ks, q.dtype)
+            values = dequantize_view(cache_v, cache_vs, q.dtype)
     elif block_tables is None:  # dense decode step
         write_token(cache_k, cache_v, k, v, lengths)
         keys, values = cache_k, cache_v
@@ -299,6 +367,8 @@ def logits_from_hidden(params: Params, hidden: torch.Tensor,
     if cfg.tie_word_embeddings:
         w = params["embed"].to(hidden.dtype)
         return F.linear(hidden, w).float()
+    if "w_q" in params["lm_head"]:
+        return quantized_matmul(hidden, params["lm_head"]).float()
     return torch.matmul(hidden, params["lm_head"]["w"].to(hidden.dtype)).float()
 
 
@@ -341,14 +411,17 @@ def forward(
                             cache.num_pages) if prefill else
                 token_dest(tables, lengths, cache.page_size, cache.num_pages,
                            t))
+    quant_kv = not paged and cache is not None and cache.k_scale is not None
     for i, lp in enumerate(params["layers"]):
-        ck = cv = None
+        ck = cv = cks = cvs = None
         if paged:
             ck, cv = cache.k_pages[i], cache.v_pages[i]
         elif cache is not None:
             ck, cv = cache.k[i], cache.v[i]
+            if quant_kv:
+                cks, cvs = cache.k_scale[i], cache.v_scale[i]
         x = _layer(x, lp, cfg, cos, sin, ck, cv, mask, lengths, prefill, bias,
-                   prefill_offset, tables, dest, new_lengths)
+                   prefill_offset, tables, dest, new_lengths, cks, cvs)
     new_cache = None
     if cache is not None:
         new_cache = dataclasses.replace(cache, lengths=new_lengths)

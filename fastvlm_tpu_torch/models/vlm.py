@@ -30,6 +30,11 @@ passes a dispatch for the streaming engine and, over a ``PagedKVCache``,
 for the scheduler. The JAX ``lax.while_loop`` checks ``all(done)`` on the
 device; here the host reads it once a verify pass, so passes, drafts and
 acceptances equal JAX's exactly.
+
+int8 KV (``cfg.decoder.kv_cache_dtype == "int8"``): ``generate`` and
+``generate_spec`` allocate the int8 dense cache (``kv_cache_dtype``); every
+other function takes the cache it is given, and the writes carry its scale
+planes with the keys and values.
 """
 
 from __future__ import annotations
@@ -51,6 +56,14 @@ from fastvlm_tpu_torch.ops.splice import (
     overlay_image_embeds, overlay_image_embeds_multi)
 
 Params = Dict[str, Any]
+
+
+def kv_cache_dtype(cfg: FastVLMConfig) -> torch.dtype:
+    """The dense KV cache's storage type: int8 for a decoder with
+    ``kv_cache_dtype="int8"``, else its compute dtype."""
+    if cfg.decoder.kv_cache_dtype == "int8":
+        return torch.int8
+    return resolve_dtype(cfg.decoder.compute_dtype)
 
 
 def init(gen: torch.Generator, cfg: FastVLMConfig, device="cpu") -> Params:
@@ -325,8 +338,7 @@ def generate(
     dev = ids.device
     cache = init_cache(cfg.decoder.num_layers, b, t + max_new_tokens,
                        cfg.decoder.num_kv_heads, cfg.decoder.head_dim,
-                       dtype=resolve_dtype(cfg.decoder.compute_dtype),
-                       device=dev)
+                       dtype=kv_cache_dtype(cfg), device=dev)
     logits, cache = prefill(params, cfg, images, ids, seq_lens, image_starts,
                             cache)
     eos = torch.tensor(tuple(eos_ids), dtype=torch.int32, device=dev)
@@ -554,8 +566,7 @@ def generate_spec(params, cfg, images, ids, seq_lens, image_starts, *,
     cache = init_cache(cfg.decoder.num_layers, b,
                        spec_cache_len(t, max_new_tokens, draft_k),
                        cfg.decoder.num_kv_heads, cfg.decoder.head_dim,
-                       dtype=resolve_dtype(cfg.decoder.compute_dtype),
-                       device=ids.device)
+                       dtype=kv_cache_dtype(cfg), device=ids.device)
     logits, cache = prefill(params, cfg, images, ids, seq_lens, image_starts,
                             cache)
     return spec_decode(params, cfg, logits, cache, ids, seq_lens,

@@ -4,7 +4,8 @@ Counterpart of ``fastvlm_tpu/ops/beam.py``, the same algorithm and the same
 numbers. Beam width W folds into the batch axis: the cache holds B*W rows,
 every step is one ``vlm.decode_step`` over all beams (kernel K2 at batch
 B*W on the card), and reordering the beams gathers the cache's batch axis
-(``index_select`` into a second buffer, then the two swap). The search runs
+(``index_select`` into a second buffer, then the two swap; an int8 cache's
+scale planes move with its keys and values). The search runs
 a FIXED trip count, max_new_tokens - 1 steps after the prefill's, with no
 early exit and no host read inside: finished hypotheses are compared with
 the live beams normalized at full length, so stopping early would change
@@ -42,12 +43,30 @@ class BeamResult(NamedTuple):
     scores: torch.Tensor   # (B,) f32 length-normalized log-prob
 
 
+_ROW_PLANES = ("k", "v", "k_scale", "v_scale")  # batch axis 1; None skipped
+
+
 def _replicate_cache(cache: KVCache, w: int) -> KVCache:
     """(L, B, S, H, D) -> (L, B*W, S, H, D): row b*W + j is beam j of row b,
-    and all start as copies of row b."""
-    return KVCache(k=cache.k.repeat_interleave(w, dim=1),
-                   v=cache.v.repeat_interleave(w, dim=1),
-                   lengths=cache.lengths.repeat_interleave(w, dim=0))
+    and all start as copies of row b (an int8 cache's scales too)."""
+    planes = {n: None if getattr(cache, n) is None
+              else getattr(cache, n).repeat_interleave(w, dim=1)
+              for n in _ROW_PLANES}
+    return KVCache(lengths=cache.lengths.repeat_interleave(w, dim=0),
+                   **planes)
+
+
+def _reorder_cache(cache: KVCache, spare: KVCache,
+                   flat: torch.Tensor) -> Tuple[KVCache, KVCache]:
+    """Rows ``flat`` of every plane into ``spare``'s buffers: returns (the
+    reordered cache, the old one as the next spare)."""
+    for n in _ROW_PLANES:
+        src = getattr(cache, n)
+        if src is not None:
+            torch.index_select(src, 1, flat, out=getattr(spare, n))
+    out = KVCache(lengths=cache.lengths.index_select(0, flat),
+                  **{n: getattr(spare, n) for n in _ROW_PLANES})
+    return out, cache
 
 
 def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -89,7 +108,9 @@ def beam_search(
     dev = prefill_logits.device
     eos = torch.tensor(tuple(eos_ids), dtype=torch.int32, device=dev)
     cache = _replicate_cache(cache, w)
-    spare_k, spare_v = torch.empty_like(cache.k), torch.empty_like(cache.v)
+    spare = KVCache(lengths=cache.lengths, **{
+        n: None if getattr(cache, n) is None
+        else torch.empty_like(getattr(cache, n)) for n in _ROW_PLANES})
 
     # step 0: the first tokens come from the prefill logits (all beams of a
     # row share one prompt, so the candidates are one row's top 2W tokens)
@@ -154,10 +175,7 @@ def beam_search(
         # reorder the cache rows to the selected parents (this step's KV
         # write used the pre-selection arrangement, which `parent` indexes)
         flat = (row0 + sel_parent).reshape(-1)
-        torch.index_select(cache.k, 1, flat, out=spare_k)
-        torch.index_select(cache.v, 1, flat, out=spare_v)
-        spare_k, spare_v, cache = cache.k, cache.v, KVCache(
-            k=spare_k, v=spare_v, lengths=cache.lengths.index_select(0, flat))
+        cache, spare = _reorder_cache(cache, spare, flat)
 
     # best of finished hypotheses vs live beams normalized at full length
     live_norm = _norm(live_scores, max_new_tokens, length_penalty)

@@ -11,6 +11,15 @@ card.
 Routing is by device only: a CPU tensor takes ``ffn_reference``; a CUDA
 tensor launches the kernel or raises. ``fused_ffn.launches`` counts kernel
 launches.
+
+``torch.ops.fastvlm.fused_ffn`` is the same function registered as a
+PyTorch custom op with a fake (shape-only) implementation, so that
+``torch.export`` can trace an encoder through it: the ctypes launch cannot
+be traced, and the exported program holds one such op per FFN, which
+launches the kernel when it runs on the card. ``ffn_block_apply`` calls it
+while tracing and ``fused_ffn`` directly otherwise (the op's dispatcher
+adds host time to every call). A program exported with it loads only where
+this module has been imported (``export.load_exported_encoder`` does).
 """
 
 from __future__ import annotations
@@ -131,6 +140,18 @@ def _load():
     return lib
 
 
+@torch.library.custom_op("fastvlm::fused_ffn", mutates_args=())
+def fused_ffn_op(t: torch.Tensor, residual: torch.Tensor, w1: torch.Tensor,
+                 b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                 ls: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return fused_ffn(t, residual, w1, b1, w2, b2, ls)
+
+
+@fused_ffn_op.register_fake
+def _(t, residual, w1, b1, w2, b2, ls=None):
+    return torch.empty_like(residual)
+
+
 def ffn_block_apply(t_grid, residual_grid, ffn_params, ls=None):
     """NHWC wrapper: t/residual (B, H, W, C) -> (B, H, W, C).
 
@@ -142,7 +163,8 @@ def ffn_block_apply(t_grid, residual_grid, ffn_params, ls=None):
     n = b * h * w
     dt = t_grid.dtype
     fc1, fc2 = ffn_params["fc1"], ffn_params["fc2"]
-    out = fused_ffn(
+    ffn = fused_ffn_op if torch.compiler.is_compiling() else fused_ffn
+    out = ffn(
         t_grid.reshape(n, c), residual_grid.reshape(n, c),
         fc1["w"].to(dt), fc1["b"].to(dt), fc2["w"].to(dt), fc2["b"].to(dt),
         None if ls is None else ls.to(dt))

@@ -13,7 +13,14 @@ Same layouts as ``fastvlm_tpu/ops/kv_cache.py``:
 
 Unlike the JAX arrays, these tensors are updated IN PLACE: the writes fill
 the cache they are given and return it, so a decode step allocates no new
-cache. The int8 layout is not ported yet.
+cache.
+
+int8 (``init_cache(dtype=torch.int8)``, a decoder with
+``kv_cache_dtype="int8"``): the dense cache stores int8 keys and values
+with one f32 scale per token and KV head, ``k_scale`` / ``v_scale`` of
+shape (L, B, S_max, H_kv), quantized at each write (``quantize_tokens``:
+absmax / 127, round half to even). The paged pool has no int8 layout, as
+in JAX: a scheduler over an int8-KV engine serves from a dense cache.
 
 Dropped writes. JAX drops a paged write whose page is unmapped (-1) or
 whose position is past the table's capacity by scattering it out of bounds
@@ -28,15 +35,19 @@ writes land there, and no block table ever maps it. ``k_pages`` is
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
 
 @dataclass
 class KVCache:
-    k: torch.Tensor        # (L, B, S_max, H_kv, D)
+    k: torch.Tensor        # (L, B, S_max, H_kv, D): float, or int8
     v: torch.Tensor        # (L, B, S_max, H_kv, D)
     lengths: torch.Tensor  # (B,) int32: tokens currently stored per row
+    # int8 layout only: per-token-per-head scales, (L, B, S_max, H_kv) f32
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
     @property
     def max_len(self) -> int:
@@ -45,33 +56,73 @@ class KVCache:
 
 def init_cache(num_layers, batch, max_len, num_kv_heads, head_dim,
                dtype=torch.bfloat16, device="cpu") -> KVCache:
+    """dtype=torch.int8 allocates the quantized layout: two separate scale
+    tensors, initialised to ones."""
     shape = (num_layers, batch, max_len, num_kv_heads, head_dim)
+    ks = vs = None
+    if dtype == torch.int8:
+        ks = torch.ones(shape[:-1], dtype=torch.float32, device=device)
+        vs = torch.ones(shape[:-1], dtype=torch.float32, device=device)
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
         lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
+        k_scale=ks, v_scale=vs,
     )
 
 
-def write_prompt(layer_k, layer_v, new_k, new_v, offset=0):
+def quantize_tokens(x: torch.Tensor):
+    """(..., H, D) float -> (int8 values, (..., H) f32 scale per token and
+    head): absmax / 127 (1 for an all-zero vector), round half to even."""
+    xf = x.float()
+    m = xf.abs().amax(dim=-1)
+    scale = torch.where(m == 0, torch.ones_like(m), m / 127.0)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_view(x: torch.Tensor, scale: Optional[torch.Tensor], dtype):
+    """int8 (..., H, D) and scale (..., H) -> dtype, the product in dtype;
+    a float cache (scale None) is only cast."""
+    if scale is None:
+        return x.to(dtype)
+    return x.to(dtype) * scale[..., None].to(dtype)
+
+
+def write_prompt(layer_k, layer_v, new_k, new_v, offset=0, layer_ks=None,
+                 layer_vs=None):
     """Prefill write, in place: (B, T, H, D) keys/values go to positions
-    [offset, offset+T) of the (B, S_max, H, D) layer cache."""
+    [offset, offset+T) of the (B, S_max, H, D) layer cache; an int8 cache
+    quantizes them and writes their scales to ``layer_ks`` / ``layer_vs``
+    (B, S_max, H)."""
     t = new_k.shape[1]
+    if layer_k.dtype == torch.int8:
+        new_k, ks = quantize_tokens(new_k)
+        new_v, vs = quantize_tokens(new_v)
+        layer_ks[:, offset:offset + t] = ks
+        layer_vs[:, offset:offset + t] = vs
     layer_k[:, offset:offset + t] = new_k.to(layer_k.dtype)
     layer_v[:, offset:offset + t] = new_v.to(layer_v.dtype)
     return layer_k, layer_v
 
 
-def write_token(layer_k, layer_v, new_k, new_v, lengths):
+def write_token(layer_k, layer_v, new_k, new_v, lengths, layer_ks=None,
+                layer_vs=None):
     """Decode write, in place: row b's (T, H, D) keys/values go to indices
     [lengths[b], lengths[b] + T) (T = 1 a decode step, k + 1 a speculative
-    verify pass). Indices stay on the device (no host sync). JAX's
+    verify pass); an int8 cache quantizes them and writes their scales at
+    the same indices. Indices stay on the device (no host sync). JAX's
     ``dynamic_update_slice`` clamps a window that runs past S_max to end at
     S_max; here it raises, so callers size the cache to hold every write
     (``vlm.spec_cache_len``)."""
     t = new_k.shape[1]
     rows = torch.arange(layer_k.shape[0], device=layer_k.device)[:, None]
     idx = lengths.long()[:, None] + torch.arange(t, device=layer_k.device)
+    if layer_k.dtype == torch.int8:
+        new_k, ks = quantize_tokens(new_k)
+        new_v, vs = quantize_tokens(new_v)
+        layer_ks[rows, idx] = ks
+        layer_vs[rows, idx] = vs
     layer_k[rows, idx] = new_k.to(layer_k.dtype)
     layer_v[rows, idx] = new_v.to(layer_v.dtype)
     return layer_k, layer_v

@@ -68,14 +68,21 @@ in place too.
     gathered batch runs to its end with no admission; later requests wait
     for the next gather.
 
+The dense per-batch path (``paged=False``, and any engine whose KV cache
+is int8: the pool has no int8 layout, as in JAX): a gathered batch prefills
+into a dense cache of its own (``init_cache`` in the engine's
+``_kv_dtype``) and decodes k-token chunks to its end, as the JAX scheduler
+does with ``tables is None``: no admission, shrink, prefix cache, chunked
+admission or speculative chunks; ``warmup()`` does nothing there.
+
 Held back (constructor knobs; setting one on raises NotImplementedError):
 ``chunk_view`` / ``persist_view`` / ``pipeline_depth``. ``warmup()`` runs
 one dummy dispatch of each kind (its docstring), where the JAX one
 compiles every (batch, view width) program.
-Left out: ``paged=False``, the JAX scheduler's dense per-batch cache, and
-its fallback to it when the pool cannot hold a gathered batch's prompts.
-Here the requests that do not fit wait for the next admission, and a
-prompt larger than the whole pool fails alone.
+Left out: the JAX scheduler's fallback to a dense batch when the pool
+cannot hold a gathered batch's prompts. Here the requests that do not fit
+wait for the next admission, and a prompt larger than the whole pool fails
+alone.
 
 Where the port differs without changing an output:
   * the device sees the block tables cut to the page watermark (the widest
@@ -337,7 +344,7 @@ class BatchScheduler:
     updates like Engine.stream's, each with its stats and finish reason."""
 
     def __init__(self, engine, *, max_batch: int = 8, window_ms: float = 15.0,
-                 page_size: int = 64,
+                 paged: bool = True, page_size: int = 64,
                  pool_tokens: int = 16384,
                  prefix_cache: Optional[bool] = None,
                  prefill_chunk: Optional[int] = None, max_pending: int = 2,
@@ -356,30 +363,40 @@ class BatchScheduler:
         for the batch below an acceptance EMA of ``spec_min_accept``.
         ``continuous=False``: window batching, no admission into a running
         batch. ``fairness_s``: how long the oldest deferred request may wait
-        before admission stops and the batch drains (module docstring)."""
+        before admission stops and the batch drains (module docstring).
+        ``paged=False``, or an int8-KV engine: the dense per-batch path
+        (module docstring)."""
         held = {"chunk_view": chunk_view, "persist_view": persist_view,
                 "pipeline_depth": pipeline_depth > 1}
         for name, on in held.items():
             if on:
                 raise NotImplementedError(
                     f"BatchScheduler {name} is not yet ported, see ROADMAP.md")
-        if engine.device.type == "cuda" and page_size not in PAGE_SIZES:
+        if paged and getattr(engine, "_kv_dtype", None) == torch.int8:
+            # the pool has no int8 layout: the dense int8 cache serves
+            logger.info("kv_cache_dtype=int8: paged pool disabled (dense "
+                        "int8 cache serves instead)")
+            paged = False
+        if paged and engine.device.type == "cuda" \
+                and page_size not in PAGE_SIZES:
             raise ValueError(f"page_size {page_size} not in {PAGE_SIZES}, the "
                              f"sizes kernel K3 takes")
         self.engine = engine
+        self.paged = paged
         self.max_batch = max_batch
         self.window_s = window_ms / 1000.0
         self.continuous = continuous
         self.fairness_s = fairness_s
         self.page_size = page_size
-        self.pool = PagePool(max(1, pool_tokens // page_size))
+        self.pool = PagePool(max(1, pool_tokens // page_size)) if paged \
+            else None
         # a suffix prefill skips the prefix's compute, which pays for the
         # host bookkeeping only where prefill is expensive: 1.5B and up
         large = _decoder_param_count(engine.cfg.decoder) >= 1e9
         if prefix_cache is None:
             prefix_cache = large
-        self.prefix = PrefixCache(self.pool, page_size) if prefix_cache \
-            else None
+        self.prefix = PrefixCache(self.pool, page_size) \
+            if paged and prefix_cache else None
         if prefill_chunk is None:
             prefill_chunk = 256 if large else 0
         self.prefill_chunk = int(prefill_chunk or 0)
@@ -436,7 +453,9 @@ class BatchScheduler:
         Every block-table entry is -1, so the writes land in the sink page
         and the pool is never mapped; the pool, the counters and the
         scheduler's generator are left as they were. Returns the number of
-        dummy dispatches."""
+        dummy dispatches: 0 on the dense path, as in JAX."""
+        if not self.paged:
+            return 0
         engine = self.engine
         cfg, dec, dev = engine.cfg, engine.cfg.decoder, engine.device
         sampling = sampling or SamplingParams()
@@ -876,7 +895,10 @@ class BatchScheduler:
                 logger.exception("prepare failed")
                 r.out.put({"error": str(e)})
                 r.out.put(_SENTINEL)
-        placed, row_pages = self._map_prompts(ready)
+        if self.paged:
+            placed, row_pages = self._map_prompts(ready)
+        else:
+            placed, row_pages = ready, [[] for _ in ready]
         # in place: requests admitted later join this list, so the failure
         # envelopes of _loop reach them too
         batch[:] = [r for r, _ in placed]
@@ -904,28 +926,42 @@ class BatchScheduler:
             # slots)
             zero = torch.zeros((s, s, 3), dtype=engine._dtype, device=dev)
             images = torch.stack([zero if x is None else x for x in imgs])
-            cache, tables = self._batch_cache(b, row_pages)
-            batch_cached = self._reuse_batch_prefix(rows, starts_l, n_real,
-                                                    row_pages, tables)
-            if batch_cached:
-                cache = dataclasses.replace(
-                    cache, block_tables=self._device_tables(tables, row_pages))
+            # full-width chunks always: caps end rows on the host, and page
+            # growth covers the overshoot (_grow_pages' cur_len + k target)
+            k = engine.chunk
+            batch_cached = 0
+            tables = None
+            if self.paged:
+                cache, tables = self._batch_cache(b, row_pages)
+                batch_cached = self._reuse_batch_prefix(
+                    rows, starts_l, n_real, row_pages, tables)
+                if batch_cached:
+                    cache = dataclasses.replace(
+                        cache,
+                        block_tables=self._device_tables(tables, row_pages))
+            else:
+                # the dense path: a row may decode one chunk past its cap
+                # before the host closes it, and a dense write past S_max
+                # raises (JAX clamps it)
+                max_new = max(r.max_new_tokens for r in batch)
+                cache = init_cache(
+                    cfg.decoder.num_layers, b, pad_to + (max_new // k + 1) * k,
+                    cfg.decoder.num_kv_heads, cfg.decoder.head_dim,
+                    engine._kv_dtype, dev)
         except BaseException:
             for pgs in row_pages:
-                self.pool.release(pgs)
+                if pgs:
+                    self.pool.release(pgs)
             raise
 
-        # full-width chunks always: caps end rows on the host, and page
-        # growth covers the overshoot (_grow_pages' cur_len + k target)
-        k = engine.chunk
         # cur_len[i] = row i's current device length (prompt + decoded)
         cur_len = [len(r) for r in rows]
         # speculative chunks: a verify pass writes k+1 slots past a row's
         # length and a chunk commits up to spec_width tokens, so the page
         # budgets and the admission guard carry that slack. Armed when the
         # gathered batch is all greedy; a sampled admission turns it off
-        spec_on = self.spec and all(r.sampling.temperature <= 0.0
-                                    for r in batch)
+        spec_on = self.spec and self.paged and all(
+            r.sampling.temperature <= 0.0 for r in batch)
         spec_k = self.spec_draft_k
         spec_m = max(1, -(-k // (spec_k + 1)))
         spec_width = spec_m * (spec_k + 1)
@@ -1468,9 +1504,10 @@ class BatchScheduler:
                 [finished[i] or slots[i] is None for i in range(b)],
                 device=dev)
             under_occ = 0  # consecutive under-occupied boundaries
-            # window batching (continuous=False) never admits; a fairness
-            # drain stops admission for the rest of the batch
-            admitting = self.continuous
+            # window batching (continuous=False) and the dense path never
+            # admit; a fairness drain stops admission for the rest of the
+            # batch
+            admitting = self.continuous and self.paged
 
             while n_active() > 0 or (admitting and not self._stop
                                      and not self.queue.empty()):
@@ -1499,11 +1536,12 @@ class BatchScheduler:
                     spec_live = False
                 # pages through cur_len + spec_width before a spec chunk
                 # (spec_stream_chunk's caller contract)
-                cache = self._grow_pages(cache, tables, row_pages, cur_len,
-                                         finished, slots,
-                                         spec_width if spec_live else k,
-                                         reasons, force=tables_dirty,
-                                         budget=budget_tok, pending=pending)
+                if self.paged:
+                    cache = self._grow_pages(
+                        cache, tables, row_pages, cur_len, finished, slots,
+                        spec_width if spec_live else k, reasons,
+                        force=tables_dirty, budget=budget_tok,
+                        pending=pending)
                 tables_dirty = False
                 # pool exhaustion may have truncated rows: close them now
                 for i in range(b):
@@ -1598,7 +1636,7 @@ class BatchScheduler:
                         spec_banned = True
                         spec_live = False
                         self.counters["spec_banned_low_accept"] += 1
-                if n_active() > 0:
+                if self.paged and n_active() > 0:
                     nb = _round_batch(n_active())
                     if nb < b:
                         # long-tail shrink, with hysteresis: only after 2
@@ -1618,7 +1656,8 @@ class BatchScheduler:
             batch_ok = True
         finally:
             for pgs in row_pages:
-                self.pool.release(pgs)
+                if pgs:
+                    self.pool.release(pgs)
             row_pages = [[] for _ in range(b)]
             if not batch_ok:
                 # a failed dispatch may have left the pool mid-write (or the

@@ -20,8 +20,10 @@ wraps failures in the protocol's error envelopes. Every route pumps
 generator run in-process on a machine without it.
 
 With ``continuous_batching`` the requests share the port's
-``BatchScheduler`` (paged pool, K3 decode); otherwise each streams alone
-through ``Engine.stream`` (dense cache, K2). The scheduler is built with
+``BatchScheduler`` (paged pool, K3 decode; an int8-KV engine's batches
+take its dense path, and ``status()`` then reports no pool, as the JAX
+worker's); otherwise each streams alone through ``Engine.stream`` (dense
+cache, K2). The scheduler is built with
 the page size, pool size, speculative chunks and the admission chunk. The
 JAX worker's ``persist_view`` keyword is not accepted: the port's scheduler
 reads the pool in place and has no views (serve/batcher.py).
@@ -120,9 +122,10 @@ class ModelWorker:
         if self.scheduler is not None:
             out["batching"] = dict(self.scheduler.counters)
             pool = self.scheduler.pool
-            out["kv_pool"] = {"free_pages": pool.free_pages,
-                              "num_pages": pool.num_pages,
-                              "min_free": pool.min_free}
+            if pool is not None:  # the dense path (int8 KV) has no pool
+                out["kv_pool"] = {"free_pages": pool.free_pages,
+                                  "num_pages": pool.num_pages,
+                                  "min_free": pool.min_free}
             if self.scheduler.prefix is not None:
                 out["prefix_cache"] = {
                     "entries": len(self.scheduler.prefix.entries),

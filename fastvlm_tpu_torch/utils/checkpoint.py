@@ -1,4 +1,6 @@
-"""Checkpoint import: released FastVLM (PyTorch/HF) weights -> the port's params.
+"""Checkpoint import: released FastVLM (PyTorch/HF) weights -> the port's
+params; and the native save / restore of the port's own trees
+(``save_native`` / ``restore_native``, at the end of the module).
 
 Counterpart of ``fastvlm_tpu/utils/checkpoint.py``, with the same functions
 and key map. The released checkpoints are LlavaQwen2ForCausalLM state dicts
@@ -480,3 +482,67 @@ def verify_checkpoint(checkpoint_dir: str,
         report["golden_max_abs_diff"] = float(diff.max())
         report["golden_pass_1e-3"] = bool(diff.max() <= 1e-3)
     return report
+
+
+# ---------------------------------------------------------------------------
+# native save / restore (converted, quantized or trained trees)
+# ---------------------------------------------------------------------------
+#
+# The JAX package writes these with Orbax (``save_native`` /
+# ``restore_native``); Orbax imports JAX, so the port keeps its own format:
+# a directory holding ``params.pt``, the nested tree (dicts, lists, tensors)
+# written by ``torch.save`` from CPU copies and read back with
+# ``torch.load(weights_only=True)``, which loads tensors and containers
+# only. Strides are kept (an int8 ``w_q`` stays K-major). The two formats do
+# not read each other; a tree moves between them through numpy
+# (``utils/convert.py`` one way).
+
+NATIVE_FILE = "params.pt"
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tree(fn, v) for v in tree)
+    return fn(tree)
+
+
+def save_native(path: str, params: Any) -> None:
+    """Write ``params`` under the directory ``path`` (made if missing; an
+    earlier bundle there is replaced, as Orbax's ``force=True``)."""
+    os.makedirs(path, exist_ok=True)
+    dst = os.path.join(path, NATIVE_FILE)
+    tmp = dst + ".tmp"
+    torch.save(_map_tree(lambda t: t.detach().cpu(), params), tmp)
+    os.replace(tmp, dst)
+
+
+def restore_native(path: str, like: Any = None, device="cpu") -> Any:
+    """Read the tree under ``path`` onto ``device``. With ``like`` (a tree of
+    the same structure, as the JAX ``restore_native`` takes), every leaf's
+    shape and dtype must match it, and each lands on its ``like`` leaf's
+    device."""
+    tree = torch.load(os.path.join(path, NATIVE_FILE), map_location="cpu",
+                      weights_only=True)
+    if like is None:
+        return _map_tree(lambda t: t.to(device), tree)
+    return _restore_like(tree, like, "")
+
+
+def _restore_like(tree, like, where):
+    if isinstance(like, dict):
+        if not isinstance(tree, dict) or sorted(tree) != sorted(like):
+            raise ValueError(f"restore_native: keys differ at {where or '/'}")
+        return {k: _restore_like(tree[k], like[k], f"{where}/{k}")
+                for k in like}
+    if isinstance(like, (list, tuple)):
+        if not isinstance(tree, (list, tuple)) or len(tree) != len(like):
+            raise ValueError(f"restore_native: lengths differ at {where}")
+        return type(like)(_restore_like(t, l, f"{where}/{i}")
+                          for i, (t, l) in enumerate(zip(tree, like)))
+    if tree.shape != like.shape or tree.dtype != like.dtype:
+        raise ValueError(f"restore_native: {where} is {tuple(tree.shape)} "
+                         f"{tree.dtype}, expected {tuple(like.shape)} "
+                         f"{like.dtype}")
+    return tree.to(like.device)

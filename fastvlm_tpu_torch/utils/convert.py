@@ -13,7 +13,11 @@ own dtype. The conversion:
     tower ``layers``) -> one dict per block / layer;
   * fused (``qkv``, ``gateup``) and unfused decoder layouts both pass
     through as they are; folded trees (no ``ls`` leaves) and unfolded ones
-    both work.
+    both work;
+  * quantized decoder linears (``fastvlm_tpu/ops/quant.py``: ``w_q`` int8,
+    ``scale`` f32, ``a8`` int8, ``b``) keep their leaves and dtypes, the
+    stacked ones split per layer like any other; an int8 ``w_q`` is laid
+    out K-major (``ops/quant.card_layout``), its values unchanged.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 
 from fastvlm_tpu_torch.config import FastVLMConfig, FastViTConfig
 from fastvlm_tpu_torch.models.clip_vit import CLIPViTConfig
+from fastvlm_tpu_torch.ops.quant import card_layout
 
 Params = Dict[str, Any]
 
@@ -53,7 +58,10 @@ def _conv_p(p) -> Params:
 
 
 def _linear_p(p) -> Params:
-    return {k: _tensor(v) for k, v in p.items()}
+    out = {k: _tensor(v) for k, v in p.items()}
+    if "w_q" in out:
+        out["w_q"] = card_layout(out["w_q"])
+    return out
 
 
 def _unstack(tree, n: int) -> List[Any]:

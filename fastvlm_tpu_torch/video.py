@@ -82,7 +82,7 @@ class VideoQA:
         slack = draft_k + 1 if spec else 0
         self.cache = init_cache(
             cfg.decoder.num_layers, 1, start + bucket + max_new_tokens + slack,
-            cfg.decoder.num_kv_heads, cfg.decoder.head_dim, engine._dtype,
+            cfg.decoder.num_kv_heads, cfg.decoder.head_dim, engine._kv_dtype,
             dev)
         if spec:
             # draft corpus = [prompt row | the previous frame's answer at
