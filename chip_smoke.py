@@ -204,7 +204,28 @@ non-zero):
               equal to eager, ms beside eager; a 1.5B int8 bundle
               (export.quantize_checkpoint) written, restored onto the card
               and served: the in-memory quantized engine's ids
- 18. small    a small f32 model on the card (kernels) agrees with the same
+ 18. train    SFT at FastVLM-0.5B's full width (FastViTHD @1024 re-drawn
+              live, mlp2x_gelu 3072 -> 896, Qwen2-0.5B; bf16, random
+              weights from a seed) through Trainer.train on 16 synthetic
+              qwen_2 records (1024x768 JPEG / PNG images, answers of
+              64-256 bytes; byte tokenizer, SupervisedDataset,
+              LengthGroupedSampler, collate): 12 steps at batch 4, tower
+              frozen (the loss must fall; step ms, trained tokens/s, the
+              host's data ms and which image loader ran, peak memory, the
+              idle share of two more steps and their top kernels; K1 44 a
+              step, one call a block over the batch, no K2 / K3); save and
+              resume through save_native / restore_native (params and
+              moments bitwise, one more step); LoRA r = 8 for 6 steps (only
+              the adapters move; merged against unmerged greedy ids, the
+              merged ids replayed through the unmerged adapters within the
+              tie margin, the adapters' shift of the first logits); QLoRA
+              on an int8 base for 6 steps; K1 through FusedFFNFunction at
+              the five widths and a batch's rows against ffn_reference
+              (forward and gradients), then the tower unfrozen for 3 steps
+              (every tower leaf's gradient non-zero); a tiny f32 model
+              trained 3 steps with its tower unfrozen on the card and on
+              the CPU (losses and params within TRAIN_SMALL_TOL)
+ 19. small    a small f32 model on the card (kernels) agrees with the same
               model on the CPU (plain versions), logits and greedy ids,
               spec_decode's tokens, counts, passes and acceptances, and
               beam_search's tokens, lengths and scores (W = 3, K2 at batch
@@ -4028,6 +4049,476 @@ def phase_export(card, tower, cfg7):
     return res
 
 
+TRAIN_STEPS = 12
+TRAIN_BATCH = 4
+# the small f32 model trained on the card (kernels) and on the CPU (plain
+# versions), TF32 off: the losses within this relative tolerance and every
+# param within it of its group's largest |value| (the CPU parity tests hold
+# the port to JAX at the same tolerance)
+TRAIN_SMALL_TOL = 1e-4
+TRAIN_WORDS = ("red", "green", "stripe", "gradient", "noise", "blue", "left",
+               "right", "top", "bottom", "bright", "dark", "wave", "band")
+
+
+def _sft_data(root, n, size, seed, answer_bytes=(64, 256)):
+    """``n`` qwen_2 records under ``root`` with distinct images of ``size``
+    (w, h), JPEG and PNG in turns, answers of ``answer_bytes`` spread over
+    the records; returns the JSON's path."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    lo, hi = answer_bytes
+    records = []
+    for i in range(n):
+        name = f"{i}.jpg" if i % 2 == 0 else f"{i}.png"
+        Image.fromarray(_scene(size[0], size[1], seed + i)).save(
+            os.path.join(root, name), quality=90)
+        want = lo + (hi - lo) * i // max(n - 1, 1)
+        answer = ""
+        while len(answer) < want:
+            answer += TRAIN_WORDS[rng.randint(len(TRAIN_WORDS))] + " "
+        records.append({"id": str(i), "image": name, "conversations": [
+            {"from": "human", "value": "<image>\nDescribe the image."},
+            {"from": "gpt", "value": answer[:want].strip() + "."}]})
+    path = os.path.join(root, "data.json")
+    with open(path, "w") as f:
+        json.dump(records, f)
+    return path
+
+
+def _train_run(trainer, steps, what):
+    """Train ``steps`` steps (log_steps 1: the loss is read, and the device
+    synchronised, after every step); returns the step walls, losses, data
+    ms, tokens, launches and peak memory. Fails unless K1 ran once a tower
+    block a step (44 for FastViTHD: one call a block over the batch's rows)
+    and K2 / K3 never."""
+    blocks = sum(trainer.cfg.vision.layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.perf_counter()
+    result = trainer.train()
+    torch.cuda.synchronize()
+    k1, k2, k3 = (int(n) for n in _launches())
+    hist = trainer.history[-steps:]
+    stamps = [t0] + [h["t"] for h in hist]
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    losses = [h["loss"] for h in hist]
+    if len(hist) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"{what}: {len(hist)} steps, losses {losses}")
+    if k1 != blocks * steps or k2 or k3:
+        raise AssertionError(f"{what}: K1 {k1} (expected {blocks} x "
+                             f"{steps}), K2 {k2}, K3 {k3} (expected 0)")
+    later = step_ms[1:] or step_ms
+    return {"result": result, "losses": losses, "step_ms": step_ms,
+            "median_ms": statistics.median(later),
+            "tok_s": sum(h["tokens"] for h in hist[1:] or hist)
+            / (sum(later) / 1e3),
+            "data_ms": statistics.median(h["data_ms"] for h in hist),
+            "k1": k1, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def _leaf_snapshot(tree, keep):
+    from fastvlm_tpu_torch.train.step import named_leaves
+
+    return {p: x.detach().clone() for p, x in named_leaves(tree) if keep(p)}
+
+
+def _check_only_adapters_moved(tree, frozen_before, what):
+    from fastvlm_tpu_torch.train.lora import is_lora_path
+    from fastvlm_tpu_torch.train.step import named_leaves
+
+    moved = 0
+    for p, x in named_leaves(tree):
+        if is_lora_path(p):
+            moved += p.endswith("lora_b") and bool((x != 0).any())
+        elif not torch.equal(x.detach(), frozen_before[p]):
+            raise AssertionError(f"{what}: frozen leaf {p} changed")
+    if not moved:
+        raise AssertionError(f"{what}: no adapter moved")
+    return moved
+
+
+def _first_logits(engine, prompt, image):
+    from fastvlm_tpu_torch.models import vlm
+    from fastvlm_tpu_torch.ops.kv_cache import init_cache
+
+    cfg = engine.cfg
+    with torch.inference_mode():
+        inputs = engine.prepare(engine.build_prompt(prompt), image)
+        t = inputs["ids"].shape[1]
+        cache = init_cache(cfg.decoder.num_layers, 1, t + 1,
+                           cfg.decoder.num_kv_heads, cfg.decoder.head_dim,
+                           engine._kv_dtype, "cuda")
+        logits, _ = vlm.prefill(engine.params, cfg, inputs["images"],
+                                inputs["ids"], inputs["lens"],
+                                inputs["starts"], cache)
+    return logits[0].float()
+
+
+def _k1_function_checks(gen):
+    """K1's forward through FusedFFNFunction against ffn_reference, and its
+    gradients against autograd through ffn_reference, at FastViTHD's five
+    widths and the rows of a batch of 4 at 1024 px (bf16). Returns the max
+    abs errors (forward, gradients)."""
+    from fastvlm_tpu_torch.ops.cuda.ffn import FusedFFNFunction, ffn_reference
+
+    fwd_err = grad_err = 0.0
+    for n_img, c, _ in K1_STAGES:
+        n = TRAIN_BATCH * n_img
+        ins = [x.requires_grad_() for x in
+               _ffn_inputs(n, c, torch.bfloat16, gen)]
+        out = FusedFFNFunction.apply(*ins)
+        ref = ffn_reference(*ins)
+        err, _ = compare(out.detach(), ref.detach(), K1_TOL[torch.bfloat16],
+                         f"FusedFFNFunction forward, N={n} C={c}")
+        g = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
+        got = torch.autograd.grad(out, ins, g)
+        want = torch.autograd.grad(ref, ins, g)
+        gerr = max(float((a.float() - b.float()).abs().max())
+                   for a, b in zip(got, want))
+        if not all(bool(torch.isfinite(a).all()) for a in got) or gerr > 0:
+            raise AssertionError(f"FusedFFNFunction gradients at N={n} C={c}"
+                                 f" differ from autograd through "
+                                 f"ffn_reference by {gerr:.3e}")
+        fwd_err, grad_err = max(fwd_err, err), max(grad_err, gerr)
+        log("train", f"K1 under autograd at N={n} C={c}: forward max_abs_err "
+                     f"{err:.3e}, gradients max_abs_err {gerr:.3e} (the "
+                     f"plain backward)")
+        del ins, out, ref, got, want
+    return fwd_err, grad_err
+
+
+def _idle_share(trainer, cfg, steps=2):
+    """(wall ms, kernel ms, top kernels) of ``steps`` train_steps on
+    pre-collated batches (no data work), kernel time by torch.profiler
+    (CUDA activity only; None where the session shows no device time); the
+    top kernels as (name, ms a step, launches a step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fastvlm_tpu_torch.train import step as step_mod
+    from fastvlm_tpu_torch.train.trainer import batches
+
+    it = batches(trainer.dataset, trainer.sampler, TRAIN_BATCH,
+                 cfg.num_image_tokens)
+    ready = [trainer._to_device(next(it)) for _ in range(steps)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in ready:
+            trainer.state, loss = step_mod.train_step(trainer.state, cfg,
+                                                      trainer.tx, b)
+        float(loss)
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)
+    us = sum(e.self_device_time_total for e in rows)
+    top = [(e.key[:60], round(e.self_device_time_total / 1e3 / steps, 3),
+            e.count // steps) for e in rows[:10]]
+    return wall, (us / 1e3 if us > 0 else None), top
+
+
+def phase_train(card, gen):
+    """SFT at FastVLM-0.5B's full width through Trainer.train: full
+    fine-tune (tower frozen), save and resume, LoRA and QLoRA, the tower
+    unfrozen (K1 through FusedFFNFunction); then a small f32 model trained
+    on the card and on the CPU."""
+    import shutil
+
+    from fastvlm_tpu_torch import config as C
+    from fastvlm_tpu_torch.data.preprocessing import (
+        ByteTokenizer, ImageProcessor)
+    from fastvlm_tpu_torch.data.sft import DataArguments, SupervisedDataset
+    from fastvlm_tpu_torch.engine import Engine
+    from fastvlm_tpu_torch.models import qwen2
+    from fastvlm_tpu_torch.train import lora
+    from fastvlm_tpu_torch.train import step as step_mod
+    from fastvlm_tpu_torch.train.trainer import Trainer, TrainingArguments
+    from fastvlm_tpu_torch.utils import native_image
+
+    t_phase = time.perf_counter()
+    res = {"k1": {}}
+    cfg = _fastvithd_cfg(C.qwen2_0_5b(param_dtype="bfloat16",
+                                      compute_dtype="bfloat16"))
+    tower, proj = _live_encoder(cfg, 61)
+    dgen = torch.Generator(device="cuda")
+    dgen.manual_seed(62)
+    params = {"vision": tower, "projector": proj,
+              "decoder": qwen2.init(dgen, cfg.decoder, "cuda")}
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        t0 = time.perf_counter()
+        data_path = _sft_data(work, 16, (1024, 768), 70)
+        native = native_image.available()
+        res["native_loader"] = native
+        log("train", f"16 qwen_2 records with 1024x768 JPEG / PNG images "
+                     f"written in {time.perf_counter() - t0:.1f} s; native "
+                     f"JPEG loader built and loaded: {native}"
+                     + ("" if native else f" ({native_image.load_error})"))
+
+        def dataset():
+            return SupervisedDataset(
+                DataArguments(data_path=data_path, image_folder=work),
+                ByteTokenizer(), ImageProcessor(cfg.vision.image_size))
+
+        def trainer(out, **kw):
+            kw = {"batch_size": TRAIN_BATCH, "save_steps": 0, "log_steps": 1,
+                  "warmup_ratio": 0.0, "seed": 0, **kw}
+            return Trainer(cfg, params, dataset(),
+                           TrainingArguments(output_dir=os.path.join(work, out),
+                                             **kw), device="cuda")
+
+        # 1. full fine-tune, tower frozen
+        tr = trainer("full", max_steps=TRAIN_STEPS, learning_rate=3e-4)
+        run = _train_run(tr, TRAIN_STEPS, "train")
+        if not run["losses"][-1] < run["losses"][0]:
+            raise AssertionError(f"train: the loss did not fall: "
+                                 f"{run['losses']}")
+        loads = dict(tr.dataset.image_loads)
+        res["train"] = {k: run[k] for k in ("losses", "step_ms", "median_ms",
+                                            "tok_s", "data_ms", "peak_gib")}
+        res["train"]["loads"] = loads
+        res["k1"]["train"] = run["k1"]
+        log("train", f"FastVLM-0.5B SFT, batch {TRAIN_BATCH}, "
+                     f"{TRAIN_STEPS} steps (tower frozen): loss "
+                     f"{run['losses'][0]:.4f} at step 1 -> "
+                     f"{run['losses'][-1]:.4f} at step {TRAIN_STEPS}; step "
+                     f"1 {run['step_ms'][0]:.1f} ms, then median "
+                     f"{run['median_ms']:.2f} ms a step (wall, data "
+                     f"included; all: {[round(x, 1) for x in run['step_ms']]})"
+                     f"; {run['tok_s']:.1f} trained tokens/s (real tokens, "
+                     f"the 256-token image spans included); host data "
+                     f"{run['data_ms']:.1f} ms a batch (median), image "
+                     f"loaders {loads}; peak {run['peak_gib']:.2f} GiB; K1 "
+                     f"{run['k1']} = {sum(cfg.vision.layers)} x "
+                     f"{TRAIN_STEPS} (one call a block over the batch's "
+                     f"{TRAIN_BATCH} images), K2 0, K3 0; on {card}")
+
+        # save, then resume: bitwise, and one more step
+        tr2 = trainer("full", max_steps=TRAIN_STEPS + 1, learning_rate=3e-4)
+        t0 = time.perf_counter()
+        if tr2.resume() != TRAIN_STEPS:
+            raise AssertionError("resume did not find checkpoint-12")
+        t_restore = time.perf_counter() - t0
+        for name in ("params", "opt_state"):
+            a = step_mod.named_leaves(getattr(tr.state, name))
+            b = dict(step_mod.named_leaves(getattr(tr2.state, name)))
+            for p, x in a:
+                if not torch.equal(x.detach(), b[p].detach()):
+                    raise AssertionError(f"resume: {name} {p} differs")
+        ckpt = os.path.join(work, "full", f"checkpoint-{TRAIN_STEPS}")
+        gib = sum(os.path.getsize(os.path.join(r, f))
+                  for r, _, fs in os.walk(ckpt) for f in fs) / 2 ** 30
+        del tr  # train() resumes tr2 from checkpoint-12 again, then steps
+        gc.collect()
+        torch.cuda.empty_cache()
+        more = _train_run(tr2, 1, "train-resume")
+        log("train", f"save / resume: checkpoint-{TRAIN_STEPS} "
+                     f"({gib:.2f} GiB: params + opt_state) restored in "
+                     f"{t_restore:.1f} s, params and moments bitwise equal; "
+                     f"one more step ran (loss {more['losses'][0]:.4f})")
+        wall, kern, top = _idle_share(tr2, cfg)
+        idle = None if kern is None else 1 - kern / wall
+        res["train"].update(idle_wall_ms=wall, idle_kernel_ms=kern,
+                            idle=idle, resume_gib=gib)
+        log("train", f"two more steps on pre-collated batches: "
+                     f"{wall:.1f} ms wall, {fmt_ms(kern)} of kernels: idle "
+                     f"share {'not measured' if idle is None else f'{idle:.3f}'}"
+                     f"; top kernels (name, ms a step, launches a step): "
+                     f"{top}")
+        shutil.rmtree(os.path.join(work, "full"))
+        del tr2
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 2. LoRA r = 8, merge, and the merged / unmerged engines
+        tr = trainer("lora", max_steps=6, lora_enable=True, lora_r=8,
+                     learning_rate=2e-3)
+        frozen = _leaf_snapshot(tr.state.params,
+                                lambda p: not lora.is_lora_path(p))
+        run = _train_run(tr, 6, "train-lora")
+        moved = _check_only_adapters_moved(tr.state.params, frozen,
+                                           "train-lora")
+        del frozen
+        res["k1"]["train-lora"] = run["k1"]
+        res["lora"] = {k: run[k] for k in ("losses", "median_ms", "tok_s",
+                                           "peak_gib")}
+        image = _scene(1024, 768, 7)
+        prompt = "Describe the image."
+        adapted = {**tr.state.params}
+        merged = {**adapted, "decoder": lora.merge(adapted["decoder"])}
+        e_base = Engine(cfg, params, IdTokenizer())
+        e_un = Engine(cfg, adapted, IdTokenizer())
+        e_m = Engine(cfg, merged, IdTokenizer())
+        text_m = e_m.generate(e_m.build_prompt(prompt), image,
+                              max_new_tokens=32)[0]
+        text_u = e_un.generate(e_un.build_prompt(prompt), image,
+                               max_new_tokens=32)[0]
+        ids_m = [int(t) for t in text_m.split(",") if t]
+        ids_u = [int(t) for t in text_u.split(",") if t]
+        same = sum(a == b for a, b in zip(ids_m, ids_u))
+        _check_replay("train", "the merged LoRA model's ids through the "
+                      "unmerged adapters", e_un, prompt, image, text_m)
+        base_row = _first_logits(e_base, prompt, image)
+        un_row = _first_logits(e_un, prompt, image)
+        top = float(base_row.abs().max())
+        ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+        shift = float((un_row - base_row).abs().max()) / ulp
+        if shift <= TIE_ULPS:
+            raise AssertionError(f"train-lora: the unmerged adapters move the "
+                                 f"first logits by {shift:.1f} bf16 ulps only")
+        res["lora"].update(same_ids=same, n_ids=len(ids_m),
+                           adapter_shift_ulps=shift)
+        log("train", f"LoRA r=8, 6 steps: loss {run['losses'][0]:.4f} -> "
+                     f"{run['losses'][-1]:.4f}, median {run['median_ms']:.2f} "
+                     f"ms a step, {run['tok_s']:.1f} tokens/s, peak "
+                     f"{run['peak_gib']:.2f} GiB; only adapters changed "
+                     f"({moved} lora_b leaves moved, every other leaf "
+                     f"bitwise); K1 {run['k1']}; merged vs unmerged greedy: "
+                     f"{same}/{len(ids_m)} ids equal, the merged ids replayed"
+                     f" through the unmerged adapters within the tie margin; "
+                     f"the adapters move the first logits by {shift:.1f} "
+                     f"bf16 ulps against the base")
+        del tr, adapted, merged, e_base, e_un, e_m
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        tr = trainer("qlora", max_steps=6, lora_enable=True, lora_r=8,
+                     bits=8, learning_rate=2e-3)
+        frozen = _leaf_snapshot(tr.state.params,
+                                lambda p: not lora.is_lora_path(p))
+        run = _train_run(tr, 6, "train-qlora")
+        _check_only_adapters_moved(tr.state.params, frozen, "train-qlora")
+        del frozen
+        res["k1"]["train-qlora"] = run["k1"]
+        res["qlora"] = {k: run[k] for k in ("losses", "median_ms", "tok_s",
+                                            "peak_gib")}
+        log("train", f"QLoRA (int8 base) r=8, 6 steps: loss "
+                     f"{run['losses'][0]:.4f} -> {run['losses'][-1]:.4f}, "
+                     f"median {run['median_ms']:.2f} ms a step, "
+                     f"{run['tok_s']:.1f} tokens/s, peak "
+                     f"{run['peak_gib']:.2f} GiB; only adapters changed; K1 "
+                     f"{run['k1']}")
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 3. the tower unfrozen: K1 through FusedFFNFunction
+        fwd_err, grad_err = _k1_function_checks(gen)
+        res["k1_fwd_err"], res["k1_grad_err"] = fwd_err, grad_err
+        tr = trainer("tower", max_steps=3, unfreeze_mm_vision_tower=True,
+                     learning_rate=1e-4)
+        batch = next(iter_batches(tr, cfg))
+        step_mod.loss_fn(tr.state.params, cfg, batch).backward()
+        dead = [p for p, x in step_mod.named_leaves(tr.state.params["vision"])
+                if x.grad is None or not bool((x.grad != 0).any())]
+        n_vis = sum(1 for _ in step_mod.named_leaves(tr.state.params["vision"]))
+        for _, x in step_mod.named_leaves(tr.state.params):
+            x.grad = None
+        if dead:
+            raise AssertionError(f"train-tower: {len(dead)} tower leaves got "
+                                 f"no gradient: {dead[:5]}")
+        run = _train_run(tr, 3, "train-tower")
+        res["k1"]["train-tower"] = run["k1"]
+        res["tower"] = {k: run[k] for k in ("losses", "step_ms", "median_ms",
+                                            "tok_s", "peak_gib")}
+        log("train", f"tower unfrozen, 3 steps: all {n_vis} tower leaves "
+                     f"take non-zero gradients; loss {run['losses'][0]:.4f} "
+                     f"-> {run['losses'][-1]:.4f}; step 1 "
+                     f"{run['step_ms'][0]:.1f} ms, then median "
+                     f"{run['median_ms']:.2f} ms; peak "
+                     f"{run['peak_gib']:.2f} GiB; K1 {run['k1']} through "
+                     f"FusedFFNFunction")
+        del tr, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    del params, tower, proj
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["small"] = _train_small()
+    log("train", f"phase took {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
+def iter_batches(trainer, cfg):
+    """The trainer's batches, on the card."""
+    from fastvlm_tpu_torch.train.trainer import batches
+
+    for b in batches(trainer.dataset, trainer.sampler, TRAIN_BATCH,
+                     cfg.num_image_tokens):
+        yield trainer._to_device(b)
+
+
+def _train_small():
+    """The tiny f32 model (train_sft --random-tiny's, tower re-drawn live)
+    trained 3 steps with the tower unfrozen on the card (K1 through
+    FusedFFNFunction) and on the CPU (plain): losses and params within
+    TRAIN_SMALL_TOL."""
+    import shutil
+
+    from fastvlm_tpu_torch.data.preprocessing import (
+        ByteTokenizer, ImageProcessor)
+    from fastvlm_tpu_torch.data.sft import DataArguments, SupervisedDataset
+    from fastvlm_tpu_torch.models import vlm
+    from fastvlm_tpu_torch.train.step import named_leaves
+    from fastvlm_tpu_torch.train.train_sft import tiny_config
+    from fastvlm_tpu_torch.train.trainer import Trainer, TrainingArguments
+
+    cfg = tiny_config()
+    gen = torch.Generator()
+    gen.manual_seed(5)
+    params = vlm.init(gen, cfg)
+    params["vision"] = _live_tower(params["vision"], gen)
+    work = tempfile.mkdtemp(prefix="chip_smoke_small_")
+    out = {}
+    try:
+        data_path = _sft_data(work, 8, (160, 120), 80, answer_bytes=(16, 48))
+        for i, dev in enumerate(("cuda", "cpu")):
+            ds = SupervisedDataset(
+                DataArguments(data_path=data_path, image_folder=work),
+                ByteTokenizer(), ImageProcessor(cfg.vision.image_size))
+            args = TrainingArguments(
+                output_dir=os.path.join(work, f"run{i}"), batch_size=4,
+                max_steps=3, log_steps=1, save_steps=0, warmup_ratio=0.0,
+                learning_rate=1e-3, unfreeze_mm_vision_tower=True)
+            tr = Trainer(cfg, params, ds, args, device=dev)
+            _zero_launches()
+            tr.train()
+            out[i] = (tr, int(_launches()[0]))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    (card_tr, k1), (cpu_tr, _) = out[0], out[1]
+    lc = [h["loss"] for h in card_tr.history]
+    lp = [h["loss"] for h in cpu_tr.history]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
+    worst = 0.0
+    for group in cpu_tr.state.params:
+        want = dict(named_leaves(cpu_tr.state.params[group]))
+        top = max(float(x.detach().abs().max()) for x in want.values())
+        for p, x in named_leaves(card_tr.state.params[group]):
+            err = float((x.detach().cpu() - want[p].detach()).abs().max())
+            worst = max(worst, err / top)
+    n_blocks = sum(cfg.vision.layers)
+    if loss_err > TRAIN_SMALL_TOL or worst > TRAIN_SMALL_TOL:
+        raise AssertionError(f"small model training, card vs CPU: losses "
+                             f"{lc} vs {lp} (rel {loss_err:.2e}), params "
+                             f"{worst:.2e} of their group's largest (tol "
+                             f"{TRAIN_SMALL_TOL})")
+    if k1 != n_blocks * 3:
+        raise AssertionError(f"small model training: K1 {k1}, expected "
+                             f"{n_blocks} x 3")
+    log("train", f"tiny f32 model, 3 steps, tower unfrozen: card (K1 "
+                 f"{k1} = {n_blocks} x 3 through FusedFFNFunction) vs CPU "
+                 f"(plain) losses {[round(x, 6) for x in lc]}, rel err "
+                 f"{loss_err:.2e}; params within {worst:.2e} of their "
+                 f"group's largest (tol {TRAIN_SMALL_TOL})")
+    return {"loss_rel_err": loss_err, "param_rel_err": worst, "k1": k1}
+
+
 def main() -> int:
     # fail before printing anything without a card or outside a checkout
     if not torch.cuda.is_available():
@@ -4075,6 +4566,7 @@ def main() -> int:
                               quant_res.pop("cfg"))
     gc.collect()
     torch.cuda.empty_cache()
+    train_res = phase_train(card, gen)
     phase_small()
     quant_paths = ("7b-int8", "7b-w8a8", "7b-int4", "decode-int8",
                    "decode-w8a8")
@@ -4106,8 +4598,10 @@ def main() -> int:
                               **{p: quant_res[p]["launches"][0]
                                  for p in quant_paths},
                               "kv-int8": int(kv_launches[0]),
-                              "export": export_res["encoder"]["k1"]},
-         "max_abs_err": max(k1_err, anyres_res["k1_err"]),
+                              "export": export_res["encoder"]["k1"],
+                              **train_res["k1"]},
+         "max_abs_err": max(k1_err, anyres_res["k1_err"],
+                            train_res["k1_fwd_err"]),
          "ms": k1["ms"], "kernel_ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": "operations",
          "library_ms": None, "library_chain_ms": k1["chain_ms"],
@@ -4115,7 +4609,13 @@ def main() -> int:
                      "bound_by: the sum is set by the 40 calls of stages "
                      "1-3; library_chain_ms: addmm-gelu-addmm-add in bf16 "
                      "cuBLAS, context only; max_abs_err also over the "
-                     "5-tile stack's stage-2 call (N=20480, C=384)"},
+                     "5-tile stack's stage-2 call (N=20480, C=384) and the "
+                     "training batch's five widths through "
+                     "FusedFFNFunction (N = 4 images' rows); train paths: "
+                     "44 a step, one call a block over the batch",
+         "backward": "plain torch (autograd through ffn_reference), as "
+                     "JAX trains through XLA's FFN",
+         "backward_max_abs_err": train_res["k1_grad_err"]},
         {"name": "decode_attention", "route": "cuda",
          "source": "fastvlm_tpu_torch/csrc/decode_attention.cu",
          "replaces": "fastvlm_tpu/ops/pallas/decode_attention.py:167",

@@ -19,10 +19,14 @@ Layout:
                sampling, prompt-lookup speculative decoding, beam search,
                splice, image resize, int8 / int4 / W8A8 quantization, CUDA
                kernels
-    data/      conversation templates, constants, host preprocessing
+    data/      conversation templates, constants, host preprocessing, the
+               SFT data pipeline (target masking, dataset, collate)
+    train/     SFT training: sampler, loss and AdamW step, LoRA / QLoRA,
+               the trainer with native checkpoints, the train_sft CLI
     utils/     HF checkpoint import (branch fusion, BN fold, key audit) and
-               export, native bundles, weight deltas, and the weight bridge
-               from the JAX package's tree
+               export, native bundles, weight deltas, the native JPEG
+               loader, and the weight (and optimizer-state) bridge from the
+               JAX package's tree
     serve/     the continuous-batching scheduler over the paged pool (or a
                dense per-batch cache), the HTTP tier
     eval/      the batch evaluation harness

@@ -123,8 +123,9 @@ def init(gen: torch.Generator, cfg: FastViTConfig, device="cpu") -> Params:
 
 def _ffn_residual(x, p, ls: Optional[torch.Tensor]):
     """x + ls * ConvFFN(x): the depthwise 7x7 conv here, then the pointwise
-    half (fc1, GELU, fc2, layer-scaled residual) in kernel K1. ls is None
-    when fold_layer_scale folded it into fc2."""
+    half (fc1, GELU, fc2, layer-scaled residual) in kernel K1, through
+    ``FusedFFNFunction`` when the tower trains (``ffn_block_apply``
+    routes). ls is None when fold_layer_scale folded it into fc2."""
     t = conv2d(x, p["dw"]["w"], p["dw"]["b"], groups=x.shape[-1])
     return ffn_block_apply(t, x, p, ls)
 

@@ -31,6 +31,10 @@ The cache is updated in place (``ops/kv_cache.py``).
 
 Quantized linears (``ops/quant.py``: ``w_q`` / ``scale`` / ``a8`` leaves)
 run through ``quantized_matmul`` in ``_project`` and in an untied LM head.
+LoRA adapters (``train/lora.py``: ``lora_a`` / ``lora_b`` / ``lora_scale``)
+add their delta to a dense or a quantized linear in ``_project``. Training
+runs ``forward`` without a cache, ``remat=True`` recomputing each layer in
+the backward pass.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from fastvlm_tpu_torch.config import Qwen2Config, resolve_dtype
 from fastvlm_tpu_torch.ops.conv import rms_norm
@@ -167,23 +172,36 @@ def _norm(x, w, cfg: Qwen2Config):
 
 
 def _lora_delta(x, p):
-    """scale * (x @ A) @ B in f32: a low-rank adapter's contribution, the
-    inner product rounded to x's dtype as in JAX."""
-    low = torch.matmul(x.float(), p["lora_a"].float()).to(x.dtype)
-    delta = torch.matmul(low.float(), p["lora_b"].float())
+    """scale * (x @ A) @ B in f32: a low-rank adapter's contribution. A and
+    B are rounded to x's dtype first and the inner product rounded to it,
+    as in JAX (an f32 adapter on bf16 activations: QLoRA)."""
+    a = p["lora_a"].to(x.dtype).float()
+    low = torch.matmul(x.float(), a).to(x.dtype)
+    delta = torch.matmul(low.float(), p["lora_b"].to(x.dtype).float())
     return p["lora_scale"].float() * delta
 
 
 def _project(x, p):
     """x @ w (+ b): f32 accumulation, bias added before the output rounding
-    (``F.linear`` with the bias fused). A quantized linear goes through
-    ``quantized_matmul`` (scale and bias inside, one rounding), then a
-    QLoRA adapter adds its delta in f32 and rounds again, as in JAX."""
+    (``F.linear`` with the bias fused). A linear with LoRA adapters
+    (``train/lora.py``) adds the adapter's delta to the f32 product, then
+    the bias, and rounds once, as in JAX (the f32 product is taken on
+    f32 copies of the operands: ``torch.mm``'s f32-output overload has no
+    derivative, and training differentiates this path). A quantized linear
+    goes through ``quantized_matmul`` (scale and bias inside, one rounding),
+    then a QLoRA adapter adds its delta in f32 and rounds again, as in
+    JAX."""
     if "w_q" in p:
         out = quantized_matmul(x, p)
         if "lora_a" in p:
             out = (out.float() + _lora_delta(x, p)).to(x.dtype)
         return out
+    if "lora_a" in p:
+        out = torch.matmul(x.float(), p["w"].to(x.dtype).float()) \
+            + _lora_delta(x, p)
+        if "b" in p:
+            out = out + p["b"].float()
+        return out.to(x.dtype)
     return F.linear(x, p["w"].to(x.dtype).t(),
                     None if "b" not in p else p["b"].to(x.dtype))
 
@@ -381,13 +399,17 @@ def forward(
     mask: Optional[torch.Tensor] = None,  # (B, T, S) bool, True = attend
     prefill: bool = True,
     prefill_offset: int = 0,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Union[KVCache, PagedKVCache]]]:
     """Run the decoder stack over embeddings; returns (hidden, cache).
 
     With a cache (dense, or paged with S = its virtual capacity): prefill
     writes rows [offset, offset+T), decode writes at cache.lengths; the
     returned cache shares the (updated) tensors and carries the advanced
-    lengths. Without a cache: causal self-attention."""
+    lengths. Without a cache: causal self-attention (the training path),
+    where ``remat`` recomputes each layer in the backward pass instead of
+    keeping its activations (``torch.utils.checkpoint``, JAX's
+    ``jax.checkpoint`` around the scanned layer)."""
     x = inputs_embeds
     b, t, _ = x.shape
     if mask is None:
@@ -420,6 +442,11 @@ def forward(
             ck, cv = cache.k[i], cache.v[i]
             if quant_kv:
                 cks, cvs = cache.k_scale[i], cache.v_scale[i]
+        if remat and cache is None and torch.is_grad_enabled():
+            x = torch.utils.checkpoint.checkpoint(
+                _layer, x, lp, cfg, cos, sin, None, None, mask, None, prefill,
+                bias, use_reentrant=False)
+            continue
         x = _layer(x, lp, cfg, cos, sin, ck, cv, mask, lengths, prefill, bias,
                    prefill_offset, tables, dest, new_lengths, cks, cvs)
     new_cache = None

@@ -12,6 +12,14 @@ Routing is by device only: a CPU tensor takes ``ffn_reference``; a CUDA
 tensor launches the kernel or raises. ``fused_ffn.launches`` counts kernel
 launches.
 
+Training: the ctypes launch writes a fresh tensor that autograd cannot see,
+so ``fused_ffn`` raises on a CUDA input that requires grad (with grad
+enabled) instead of cutting the graph. ``FusedFFNFunction`` wraps it: its
+forward is ``fused_ffn`` (the kernel on the card), its backward
+differentiates ``ffn_reference`` in plain PyTorch. The JAX package has no
+backward kernel either: it trains through XLA's FFN. ``ffn_block_apply``
+takes the Function whenever grad is enabled and an input requires it.
+
 ``torch.ops.fastvlm.fused_ffn`` is the same function registered as a
 PyTorch custom op with a fake (shape-only) implementation, so that
 ``torch.export`` can trace an encoder through it: the ctypes launch cannot
@@ -87,6 +95,12 @@ def fused_ffn(t: torch.Tensor, residual: torch.Tensor, w1: torch.Tensor,
     one stream run in order and share it, calls on two streams never do."""
     if t.device.type == "cpu":
         return ffn_reference(t, residual, w1, b1, w2, b2, ls)
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad
+            for x in (t, residual, w1, b1, w2, b2, ls)):
+        raise RuntimeError("fused_ffn: an input requires grad, and the "
+                           "kernel's output would carry no graph; call "
+                           "FusedFFNFunction.apply (ffn_block_apply does)")
     if t.device.type != "cuda":
         raise ValueError(f"fused_ffn: no kernel for device {t.device}")
     _check_cuda_args(t, residual, w1, b1, w2, b2, ls)
@@ -140,6 +154,36 @@ def _load():
     return lib
 
 
+class FusedFFNFunction(torch.autograd.Function):
+    """``fused_ffn`` under autograd, same arguments. Forward: the kernel on
+    CUDA, ``ffn_reference`` on the CPU. Backward: autograd through
+    ``ffn_reference`` recomputed from the saved inputs (the residual enters
+    additively, so its gradient is the output's and it is not saved)."""
+
+    @staticmethod
+    def forward(ctx, t, residual, w1, b1, w2, b2, ls=None):
+        ctx.save_for_backward(t, w1, b1, w2, b2, ls)
+        return fused_ffn(t, residual, w1, b1, w2, b2, ls)
+
+    @staticmethod
+    def backward(ctx, grad):
+        saved = ctx.saved_tensors
+        need = [ctx.needs_input_grad[i] for i in (0, 2, 3, 4, 5, 6)]
+        grads = [None] * 6
+        if any(need):
+            with torch.enable_grad():
+                ins = [None if x is None else x.detach().requires_grad_(n)
+                       for x, n in zip(saved, need)]
+                t, w1, b1, w2, b2, ls = ins
+                out = ffn_reference(t, grad.new_zeros(()), w1, b1, w2, b2, ls)
+                wanted = [x for x, n in zip(ins, need) if n]
+                got = iter(torch.autograd.grad(out, wanted, grad))
+            grads = [next(got) if n else None for n in need]
+        g_t, g_w1, g_b1, g_w2, g_b2, g_ls = grads
+        g_res = grad if ctx.needs_input_grad[1] else None
+        return g_t, g_res, g_w1, g_b1, g_w2, g_b2, g_ls
+
+
 @torch.library.custom_op("fastvlm::fused_ffn", mutates_args=())
 def fused_ffn_op(t: torch.Tensor, residual: torch.Tensor, w1: torch.Tensor,
                  b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
@@ -158,14 +202,20 @@ def ffn_block_apply(t_grid, residual_grid, ffn_params, ls=None):
     ffn_params: {"fc1": {"w": (C, Ch), "b"}, "fc2": {"w": (Ch, C), "b"}} as
     the port stores the ConvFFN's 1x1 convs (matmul layout), cast to the
     activations' dtype (a no-op when they match). The (N, C) row views are
-    free for contiguous NHWC tensors."""
+    free for contiguous NHWC tensors. Under autograd (grad enabled and an
+    input requiring it) the call goes through ``FusedFFNFunction``."""
     b, h, w, c = t_grid.shape
     n = b * h * w
     dt = t_grid.dtype
     fc1, fc2 = ffn_params["fc1"], ffn_params["fc2"]
-    ffn = fused_ffn_op if torch.compiler.is_compiling() else fused_ffn
-    out = ffn(
-        t_grid.reshape(n, c), residual_grid.reshape(n, c),
-        fc1["w"].to(dt), fc1["b"].to(dt), fc2["w"].to(dt), fc2["b"].to(dt),
-        None if ls is None else ls.to(dt))
+    args = (t_grid.reshape(n, c), residual_grid.reshape(n, c),
+            fc1["w"].to(dt), fc1["b"].to(dt), fc2["w"].to(dt),
+            fc2["b"].to(dt), None if ls is None else ls.to(dt))
+    if torch.compiler.is_compiling():
+        out = fused_ffn_op(*args)
+    elif torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in args):
+        out = FusedFFNFunction.apply(*args)
+    else:
+        out = fused_ffn(*args)
     return out.reshape(b, h, w, c)

@@ -142,9 +142,12 @@ def int8_matmul(x_q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def _float_matmul(x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(M, K) float @ int8 (K, N) -> (M, N) float32 products: the weight
-    cast to x's dtype (exact for int8 values), f32 accumulation."""
+    cast to x's dtype (exact for int8 values), f32 accumulation. The f32-
+    output overload of ``torch.mm`` has no derivative, so where autograd
+    needs x's gradient (QLoRA training) the product runs on f32 copies."""
     wx = w.to(x2.dtype)
-    if x2.device.type == "cuda":
+    if x2.device.type == "cuda" and not (torch.is_grad_enabled()
+                                         and x2.requires_grad):
         return torch.mm(x2, wx, out_dtype=torch.float32)
     return torch.mm(x2.float(), wx.float())
 

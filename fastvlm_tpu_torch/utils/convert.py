@@ -175,3 +175,23 @@ def to_device(tree, device):
     if isinstance(tree, list):
         return [to_device(v, device) for v in tree]
     return tree.to(device)
+
+
+def opt_state_from_jax(count, mu: Params, nu: Params, cfg: FastVLMConfig,
+                       like: Dict[str, Any]) -> Dict[str, Any]:
+    """An optax AdamW state carried across: ``mu`` and ``nu`` are numpy
+    trees of the JAX params' structure (one value a leaf, anything at the
+    frozen ones), ``count`` the update count. Each moment goes through the
+    params' converter (``from_jax_params``), so it lands in the port's
+    layout; the result is the port's ``{"count", "mu", "nu"}`` over the
+    paths of ``like`` (the port optimizer's ``init``), in its dtypes and on
+    its devices."""
+    from fastvlm_tpu_torch.train.step import named_leaves
+
+    def moments(tree, want):
+        flat = dict(named_leaves(from_jax_params(tree, cfg)))
+        return {p: flat[p].to(dtype=t.dtype, device=t.device)
+                for p, t in want.items()}
+
+    return {"count": torch.tensor(int(np.asarray(count)), dtype=torch.int32),
+            "mu": moments(mu, like["mu"]), "nu": moments(nu, like["nu"])}

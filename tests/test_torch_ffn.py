@@ -174,3 +174,101 @@ def test_workspace_is_kept_per_stream():
     finally:
         ffn._WORKSPACES.pop((dev, 101), None)
         ffn._WORKSPACES.pop((dev, 102), None)
+
+
+# ---------------------------------------------------------------------------
+# K1 under autograd: FusedFFNFunction (training with the tower unfrozen)
+# ---------------------------------------------------------------------------
+
+ORDER = ("t", "residual", "w1", "b1", "w2", "b2", "ls")
+
+
+def _grads_of(fn, a, g, use_ls):
+    leaves = {k: v.clone().requires_grad_() for k, v in a.items()}
+    if not use_ls:
+        leaves["ls"] = None
+    out = fn(*(leaves[k] for k in ORDER))
+    out.backward(g)
+    return out.detach(), {k: v.grad for k, v in leaves.items()
+                          if v is not None}
+
+
+@pytest.mark.parametrize("use_ls", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_function_gradients_equal_autograd_through_reference(dtype, use_ls):
+    """On the CPU the Function's forward is ffn_reference and its backward
+    differentiates ffn_reference: output and every gradient bitwise equal
+    to autograd through ffn_reference itself."""
+    a = {k: v.to(dtype) for k, v in _torch(_inputs(40, 16, seed=5)).items()}
+    g = torch.from_numpy(np.random.RandomState(6).randn(40, 16)
+                         .astype(np.float32)).to(dtype)
+    out, got = _grads_of(ffn.FusedFFNFunction.apply, a, g, use_ls)
+    ref, want = _grads_of(ffn.ffn_reference, a, g, use_ls)
+    assert torch.equal(out, ref)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
+
+
+def test_function_gradients_equal_jax_grad_through_xla_ffn():
+    """JAX trains through XLA's FFN (ffn_backend="xla"): jax.grad of its
+    pointwise half (1x1 convs, erf GELU) equals the Function's gradients in
+    f32 to 1e-5."""
+    import jax
+
+    from fastvlm_tpu.ops.conv import conv2d, gelu
+
+    b, h, w, c = 2, 4, 5, 16
+    a = _inputs(b * h * w, c, seed=7)
+    g = np.random.RandomState(8).randn(b * h * w, c).astype(np.float32)
+
+    def xla_ffn(t, res, w1, b1, w2, b2, ls):
+        t = t.reshape(b, h, w, c)
+        y = gelu(conv2d(t, w1.reshape(1, 1, c, -1), b1, padding=0))
+        y = conv2d(y, w2.reshape(1, 1, -1, c), b2, padding=0)
+        out = res.reshape(b, h, w, c) + ls * y
+        return jnp.sum(out.reshape(-1, c) * g)
+
+    want = jax.grad(xla_ffn, argnums=tuple(range(7)))(
+        *(jnp.asarray(a[k]) for k in ORDER))
+    _, got = _grads_of(ffn.FusedFFNFunction.apply, _torch(a),
+                       torch.from_numpy(g), True)
+    for k, wk in zip(ORDER, want):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(wk),
+                                   rtol=1e-5, atol=1e-5, err_msg=k)
+
+
+def test_block_apply_routes_through_the_function_under_grad():
+    b, h, w, c = 1, 2, 4, 16
+    ta = _torch(_inputs(b * h * w, c, seed=9))
+    tp = {"fc1": {"w": ta["w1"].requires_grad_(), "b": ta["b1"]},
+          "fc2": {"w": ta["w2"], "b": ta["b2"]}}
+    t = ta["t"].reshape(b, h, w, c)
+    res = ta["residual"].reshape(b, h, w, c)
+    out = ffn.ffn_block_apply(t, res, tp, ta["ls"])
+    assert "FusedFFNFunction" in type(out.grad_fn.next_functions[0][0]).__name__ \
+        or "FusedFFNFunction" in type(out.grad_fn).__name__
+    with torch.no_grad():
+        plain = ffn.ffn_block_apply(t, res, tp, ta["ls"])
+    assert plain.grad_fn is None and torch.equal(plain, out.detach())
+
+
+def test_kernel_branch_refuses_inputs_that_require_grad():
+    """A direct call on a non-CPU tensor that requires grad raises before
+    any launch (the ctypes kernel's output would carry no graph); the same
+    call without grad reaches the device check. Run on the meta device: the
+    guard sits on the kernel branch, ahead of the device dispatch."""
+    def meta(*shape, grad=False):
+        return torch.empty(shape, device="meta", requires_grad=grad)
+
+    args = (meta(8, 96), meta(8, 96), meta(96, 384), meta(384),
+            meta(384, 96), meta(96))
+    with pytest.raises(ValueError, match="no kernel"):
+        ffn.fused_ffn(*args)
+    for i in range(len(args)):
+        graded = list(args)
+        graded[i] = meta(*args[i].shape, grad=True)
+        with pytest.raises(RuntimeError, match="requires grad"):
+            ffn.fused_ffn(*graded)
+        with torch.no_grad(), pytest.raises(ValueError, match="no kernel"):
+            ffn.fused_ffn(*graded)

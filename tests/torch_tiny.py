@@ -1,20 +1,30 @@
-"""Shared set-up of the quantization, int8-KV, export and tools tests of the
-PyTorch port: the tiny VLM (128 px FastViTHD, 2-layer decoder) in both
-packages, weights drawn with numpy once and converted (utils/convert.py),
-and a tokenizer whose text is the token ids."""
+"""Shared set-up of the quantization, int8-KV, export, tools and training
+tests of the PyTorch port: the tiny VLM (128 px FastViTHD, 2-layer decoder)
+in both packages, weights drawn with numpy once and converted
+(utils/convert.py), a tokenizer whose text is the token ids, and for
+training a live tower, 12 synthetic records and a pair of trainers."""
 
 import dataclasses
+import json
+import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from fastvlm_tpu import config as jcfg
 from fastvlm_tpu import engine as jengine
+from fastvlm_tpu.data import preprocessing as jpreprocessing
+from fastvlm_tpu.data import sft as jsft
 from fastvlm_tpu.models import vlm as jvlm
+from fastvlm_tpu.train import trainer as jtrainer
 from fastvlm_tpu_torch import config as tcfg
 from fastvlm_tpu_torch import engine as tengine
 from fastvlm_tpu_torch.data import preprocessing
+from fastvlm_tpu_torch.data import sft as tsft
+from fastvlm_tpu_torch.train import trainer as ttrainer
 from fastvlm_tpu_torch.utils.convert import from_jax_params
 
 
@@ -90,3 +100,170 @@ def with_decoder(cfg, **kw):
 def image(seed=0):
     return np.random.RandomState(seed).randint(0, 256, (128, 128, 3),
                                                dtype=np.uint8)
+
+
+# ---------------------------------------------------------------------------
+# training (tests/test_torch_train_step.py, test_torch_lora.py,
+# test_torch_trainer.py): the JAX side keeps its training defaults (XLA FFN)
+# ---------------------------------------------------------------------------
+
+
+def train_config(pkg, merge="flat", **decoder):
+    """The tiny training config of ``train_sft --random-tiny`` in ``pkg``
+    (tied head over the byte tokenizer's 258 ids), optionally anyres with
+    ``merge`` and the 128 px tile pinpoints."""
+    vision = pkg.FastViTConfig(layers=(1, 1, 1, 1, 1),
+                               embed_dims=(8, 16, 32, 64, 128),
+                               image_size=128, attn_head_dim=16)
+    dec = pkg.Qwen2Config(vocab_size=258, hidden_size=64, num_layers=2,
+                          num_heads=4, num_kv_heads=2, head_dim=16,
+                          intermediate_size=128, **decoder)
+    kw = {}
+    if merge != "flat":
+        kw = {"image_aspect_ratio": "anyres", "mm_patch_merge_type": merge,
+              "image_grid_pinpoints": ((128, 256), (256, 128), (256, 256))}
+    return pkg.FastVLMConfig(
+        vision=vision, decoder=dec,
+        projector=pkg.ProjectorConfig(mm_hidden_size=vision.out_channels,
+                                      hidden_size=64), **kw)
+
+
+def live_weights(jc, seed=0):
+    """numpy weights of ``jc``'s shapes with a live tower: every matrix and
+    kernel N(0, 1/fan_in) (fan_in = all but the last, output, axis), layer
+    scales near 0.5, norm scales near 1, other vectors N(0, 0.02); the
+    decoder's matrices N(0, 0.2) as ``draw_weights``. At the init's 0.02
+    std the tower's features and gradients underflow toward 0."""
+    rng = np.random.RandomState(seed)
+
+    def draw(path, leaf):
+        name, top = path[-1].key, path[0].key
+        shape = leaf.shape
+        if name in ("ln1", "ln2", "final_norm", "norm_scale"):
+            return (1 + 0.02 * rng.randn(*shape)).astype(np.float32)
+        if name.startswith("ls"):
+            return (0.5 + 0.1 * rng.randn(*shape)).astype(np.float32)
+        if top == "decoder" and leaf.ndim >= 2:
+            return (0.2 * rng.randn(*shape)).astype(np.float32)
+        # a tower block's leaves carry the scan's leading axis
+        stacked = any(getattr(k, "key", None) == "blocks" for k in path)
+        core = shape[1:] if stacked else shape
+        if len(core) >= 2 and top != "decoder":
+            fan_in = int(np.prod(core[:-1]))
+            return (rng.randn(*shape) / np.sqrt(fan_in)).astype(np.float32)
+        return (0.02 * rng.randn(*shape)).astype(np.float32)
+
+    shapes = jax.eval_shape(lambda k: jvlm.init(k, jc), jax.random.PRNGKey(0))
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+# ---------------------------------------------------------------------------
+# the trainer tests (tests/test_torch_trainer*.py, test_torch_train_sft.py)
+# ---------------------------------------------------------------------------
+
+JTRAIN, TTRAIN = train_config(jcfg), train_config(tcfg)
+
+
+def sft_records(root):
+    """12 LLaVA-format records under ``root``: 8 with distinct images (JPEG
+    and PNG, 2:1 to 1:2), 4 text-only, answers of 10-60 bytes; returns
+    (json path, image folder)."""
+    from PIL import Image
+
+    rng = np.random.RandomState(0)
+    records = []
+    for i in range(12):
+        answer = " ".join(["caption", str(i)] + ["word"] * (i * 4 % 11))
+        rec = {"id": str(i), "conversations": [
+            {"from": "human", "value": "Describe it."},
+            {"from": "gpt", "value": answer}]}
+        if i % 3:
+            w, h = 64 + 16 * (i % 5), 128 - 8 * (i % 4)
+            arr = (rng.rand(h, w, 3) * 64 + np.linspace(0, 190, w)[None, :,
+                                                            None]).astype(
+                np.uint8)
+            name = f"{i}.jpg" if i % 2 else f"{i}.png"
+            Image.fromarray(arr).save(root / name, quality=95)
+            rec["image"] = name
+            rec["conversations"][0]["value"] = "<image>\nDescribe it."
+        records.append(rec)
+    path = root / "data.json"
+    path.write_text(json.dumps(records))
+    return str(path), str(root)
+
+
+def sft_datasets(data):
+    """(port dataset, JAX dataset) over ``sft_records``' files."""
+    path, folder = data
+    t = tsft.SupervisedDataset(
+        tsft.DataArguments(data_path=path, image_folder=folder),
+        preprocessing.ByteTokenizer(), preprocessing.ImageProcessor(128))
+    j = jsft.SupervisedDataset(
+        jsft.DataArguments(data_path=path, image_folder=folder),
+        jpreprocessing.ByteTokenizer(), jpreprocessing.ImageProcessor(128))
+    return t, j
+
+
+TRAIN_ARGS = dict(batch_size=4, max_steps=8, learning_rate=1e-3,
+                  log_steps=4, save_steps=0, warmup_ratio=0.25,
+                  weight_decay=0.01, seed=0)
+
+
+def trainers(data, out, np_params=None, **kw):
+    """(JAX trainer, port trainer) over the same init and records. A LoRA
+    run carries JAX's adapters (drawn by jax.random) into the port."""
+    np_params = live_weights(JTRAIN) if np_params is None else np_params
+    tds, jds = sft_datasets(data)
+    args = {**TRAIN_ARGS, **kw}
+    jt = jtrainer.Trainer(JTRAIN, jax.tree.map(jnp.asarray, np_params), jds,
+                          jtrainer.TrainingArguments(
+                              output_dir=os.path.join(out, "jax"), **args))
+    tr = ttrainer.Trainer(TTRAIN, from_jax_params(np_params, TTRAIN), tds,
+                          ttrainer.TrainingArguments(
+                              output_dir=os.path.join(out, "port"), **args),
+                          device="cpu")
+    if args.get("lora_enable"):
+        start = from_jax_params(jax.tree.map(np.asarray, jt.state.params),
+                                TTRAIN)
+        _copy_adapters(tr.state.params, start)
+    return jt, tr
+
+
+def _copy_adapters(dst, src):
+    from fastvlm_tpu_torch.train.step import named_leaves
+
+    src = dict(named_leaves(src))
+    with torch.no_grad():
+        for path, x in named_leaves(dst):
+            if "lora_" in path:
+                x.copy_(src[path])
+
+
+def assert_params_close(port_params, jax_params, rel=1e-4):
+    """Each group's leaves within ``rel`` of the group's largest |value|."""
+    want = from_jax_params(jax.tree.map(np.asarray, jax_params), TTRAIN)
+    from fastvlm_tpu_torch.train.step import named_leaves
+
+    for group in want:
+        w = dict(named_leaves(want[group]))
+        g = dict(named_leaves(port_params[group]))
+        assert sorted(g) == sorted(w), group
+        top = max(float(x.float().abs().max()) for x in w.values())
+        for path, x in w.items():
+            if not x.is_floating_point():
+                assert torch.equal(g[path], x), path
+                continue
+            err = float((g[path].detach().float() - x.float()).abs().max())
+            assert err <= rel * top, (group, path, err, top)
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Run a test's torch ops on one intra-op thread. The tiny training
+    steps are thousands of small ops; with several test processes on the
+    machine, intra-op threads only contend (a 60-step run took ~200x its
+    solo time inside a parallel suite)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
