@@ -225,7 +225,23 @@ non-zero):
               (every tower leaf's gradient non-zero); a tiny f32 model
               trained 3 steps with its tower unfrozen on the card and on
               the CPU (losses and params within TRAIN_SMALL_TOL)
- 19. small    a small f32 model on the card (kernels) agrees with the same
+ 19. parallel parallel training at world size 1 over NCCL (one card: NCCL
+              takes one rank a device): parallel/distributed.initialize
+              with a one-rank env and a file:// store, make_mesh(1, 1) on
+              cuda; each differentiable collective checked exact at size
+              1; then phase train's FastVLM-0.5B weights and records
+              through Trainer for 3 steps in six modes (mesh TP/DP,
+              seq_parallel, zero1, FSDP, pp_micro=2, FSDP with the tower
+              unfrozen: K1 through FusedFFNFunction on gathered leaves),
+              each against the one-process trainer's 3 losses (max
+              relative difference: 0, and the params after the steps
+              bitwise, but for pp, held to PARALLEL_PP_REL_TOL, a limit a
+              step 10% off in size is checked to exceed), its step wall
+              ms and peak memory, K1 44 a step; a 4-step FSDP checkpoint
+              written under the mesh
+              and resumed by a one-process trainer, params and moments
+              bitwise
+ 20. small    a small f32 model on the card (kernels) agrees with the same
               model on the CPU (plain versions), logits and greedy ids,
               spec_decode's tokens, counts, passes and acceptances, and
               beam_search's tokens, lengths and scores (W = 3, K2 at batch
@@ -569,22 +585,28 @@ def phase_k2(gen):
                                         "bound_ms", "host_us")}
 
 
-def kernel_profile(fn, reps: int = 20):
+def kernel_profile(fn, reps: int = 20, complete: bool = False):
     """(device time of one call's kernels, {kernel: launches a call}) by
     torch.profiler (no host time), or (None, {}) where no session shows
-    device time."""
+    device time. ``complete``: only a session whose every kernel shows a
+    whole number of launches a call counts (a session can drop records:
+    on an H100 one held 3 of a call's 50 launches); (None, {}) where five
+    sessions hold none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a session now and then records no device time
+    for _ in range(5 if complete else 3):
+        # a session now and then records no device time, or drops records
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
         rows = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA and e.count > 0]
+        if complete and any(e.count % reps for e in rows):
+            continue
         # each kernel's mean time, times its launches a call: a session
         # that drops some records still reads one call's kernel time
         us = sum(e.self_device_time_total / e.count * max(1, round(e.count / reps))
@@ -698,11 +720,12 @@ def phase_k3(gen):
                      "serving call")
     call = lambda: paged_decode_attention(*args)
     ms = time_ms(call, reps=50)
-    k_ms, names = kernel_profile(call, reps=50)
+    k_ms, names = kernel_profile(call, reps=50, complete=True)
     launches = sum(round(n) for n in names.values())
     if launches != 1 or any("merge_kernel" in k for k in names):
         raise AssertionError(f"K3 serving call: the profiler shows {names} "
-                             f"a call, expected one kernel")
+                             f"a call (no session complete: {{}}), "
+                             f"expected one kernel")
     h_us = host_us(call)
     plain_ms = time_ms(lambda: paged_decode_attention_reference(*args), reps=50)
     q, kp, vp, tables, lens_t = args
@@ -1022,6 +1045,7 @@ def _step_profile(engine, rng, b=8, lengths=(330, 371), pool=256,
         for name, cache in caches.items():
             chunks(cache, 0)
             torch.cuda.synchronize()
+            before = _launches()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 chunks(cache, 1)
                 torch.cuda.synchronize()
@@ -1031,12 +1055,19 @@ def _step_profile(engine, rng, b=8, lengths=(330, 371), pool=256,
             # K3's paged_decode_kernel, K2's decode_kernel
             attn_rows = [e for e in rows_ if "decode_kernel" in e.key]
             attn = sum(e.self_device_time_total for e in attn_rows)
+            # the wrappers' count against the trace's (see
+            # _cuda_step_profile)
+            launched = float((_launches() - before)[1:].sum()) / steps
+            traced = sum(e.count for e in attn_rows) / steps
             prof_out[name] = {
                 "kernels": sum(e.count for e in rows_) / steps,
-                "attn_ops": sum(e.count for e in attn_rows) / steps,
+                "attn_ops": traced,
                 "device_ms": sum(e.self_device_time_total
                                  for e in rows_) / steps / 1000,
-                "attn_ms": attn / steps / 1000}
+                "attn_ms": attn / steps / 1000,
+                "note": (f" [a short trace, so lower bounds: it held "
+                         f"{traced:.3f} of {launched:.1f} K2 / K3 launches "
+                         f"a step]" if traced < launched else "")}
     return {"lengths": (int(lengths.min()), int(lengths.max())),
             "step_ms": step_ms, "profile": prof_out}
 
@@ -1165,7 +1196,7 @@ def phase_serve(card, main_engine):
                      f"ms of device time, attention kernels "
                      f"({'K3' if name == 'paged' else 'K2'}) "
                      f"{p['attn_ms']:.4f} ms in {p['attn_ops']:.1f} launches a "
-                     f"step (profiler)")
+                     f"step (profiler){p['note']}")
     p, dn = prof["profile"]["paged"], prof["profile"]["dense"]
     share = p["attn_ms"] / statistics.mean(prof["step_ms"]["paged"])
     ratio = p["attn_ms"] / dn["attn_ms"] if dn["attn_ms"] else float("nan")
@@ -1685,7 +1716,7 @@ def phase_spec(card, engine):
     prof = _spec_pass_profile(engine, image)
     pp, ps = prof["profile"]["pass"], prof["profile"]["step"]
     if pp["k2"] != 0:
-        raise AssertionError(f"the profiler shows {pp['k2']} K2 launches a "
+        raise AssertionError(f"{pp['k2']} K2 launches a "
                              f"verify pass")
     log("spec", f"a verify pass (9 tokens, batch 1) against a plain decode "
                 f"step: wall {prof['wall_ms']['pass']:.3f} against "
@@ -1693,7 +1724,8 @@ def phase_spec(card, engine):
                 f"dispatch to read, in turns); device time "
                 f"{pp['device_ms']:.4f} against {ps['device_ms']:.4f} ms in "
                 f"{pp['launches']:.1f} against {ps['launches']:.1f} launches "
-                f"(profiler; K2 0 a pass, {ps['k2']:.1f} a step); "
+                f"(profiler; K2 0 a pass, {ps['k2']:.1f} a step)"
+                f"{pp['note']}{ps['note']}; "
                 f"{prof['tokens_per_pass']:.3f} tokens a pass there; on {card}")
 
     # video: plain and spec VideoQA over the video phase's frames
@@ -1992,24 +2024,36 @@ def _greedy_decoder(engine, prompt, image):
 
 def _cuda_step_profile(fn, steps):
     """One profiled call of ``fn`` (``steps`` decode steps or passes) on the
-    card: launches, device ms, K2 / K3 launches and their ms, each a
-    step."""
+    card: launches, device ms, K2 / K3 launches and their ms, each a step.
+    "k2" counts the wrappers' launches over the call (exact);
+    "k2_profiled" is the profiler's count of their kernels, which can come
+    out short (on an H100, one trace held 374 of a greedy chunk's 384).
+    A short trace dropped kernels, so its device ms, launches and K2 ms
+    are lower bounds: "short" says so, and "note" is the text each log
+    line prints after them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    before = _launches()
     with profile(activities=[ProfilerActivity.CUDA]) as pr:
         fn()
         torch.cuda.synchronize()
+    k2_k3 = (_launches() - before)[1:].sum()
     rows = [e for e in pr.key_averages() if e.device_type == DeviceType.CUDA]
     # K2's decode_kernel, K3's paged_decode_kernel
     attn = [e for e in rows if "decode_kernel" in e.key]
+    k2, k2_profiled = float(k2_k3) / steps, sum(e.count for e in attn) / steps
+    short = k2_profiled < k2
     return {"launches": sum(e.count for e in rows) / steps,
             "device_ms": sum(e.self_device_time_total for e in rows)
             / steps / 1000,
-            "k2": sum(e.count for e in attn) / steps,
+            "k2": k2, "k2_profiled": k2_profiled,
             "k2_ms": sum(e.self_device_time_total for e in attn)
-            / steps / 1000}
+            / steps / 1000, "short": short,
+            "note": (f" [a short trace, so lower bounds: it held "
+                     f"{k2_profiled:.3f} of {k2:.1f} K2 / K3 launches a "
+                     f"step]" if short else "")}
 
 
 def _beam_step_profile(engine, image):
@@ -2174,7 +2218,9 @@ def phase_beam(card, engine, main_engine):
                 f"{pg['device_ms']:.4f} ms in {pb['launches']:.1f} against "
                 f"{pg['launches']:.1f} launches (profiler, 16 steps of "
                 f"each; K2 "
-                f"{pb['k2']:.1f} / {pg['k2']:.1f} a step); on {card}")
+                f"{pb['k2']:.1f} / {pg['k2']:.1f} a step by the wrapper's "
+                f"count, {pb['k2_profiled']:.3f} / {pg['k2_profiled']:.3f} "
+                f"in the trace){pb['note']}{pg['note']}; on {card}")
     return {"k1_launches": k1_total, "k2_launches": k2_total,
             "k2_max_abs_err": k2_err, "peak_gib": peak_gib}
 
@@ -2781,7 +2827,7 @@ def phase_llava15(card):
                    f"wall (two runs), {step['device_ms']:.4f} ms of device "
                    f"time, {step['launches']:.1f} launches, K2 "
                    f"{step['k2']:.1f} launches and {step['k2_ms']:.4f} ms "
-                   f"(profiler) on {card}")
+                   f"(profiler){step['note']} on {card}")
 
     # K2 at 32/32/128 against its plain version at the phase's cache: B = 1
     # and B = 4 rows of the cached length
@@ -3176,7 +3222,8 @@ def phase_worker(card, engine, llava, llava_images):
                   f"{p['kernels']:.1f} device ops, K3 {p['attn_ms']:.4f} ms in "
                   f"{p['attn_ops']:.1f} launches a step; dense "
                   f"{dn['device_ms']:.4f} ms of device time, K2 "
-                  f"{dn['attn_ms']:.4f} ms a step; K3 at the call (B=4, "
+                  f"{dn['attn_ms']:.4f} ms a step{p['note']}{dn['note']}; K3 "
+                  f"at the call (B=4, "
                   f"32/32/128 bf16, page 64, lengths {lens}): max_abs_err "
                   f"{k3_err:.3e} (tol ratio {k3_ratio:.3f} <= 1), kernel time "
                   f"{fmt_us(k3_k_ms)}, {k3_ms:.4f} ms a call by events; bound "
@@ -3938,8 +3985,8 @@ def phase_kv_int8(card, main_engine):
                    f" bf16 cache {step16['wall_ms']:.2f} ms wall, "
                    f"{step16['device_ms']:.3f} ms device, "
                    f"{step16['launches']:.1f} launches, K2 "
-                   f"{step16['k2']:.0f} ({step16['k2_ms']:.4f} ms) a step on "
-                   f"{card}")
+                   f"{step16['k2']:.0f} ({step16['k2_ms']:.4f} ms) a step"
+                   f"{step8['note']}{step16['note']} on {card}")
     log("kv-int8", f"phase took {time.perf_counter() - t_phase:.1f} s")
     return res
 
@@ -4444,6 +4491,215 @@ def phase_train(card, gen):
     return res
 
 
+PARALLEL_STEPS = 3
+PARALLEL_MODES = (  # (name, Trainer keywords, TrainingArguments keywords)
+    ("mesh", {}, {}),
+    ("sp", {"seq_parallel": True}, {}),
+    ("zero1", {}, {"zero1": True}),
+    ("fsdp", {}, {"fsdp": True}),
+    ("pp", {"pp_micro": 2}, {}),
+    ("fsdp-tower", {}, {"fsdp": True, "unfreeze_mm_vision_tower": True}),
+)
+# at one rank every collective is a copy and these modes run the
+# one-process step's ops in its order: losses and params bit for bit
+PARALLEL_EXACT = ("mesh", "sp", "zero1", "fsdp", "fsdp-tower")
+# pp's 2-row microbatches round other GEMM shapes: its losses read
+# 3.971e-05 from the one-process trainer's on the H100; the phase checks
+# that a step 10% off in size (the one-process trainer at 1.1x the learning
+# rate) reads more than this limit
+PARALLEL_PP_REL_TOL = 4e-4
+PARALLEL_WRONG_LR = 1.1
+
+
+def _collectives_at_one_rank(mesh):
+    """Each differentiable collective over the mesh's model group on the
+    card, forward and backward, equal to the identity at one rank."""
+    from fastvlm_tpu_torch.parallel import collectives as coll
+    from fastvlm_tpu_torch.parallel.mesh import MODEL_AXIS, axis_group
+
+    group = axis_group(mesh, MODEL_AXIS)
+    x = torch.randn(4, 6, 8, device="cuda", requires_grad=True)
+    g = torch.randn(4, 6, 8, device="cuda")
+    ops = {"copy_to": lambda t: coll.copy_to(t, group),
+           "reduce_from": lambda t: coll.reduce_from(t, group),
+           "gather_from": lambda t: coll.gather_from(t, 1, group),
+           "split_to": lambda t: coll.split_to(t, 1, group),
+           "all_gather": lambda t: coll.all_gather(t, 1, group),
+           "reduce_scatter": lambda t: coll.reduce_scatter(t, 1, group),
+           "broadcast": lambda t: coll.broadcast(t, 0, group)}
+    for name, op in ops.items():
+        y = op(x)
+        (grad,) = torch.autograd.grad(y, x, g)
+        if not (torch.equal(y, x) and torch.equal(grad, g)):
+            raise AssertionError(f"parallel: {name} over one NCCL rank is "
+                                 f"not the identity")
+    return sorted(ops)
+
+
+def phase_parallel(card, train_res):
+    """Parallel training on the card at world size 1 (NCCL); see the
+    module docstring."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from fastvlm_tpu_torch import config as C
+    from fastvlm_tpu_torch.data.preprocessing import (
+        ByteTokenizer, ImageProcessor)
+    from fastvlm_tpu_torch.data.sft import DataArguments, SupervisedDataset
+    from fastvlm_tpu_torch.models import qwen2
+    from fastvlm_tpu_torch.parallel import distributed, make_mesh
+    from fastvlm_tpu_torch.train import step as step_mod
+    from fastvlm_tpu_torch.train.trainer import Trainer, TrainingArguments
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    res = {"k1": {}, "modes": {}}
+    try:
+        distributed.initialize(f"file://{work}/store", device="cuda")
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            raise AssertionError(f"parallel: backend {dist.get_backend()}, "
+                                 f"world {dist.get_world_size()}")
+        mesh = make_mesh(dp=1, tp=1)
+        checked = _collectives_at_one_rank(mesh)
+        log("parallel", f"torch.distributed up: NCCL, world size 1 (one "
+                        f"card), file:// store; mesh {mesh.mesh_dim_names} "
+                        f"= {tuple(mesh.mesh.shape)} on cuda; forward and "
+                        f"backward exact at one rank: {checked}")
+        # phase train's weights and records (the same seeds)
+        cfg = _fastvithd_cfg(C.qwen2_0_5b(param_dtype="bfloat16",
+                                          compute_dtype="bfloat16"))
+        tower, proj = _live_encoder(cfg, 61)
+        dgen = torch.Generator(device="cuda")
+        dgen.manual_seed(62)
+        params = {"vision": tower, "projector": proj,
+                  "decoder": qwen2.init(dgen, cfg.decoder, "cuda")}
+        data_path = _sft_data(work, 16, (1024, 768), 70)
+
+        def trainer(out, mesh=None, trainer_kw=None, **kw):
+            kw = {"batch_size": TRAIN_BATCH, "save_steps": 0, "log_steps": 1,
+                  "warmup_ratio": 0.0, "seed": 0, "learning_rate": 3e-4,
+                  "max_steps": PARALLEL_STEPS, **kw}
+            ds = SupervisedDataset(
+                DataArguments(data_path=data_path, image_folder=work),
+                ByteTokenizer(), ImageProcessor(cfg.vision.image_size))
+            return Trainer(cfg, params, ds, TrainingArguments(
+                output_dir=os.path.join(work, out), **kw), mesh=mesh,
+                device="cuda", **(trainer_kw or {}))
+
+        def run(tr, what, keep=False):
+            out = _train_run(tr, PARALLEL_STEPS, what)
+            if keep:  # the whole params after the steps, off the card so
+                # that the next runs' peaks hold none of them
+                out["params"] = {
+                    p: x.detach().to("cpu", copy=True) for p, x in
+                    step_mod.named_leaves(tr._whole(tr.state.params))}
+            del tr
+            gc.collect()
+            torch.cuda.empty_cache()
+            return out
+
+        def rel_diff(got, ref):
+            return max(abs(a - b) / abs(b)
+                       for a, b in zip(got["losses"], ref["losses"]))
+
+        refs = {False: run(trainer("ref"), "parallel-ref", keep=True),
+                True: run(trainer("ref-tower", unfreeze_mm_vision_tower=True),
+                          "parallel-ref-tower", keep=True)}
+        wrong = rel_diff(run(trainer(
+            "wrong", learning_rate=3e-4 * PARALLEL_WRONG_LR),
+            "parallel-wrong-step"), refs[False])
+        if not wrong > PARALLEL_PP_REL_TOL:
+            raise AssertionError(
+                f"parallel: a step {PARALLEL_WRONG_LR}x in size reads "
+                f"{wrong:.3e}, within pp's limit {PARALLEL_PP_REL_TOL}")
+        res["wrong_step_rel_diff"] = wrong
+        log("parallel", f"the one-process trainer at {PARALLEL_WRONG_LR}x "
+                        f"the learning rate (a wrong step): losses max rel "
+                        f"diff {wrong:.3e} from the reference's, above pp's "
+                        f"limit {PARALLEL_PP_REL_TOL}")
+        for name, tkw, akw in PARALLEL_MODES:
+            what = f"parallel-{name}"
+            exact = name in PARALLEL_EXACT
+            got = run(trainer(name, mesh, tkw, **akw), what, keep=exact)
+            ref = refs[bool(akw.get("unfreeze_mm_vision_tower"))]
+            rel = rel_diff(got, ref)
+            if exact:
+                differ = sorted(set(got["params"]) ^ set(ref["params"])) + [
+                    p for p, x in got.pop("params").items()
+                    if p in ref["params"] and not torch.equal(
+                        x, ref["params"][p])]
+                if rel != 0 or differ:
+                    raise AssertionError(
+                        f"parallel {name}: losses max rel diff {rel:.3e}, "
+                        f"params differing from the one-process trainer's "
+                        f"after {PARALLEL_STEPS} steps: {differ[:5]} "
+                        f"({len(differ)}); expected bit for bit")
+            elif rel > PARALLEL_PP_REL_TOL:
+                raise AssertionError(f"parallel {name}: losses max rel diff "
+                                     f"{rel:.3e} > {PARALLEL_PP_REL_TOL}")
+            res["modes"][name] = {
+                "losses": got["losses"], "ref_losses": ref["losses"],
+                "max_rel_diff": rel, "median_ms": got["median_ms"],
+                "ref_median_ms": ref["median_ms"],
+                "step_ms": got["step_ms"], "peak_gib": got["peak_gib"],
+                "ref_peak_gib": ref["peak_gib"]}
+            res["k1"][what] = got["k1"]
+            log("parallel", f"{name}: losses {got['losses']} vs the "
+                            f"one-process trainer's {ref['losses']} (max rel "
+                            f"diff {rel:.3e}); median step "
+                            f"{got['median_ms']:.2f} ms vs "
+                            f"{ref['median_ms']:.2f} ms one-process "
+                            f"(phase train: "
+                            f"{train_res['train']['median_ms']:.2f} ms over "
+                            f"12 steps); peak {got['peak_gib']:.2f} GiB vs "
+                            f"{ref['peak_gib']:.2f}; K1 {got['k1']} = "
+                            f"{sum(cfg.vision.layers)} x {PARALLEL_STEPS}"
+                            + (" through FusedFFNFunction on gathered "
+                               "leaves" if name == "fsdp-tower" else "")
+                            + ("; params bitwise equal to the one-process "
+                               "trainer's" if exact else
+                               f" (limit {PARALLEL_PP_REL_TOL})"))
+        del refs
+
+        # an FSDP checkpoint written under the mesh, resumed without one
+        tr = trainer("ckpt", mesh, max_steps=4, fsdp=True)
+        _zero_launches()
+        tr.train()
+        whole = tr._whole(tr.state.params)
+        opt = tr._whole_opt_state(whole)
+        del tr
+        one = trainer("ckpt", max_steps=4)
+        if one.resume() != 4:
+            raise AssertionError("parallel: checkpoint-4 not resumed")
+        n = 0
+        for a, b in ((one.state.params, whole), (one.state.opt_state, opt)):
+            b = dict(step_mod.named_leaves(b))
+            for p, x in step_mod.named_leaves(a):
+                if not torch.equal(x.detach(), b[p].detach()):
+                    raise AssertionError(f"parallel: resumed {p} differs "
+                                         f"from the FSDP run's")
+                n += 1
+        ckpt = os.path.join(work, "ckpt", "checkpoint-4")
+        gib = sum(os.path.getsize(os.path.join(r, f))
+                  for r, _, fs in os.walk(ckpt) for f in fs) / 2 ** 30
+        res["checkpoint"] = {"leaves": n, "gib": gib}
+        log("parallel", f"FSDP checkpoint-4 ({gib:.2f} GiB, whole tensors) "
+                        f"written under the mesh and resumed by a "
+                        f"one-process trainer: {n} params and moments "
+                        f"bitwise equal")
+        del one, whole, opt, params, tower, proj
+    finally:
+        distributed.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["s"] = time.perf_counter() - t_phase
+    log("parallel", f"phase took {res['s']:.1f} s")
+    return res
+
+
 def iter_batches(trainer, cfg):
     """The trainer's batches, on the card."""
     from fastvlm_tpu_torch.train.trainer import batches
@@ -4567,6 +4823,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_res = phase_train(card, gen)
+    par_res = phase_parallel(card, train_res)
     phase_small()
     quant_paths = ("7b-int8", "7b-w8a8", "7b-int4", "decode-int8",
                    "decode-w8a8")
@@ -4599,7 +4856,7 @@ def main() -> int:
                                  for p in quant_paths},
                               "kv-int8": int(kv_launches[0]),
                               "export": export_res["encoder"]["k1"],
-                              **train_res["k1"]},
+                              **train_res["k1"], **par_res["k1"]},
          "max_abs_err": max(k1_err, anyres_res["k1_err"],
                             train_res["k1_fwd_err"]),
          "ms": k1["ms"], "kernel_ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
@@ -4611,8 +4868,9 @@ def main() -> int:
                      "cuBLAS, context only; max_abs_err also over the "
                      "5-tile stack's stage-2 call (N=20480, C=384) and the "
                      "training batch's five widths through "
-                     "FusedFFNFunction (N = 4 images' rows); train paths: "
-                     "44 a step, one call a block over the batch",
+                     "FusedFFNFunction (N = 4 images' rows); train and "
+                     "parallel paths: 44 a step, one call a block over the "
+                     "batch",
          "backward": "plain torch (autograd through ffn_reference), as "
                      "JAX trains through XLA's FFN",
          "backward_max_abs_err": train_res["k1_grad_err"]},

@@ -23,6 +23,10 @@ Layout:
                SFT data pipeline (target masking, dataset, collate)
     train/     SFT training: sampler, loss and AdamW step, LoRA / QLoRA,
                the trainer with native checkpoints, the train_sft CLI
+    parallel/  torch.distributed bring-up, the (data, model) mesh, TP /
+               FSDP / ZeRO-1 layouts, the GPipe pipeline, differentiable
+               collectives
+    tools/     the multi-process launcher and the serving soak
     utils/     HF checkpoint import (branch fusion, BN fold, key audit) and
                export, native bundles, weight deltas, the native JPEG
                loader, and the weight (and optimizer-state) bridge from the

@@ -40,6 +40,7 @@ the backward pass.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple, Union
 
@@ -56,6 +57,7 @@ from fastvlm_tpu_torch.ops.kv_cache import (
     KVCache, PagedKVCache, dequantize_view, gather_pages, prompt_dest,
     token_dest, write_paged, write_prompt, write_token)
 from fastvlm_tpu_torch.ops.quant import card_layout, quantized_matmul
+from fastvlm_tpu_torch.parallel import collectives as coll
 
 Params = Dict[str, Any]
 
@@ -290,29 +292,83 @@ def _attend_quant(q, k8, ks, v8, vs, mask):
     return out.to(q.dtype).reshape(b, t, hq * d)
 
 
+def _enter(h, sharded: bool, seq: bool, group):
+    """Into a block: the column-parallel input. Split blocks get Megatron's
+    f (SP: an all-gather over T whose backward reduce-scatters); a block
+    that stayed whole computes alike on every rank (SP: gathered, its
+    gradient sliced back)."""
+    if seq:
+        return coll.all_gather(h, 1, group) if sharded else \
+            coll.gather_from(h, 1, group)
+    return coll.copy_to(h, group) if sharded else h
+
+
+def _exit(o, sharded: bool, seq: bool, group):
+    """Out of a block: a row-parallel product's partial sums are summed (g;
+    SP: reduce-scattered over T)."""
+    if seq:
+        return coll.reduce_scatter(o, 1, group) if sharded else \
+            coll.split_to(o, 1, group)
+    return coll.reduce_from(o, group) if sharded else o
+
+
+def _split(p, whole: int, dim: int) -> bool:
+    """A float linear holds a piece of a dim that is ``whole`` long."""
+    return "w" in p and p["w"].shape[dim] != whole
+
+
 def _layer(x, lp, cfg: Qwen2Config, cos, sin, cache_k, cache_v, mask,
            lengths, prefill, bias=None, prefill_offset=0, block_tables=None,
-           dest=None, kv_lens=None, cache_ks=None, cache_vs=None):
+           dest=None, kv_lens=None, cache_ks=None, cache_vs=None, group=None,
+           seq=False):
     """One decoder layer. cache_k/v: (B, S_max, Hkv, D) views of the dense
     cache, (P + 1, page, Hkv, D) pool slices when ``block_tables`` is given
     (the paged serving layout; ``dest`` holds the flat pool rows of this
     forward's writes), both written in place; or None (no cache: plain
     causal attention). kv_lens: lengths + 1, the valid keys of a decode
     step once its token is written (computed once per forward).
-    cache_ks/vs: (B, S_max, Hkv) scales when the dense cache is int8."""
-    b, t, d = x.shape
-    h = _norm(x, lp["ln1"], cfg)
+    cache_ks/vs: (B, S_max, Hkv) scales when the dense cache is int8.
+
+    ``group`` (no cache): the mesh's "model" process group of a
+    tensor-parallel training forward. A block whose leaves are pieces of
+    the config's dims (``parallel/sharding.py``) computes on this rank's
+    heads or MLP columns, between Megatron's f and g. ``seq``: sequence
+    parallelism, where ``x`` holds this rank's T/tp tokens."""
+    attn_tp = mlp_tp = whole_kv = False
+    ln1, ln2 = lp["ln1"], lp["ln2"]
+    if group is not None:
+        attn_tp = _split(lp["o"], cfg.q_dim, 0)
+        mlp_tp = _split(lp["down"], cfg.intermediate_size, 0)
+        # whole k/v under split heads: used by this rank's heads only
+        whole_kv = attn_tp and not _split(lp["k"], cfg.kv_dim, 1)
+        if seq:  # the norms see this rank's tokens only: sum their grads
+            ln1, ln2 = coll.copy_to(ln1, group), coll.copy_to(ln2, group)
+    h = _enter(_norm(x, ln1, cfg), attn_tp, seq, group)
+    b, t, _ = h.shape
     if "qkv" in lp:
         q, k, v = _project(h, lp["qkv"]).split(
             [cfg.q_dim, cfg.kv_dim, cfg.kv_dim], dim=-1)
     else:
-        q, k, v = (_project(h, lp[n]) for n in ("q", "k", "v"))
-    q = q.reshape(b, t, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+        kp, vp = lp["k"], lp["v"]
+        if whole_kv:
+            kp, vp = ({n: coll.copy_to(w, group) for n, w in p.items()}
+                      for p in (kp, vp))
+        q, k, v = _project(h, lp["q"]), _project(h, kp), _project(h, vp)
+    hd = cfg.head_dim
+    q = q.reshape(b, t, -1, hd)
+    k = k.reshape(b, t, -1, hd)
+    v = v.reshape(b, t, -1, hd)
     if cfg.pos_emb == "rope":
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+    if attn_tp:
+        hq, r = q.shape[2], coll.rank(group)
+        if whole_kv:
+            kv = (r * hq + torch.arange(hq, device=q.device)) // (
+                cfg.num_heads // cfg.num_kv_heads)
+            k, v = k[:, :, kv], v[:, :, kv]
+        if bias is not None:
+            bias = bias[:, r * hq:(r + 1) * hq]
 
     attn = None
     quant_kv = cache_k is not None and cache_k.dtype == torch.int8
@@ -363,9 +419,19 @@ def _layer(x, lp, cfg: Qwen2Config, cos, sin, cache_k, cache_v, mask,
             values = gather_pages(cache_v, block_tables)
     if attn is None:
         attn = _attend(q, keys.to(q.dtype), values.to(q.dtype), mask, bias)
-    x = x + _project(attn, lp["o"])
-    h = _norm(x, lp["ln2"], cfg)
-    return x + _mlp(h, lp)
+    x = x + _exit(_project(attn, lp["o"]), attn_tp, seq, group)
+    h = _enter(_norm(x, ln2, cfg), mlp_tp, seq, group)
+    return x + _exit(_mlp(h, lp), mlp_tp, seq, group)
+
+
+def _train_layer(x, lp, cfg: Qwen2Config, cos, sin, mask, bias, group, seq,
+                 gather):
+    """``_layer`` without a cache; ``gather`` materializes the layer's FSDP
+    leaves inside it, so a rematerialized layer gathers them again."""
+    if gather is not None:
+        lp = gather(lp)
+    return _layer(x, lp, cfg, cos, sin, None, None, mask, None, True, bias,
+                  group=group, seq=seq)
 
 
 # ---------------------------------------------------------------------------
@@ -373,21 +439,43 @@ def _layer(x, lp, cfg: Qwen2Config, cos, sin, cache_k, cache_v, mask,
 # ---------------------------------------------------------------------------
 
 
-def embed(params: Params, ids: torch.Tensor) -> torch.Tensor:
-    return params["embed"][ids.long()]
+def embed(params: Params, ids: torch.Tensor, cfg: Optional[Qwen2Config] = None,
+          group=None) -> torch.Tensor:
+    """The ids' rows of the embedding table. ``group``: the mesh's "model"
+    group of a table split over the vocab (``cfg`` gives its whole size):
+    each rank looks up the ids in its range (others give 0), then the
+    ranks' rows are summed."""
+    w = params["embed"]
+    if group is None or w.shape[0] == cfg.vocab_size:
+        return w[ids.long()]
+    lo = coll.rank(group) * w.shape[0]
+    local = ids.long() - lo
+    inside = (local >= 0) & (local < w.shape[0])
+    rows = w[local.clamp(0, w.shape[0] - 1)] * inside[..., None].to(w.dtype)
+    return coll.reduce_from(rows, group)
 
 
 def logits_from_hidden(params: Params, hidden: torch.Tensor,
-                       cfg: Qwen2Config) -> torch.Tensor:
+                       cfg: Qwen2Config, group=None) -> torch.Tensor:
     """(B, T, D) -> (B, T, V) f32 logits (tied embeddings or lm_head). The
     product accumulates in f32; its output is rounded to the hidden dtype
-    before the f32 cast."""
-    if cfg.tie_word_embeddings:
-        w = params["embed"].to(hidden.dtype)
-        return F.linear(hidden, w).float()
-    if "w_q" in params["lm_head"]:
-        return quantized_matmul(hidden, params["lm_head"]).float()
-    return torch.matmul(hidden, params["lm_head"]["w"].to(hidden.dtype)).float()
+    before the f32 cast. ``group``: the mesh's "model" group of a head
+    split over the vocab: each rank computes its columns and the logits
+    are all-gathered over the vocab (every rank then holds all (B, T, V) of
+    them in f32, as GSPMD gives a replicated cross entropy)."""
+    tied = cfg.tie_word_embeddings
+    w = params["embed"] if tied else params["lm_head"].get("w")
+    split = group is not None and w is not None and \
+        w.shape[0 if tied else 1] != cfg.vocab_size
+    if split:
+        hidden = coll.copy_to(hidden, group)
+    if tied:
+        out = F.linear(hidden, w.to(hidden.dtype)).float()
+    elif "w_q" in params["lm_head"]:
+        out = quantized_matmul(hidden, params["lm_head"]).float()
+    else:
+        out = torch.matmul(hidden, w.to(hidden.dtype)).float()
+    return coll.gather_from(out, -1, group) if split else out
 
 
 def forward(
@@ -400,6 +488,9 @@ def forward(
     prefill: bool = True,
     prefill_offset: int = 0,
     remat: bool = False,
+    group=None,
+    seq: bool = False,
+    gather=None,
 ) -> Tuple[torch.Tensor, Optional[Union[KVCache, PagedKVCache]]]:
     """Run the decoder stack over embeddings; returns (hidden, cache).
 
@@ -409,7 +500,14 @@ def forward(
     lengths. Without a cache: causal self-attention (the training path),
     where ``remat`` recomputes each layer in the backward pass instead of
     keeping its activations (``torch.utils.checkpoint``, JAX's
-    ``jax.checkpoint`` around the scanned layer)."""
+    ``jax.checkpoint`` around the scanned layer).
+
+    The training path also runs on tensor-parallel pieces (``_layer``'s
+    ``group`` and ``seq``): with ``seq`` each rank holds T/tp tokens
+    between blocks (T must divide), all-gathered before attention and the
+    MLP and reduce-scattered after; the final hidden states come back
+    whole on every rank. ``gather(i, lp)`` materializes layer i's FSDP
+    leaves inside the (rematerialized) layer."""
     x = inputs_embeds
     b, t, _ = x.shape
     if mask is None:
@@ -417,6 +515,8 @@ def forward(
                                        device=x.device))
         mask = causal.expand(b, t, t)
     cos, sin, bias, mask = pos_terms(cfg, positions, mask)
+    if seq:
+        x = coll.split_to(x, 1, group)
     lengths = None if cache is None else cache.lengths
     # the lengths after this forward's writes: a decode step's attention
     # counts its own token, and the returned cache carries them. A decode
@@ -442,17 +542,25 @@ def forward(
             ck, cv = cache.k[i], cache.v[i]
             if quant_kv:
                 cks, cvs = cache.k_scale[i], cache.v_scale[i]
-        if remat and cache is None and torch.is_grad_enabled():
-            x = torch.utils.checkpoint.checkpoint(
-                _layer, x, lp, cfg, cos, sin, None, None, mask, None, prefill,
-                bias, use_reentrant=False)
+        if cache is None:  # the training path
+            args = (x, lp, cfg, cos, sin, mask, bias, group, seq,
+                    None if gather is None else functools.partial(gather, i))
+            if remat and torch.is_grad_enabled():
+                x = torch.utils.checkpoint.checkpoint(_train_layer, *args,
+                                                      use_reentrant=False)
+            else:
+                x = _train_layer(*args)
             continue
         x = _layer(x, lp, cfg, cos, sin, ck, cv, mask, lengths, prefill, bias,
                    prefill_offset, tables, dest, new_lengths, cks, cvs)
     new_cache = None
     if cache is not None:
         new_cache = dataclasses.replace(cache, lengths=new_lengths)
-    return _norm(x, params["final_norm"], cfg), new_cache
+    w = params["final_norm"]
+    if seq:
+        w = coll.copy_to(w, group)
+    h = _norm(x, w, cfg)
+    return (coll.gather_from(h, 1, group) if seq else h), new_cache
 
 
 def prefill_mask(seq_lens: torch.Tensor, t: int, s_max: int,

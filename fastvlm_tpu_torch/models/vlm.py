@@ -167,13 +167,16 @@ def encode_tiles(
 
 
 def _spliced_prompt_embeds(params, cfg, images, ids, image_starts,
-                           vision_embeds=None):
+                           vision_embeds=None, text=None):
     """Text embeddings of ids (B, T) with the image spans overlaid: images
     (B, H, W, 3) or vision_embeds (B, N, D) with (B,) starts, one image a
     row; images (B, M, H, W, 3) or vision_embeds (B, M, N, D) with (B, M)
-    starts (-1 for an absent slot), M images a row."""
+    starts (-1 for an absent slot), M images a row. ``text``: the ids'
+    embeddings, where the caller looked them up (a vocab-split table)."""
     cd = resolve_dtype(cfg.decoder.compute_dtype)
-    text = qwen2.embed(params["decoder"], ids).to(cd)
+    if text is None:
+        text = qwen2.embed(params["decoder"], ids)
+    text = text.to(cd)
     if vision_embeds is None and images is not None:
         if images.dim() == 5:
             b, m = images.shape[:2]

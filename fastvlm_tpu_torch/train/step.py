@@ -24,6 +24,18 @@ Frozen groups take no gradient (``requires_grad`` False) and hold no
 optimizer state; integer leaves (a QLoRA base) never take one. The state
 is ``{"count": int32 0-d, "mu": {path: tensor}, "nu": {path: tensor}}``
 keyed by the leaf paths of ``named_leaves`` ("decoder/layers/0/q/w").
+
+Parallel training (``parallel/``): a state made with a ``Layout`` holds
+each rank's pieces of the params and moments. ``loss_fn(layout=)`` runs the
+tensor-parallel forward (``qwen2.forward``'s ``group``; with ``seq_sharding``
+sequence-parallel, the bucket padded to a multiple of tp), gathers FSDP
+leaves at use, and divides each data rank's NLL sum by the global count of
+label tokens, so the gradients summed over "data" are JAX's token mean over
+the global batch. ``AdamW.update`` then sums the gradients over "data",
+clips each group by the norm of the whole gradient, and under ZeRO-1
+updates the rank's slice of each param and all-gathers it.
+``loss_fn_pp`` / ``train_step_pp`` stage the decoder's layers over "model"
+(``parallel/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -34,26 +46,36 @@ from typing import Any, Callable, Dict, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from fastvlm_tpu_torch.config import FastVLMConfig
 from fastvlm_tpu_torch.models import qwen2, vlm
+from fastvlm_tpu_torch.parallel.mesh import (
+    DATA_AXIS, MODEL_AXIS, axis_group, axis_size, local_chunk)
+from fastvlm_tpu_torch.parallel.sharding import replicated_layout
 
 IGNORE_INDEX = -100
-NOT_PORTED = "not yet ported, see ROADMAP.md"
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  data_group=None) -> torch.Tensor:
     """Token-mean CE over positions where label != IGNORE_INDEX; a batch
     with every label ignored has loss 0 (the count is at least 1).
 
-    logits: (B, T, V) float; labels: (B, T) int (already shifted)."""
+    logits: (B, T, V) float; labels: (B, T) int (already shifted). With
+    ``data_group`` the rows are one data rank's: the NLL sum is divided by
+    the count summed over the group, so the ranks' losses add up to the
+    global batch's mean."""
     mask = labels != IGNORE_INDEX
     safe = torch.where(mask, labels, torch.zeros_like(labels)).long()
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, safe[..., None])[..., 0]
     nll = (logz - gold) * mask
-    return nll.sum() / mask.sum().clamp(min=1)
+    count = mask.sum()
+    if data_group is not None:
+        dist.all_reduce(count, group=data_group)
+    return nll.sum() / count.clamp(min=1)
 
 
 def loss_fn(
@@ -63,6 +85,7 @@ def loss_fn(
     remat: bool = True,
     seq_sharding=None,
     anyres=None,
+    layout=None,
 ) -> torch.Tensor:
     """batch: images (B, H, W, 3) | absent, ids (B, T), labels (B, T),
     image_starts (B,), attn_lens (B,), tensors on the params' device.
@@ -70,34 +93,70 @@ def loss_fn(
     anyres: (grid_shape, crop_box) of a grid-uniform anyres batch, which
     carries ``tiles`` (B, T, S, S, 3): the tower runs once over the B*T
     tiles and each row's grids merge on their own. ``remat`` recomputes
-    each decoder layer in the backward pass."""
-    if seq_sharding is not None:
-        raise NotImplementedError(f"sequence-parallel training: {NOT_PORTED}")
-    vision_embeds = None
-    if anyres is not None:
-        grid_shape, crop_box = anyres
-        tiles = batch["tiles"]
-        b, t = tiles.shape[:2]
-        grids = vlm.encode_tile_grids(
-            params, cfg, tiles.reshape((b * t,) + tuple(tiles.shape[2:])))
-        grids = grids.reshape((b, t) + tuple(grids.shape[1:]))
-        vision_embeds = torch.stack([
-            vlm.merge_tile_grids(params, cfg, g, grid_shape, crop_box)[0]
-            for g in grids])
-    ids = batch["ids"]
+    each decoder layer in the backward pass.
+
+    layout: the ``parallel.sharding.Layout`` of a sharded ``params`` (this
+    rank's pieces; the batch holds this data rank's rows). seq_sharding:
+    ``parallel.mesh.seq_sharding(mesh)`` for sequence parallelism (with
+    unsharded params when no layout is given)."""
+    if layout is None and seq_sharding is not None:
+        layout = replicated_layout(params, seq_sharding.mesh)
+    mg = dg = None
+    if layout is not None:
+        mg = axis_group(layout.mesh, MODEL_AXIS)
+        dg = axis_group(layout.mesh, DATA_AXIS)
+    seq = seq_sharding is not None
+    ids, labels = batch["ids"], batch["labels"]
+    if seq and ids.shape[1] % axis_size(layout.mesh, MODEL_AXIS):
+        # T splits over "model": pad the bucket; the padding is masked out
+        # as keys (attn_lens) and carries no label
+        pad = -ids.shape[1] % axis_size(layout.mesh, MODEL_AXIS)
+        ids = torch.nn.functional.pad(ids, (0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad),
+                                         value=IGNORE_INDEX)
+    gather = None
+    if layout is not None:
+        # FSDP leaves are gathered where they are used: the tower and
+        # projector here, each decoder layer inside its (rematerialized)
+        # forward
+        dec = params["decoder"]
+        params = {k: layout.materialize(v, k) for k, v in params.items()
+                  if k != "decoder"}
+        params["decoder"] = {
+            **layout.materialize({k: v for k, v in dec.items()
+                                  if k != "layers"}, "decoder"),
+            "layers": dec["layers"]}
+        gather = lambda i, lp: layout.materialize(  # noqa: E731
+            lp, f"decoder/layers/{i}")
+    dec = params["decoder"]
     embeds = vlm._spliced_prompt_embeds(
         params, cfg, batch.get("images"), ids, batch["image_starts"],
-        vision_embeds=vision_embeds)
+        vision_embeds=_vision_embeds(params, cfg, batch, anyres),
+        text=qwen2.embed(dec, ids, cfg.decoder, mg))
     b, t, _ = embeds.shape
     positions = torch.arange(t, device=ids.device)[None].expand(b, t)
     # causal mask restricted to real tokens (right padding)
     mask = qwen2.prefill_mask(batch["attn_lens"], t, t,
                               window=cfg.decoder.attn_window)
-    hidden, _ = qwen2.forward(params["decoder"], cfg.decoder, embeds,
-                              positions, mask=mask, remat=remat)
-    logits = qwen2.logits_from_hidden(params["decoder"], hidden, cfg.decoder)
+    hidden, _ = qwen2.forward(dec, cfg.decoder, embeds, positions, mask=mask,
+                              remat=remat, group=mg, seq=seq, gather=gather)
+    logits = qwen2.logits_from_hidden(dec, hidden, cfg.decoder, mg)
     # next-token prediction: logits[t] predicts labels[t+1]
-    return cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+    return cross_entropy(logits[:, :-1], labels[:, 1:], dg)
+
+
+def _vision_embeds(params, cfg, batch, anyres):
+    if anyres is None:
+        return None
+    grid_shape, crop_box = anyres
+    tiles = batch["tiles"]
+    b, t = tiles.shape[:2]
+    grids = vlm.encode_tile_grids(
+        params, cfg, tiles.reshape((b * t,) + tuple(tiles.shape[2:])))
+    grids = grids.reshape((b, t) + tuple(grids.shape[1:]))
+    return torch.stack([
+        vlm.merge_tile_grids(params, cfg, g, grid_shape, crop_box)[0]
+        for g in grids])
 
 
 # ---------------------------------------------------------------------------
@@ -203,10 +262,16 @@ class AdamW:
                 "nu": {p: torch.zeros_like(x) for p, x in trained.items()}}
 
     @torch.no_grad()
-    def update(self, params, state: Dict[str, Any]) -> None:
+    def update(self, params, state: Dict[str, Any], layout=None) -> None:
         """One update from each trained leaf's ``.grad`` (a leaf the loss
         did not reach counts as a zero gradient, as in JAX), in place on the
-        params and the state; the gradients are cleared."""
+        params and the state; the gradients are cleared.
+
+        With a ``layout`` (``parallel.sharding.Layout``) the leaves are this
+        rank's pieces: the gradients are summed over "data" first, each
+        group's norm is the whole gradient's (``Layout.sq_norm``), and a
+        moment that ZeRO-1 sliced (``shard_opt_state_zero1``) updates its
+        slice of the param, which is then all-gathered over "data"."""
         count = int(state["count"])
         by_group: Dict[str, list] = {}
         for path, x in self.trained(params).items():
@@ -216,10 +281,15 @@ class AdamW:
             ps = [x for _, x in leaves]
             gs = [torch.zeros_like(x) if x.grad is None else x.grad
                   for x in ps]
-            # optax's global norm: each leaf's sum of squares in its own
-            # dtype, the leaves' sums added in f32
-            norm = torch.stack([g.square().sum().float()
-                                for g in gs]).sum().sqrt()
+            if layout is None:
+                # optax's global norm: each leaf's sum of squares in its
+                # own dtype, the leaves' sums added in f32
+                norm = torch.stack([g.square().sum().float()
+                                    for g in gs]).sum().sqrt()
+            else:
+                named = [(p, g) for (p, _), g in zip(leaves, gs)]
+                layout.reduce_grads(named)
+                norm = layout.sq_norm(named).sqrt()
             # optax: g when norm < max_norm, else (g / norm) * max_norm
             keep = norm < group.clip
             gs = torch._foreach_div(gs, torch.where(keep, 1.0, norm))
@@ -228,10 +298,20 @@ class AdamW:
             # mixed dtypes (QLoRA's bf16 and f32 adapters) take their
             # scalars rounded to their own dtype, as optax does
             by_dtype: Dict[torch.dtype, list] = {}
+            sliced = []
             for (path, p), g in zip(leaves, gs):
+                if state["mu"][path].shape != p.shape:  # a ZeRO-1 slice
+                    p, g = (local_chunk(x, 0, layout.mesh, DATA_AXIS)
+                            for x in (p, g))
+                    sliced.append((path, p))
                 by_dtype.setdefault(p.dtype, []).append((path, p, g))
             for dtype, rows in by_dtype.items():
                 self._adamw(group, count, dtype, rows, state)
+            for path, piece in sliced:
+                whole = dict(leaves)[path]
+                dist.all_gather(list(whole.chunk(
+                    axis_size(layout.mesh, DATA_AXIS), 0)), piece.clone(),
+                    group=axis_group(layout.mesh, DATA_AXIS))
             for p in ps:
                 p.grad = None
         state["count"] = torch.tensor(count + 1, dtype=torch.int32)
@@ -317,12 +397,14 @@ class TrainState(NamedTuple):
     params: Any
     opt_state: Any
     step: int
+    layout: Any = None  # parallel.sharding.Layout of sharded params
 
 
-def make_train_state(params: Any, tx: AdamW) -> TrainState:
+def make_train_state(params: Any, tx: AdamW, layout=None) -> TrainState:
     """The state over a copy of the trained leaves (the caller's tree is
     left as it is, as JAX leaves it), each requiring grad; every other leaf
-    is shared and requires none."""
+    is shared and requires none. ``layout``: the layout of a sharded
+    ``params`` (this rank's pieces), which the steps then follow."""
 
     def leaf(path, x):
         if not torch.is_tensor(x):
@@ -332,7 +414,17 @@ def make_train_state(params: Any, tx: AdamW) -> TrainState:
         return x.detach().clone().requires_grad_(True)
 
     params = map_leaves(leaf, params)
-    return TrainState(params=params, opt_state=tx.init(params), step=0)
+    return TrainState(params=params, opt_state=tx.init(params), step=0,
+                      layout=layout)
+
+
+def _global_loss(loss: torch.Tensor, layout) -> torch.Tensor:
+    """The loss over the global batch: each data rank's share summed."""
+    loss = loss.detach()
+    if layout is not None:
+        loss = loss.clone()
+        dist.all_reduce(loss, group=axis_group(layout.mesh, DATA_AXIS))
+    return loss
 
 
 def train_step(
@@ -344,19 +436,60 @@ def train_step(
     anyres=None,
 ) -> Tuple[TrainState, torch.Tensor]:
     """loss, backward, one optimizer update (in place); returns the new
-    state and the loss (a 0-d tensor on the device, not read here)."""
+    state and the loss (a 0-d tensor on the device, not read here). A
+    sharded state (``state.layout``) takes this data rank's rows and
+    returns the global batch's loss."""
     loss = loss_fn(state.params, cfg, batch, seq_sharding=seq_sharding,
-                   anyres=anyres)
+                   anyres=anyres, layout=state.layout)
     loss.backward()
-    tx.update(state.params, state.opt_state)
-    return state._replace(step=state.step + 1), loss.detach()
+    tx.update(state.params, state.opt_state, state.layout)
+    return (state._replace(step=state.step + 1),
+            _global_loss(loss, state.layout))
 
 
-def loss_fn_pp(*args, **kwargs):
-    """Pipeline-parallel loss (decoder layers staged over a mesh)."""
-    raise NotImplementedError(f"loss_fn_pp: {NOT_PORTED}")
+def loss_fn_pp(params: Any, cfg: FastVLMConfig,
+               batch: Dict[str, torch.Tensor], mesh,
+               n_micro: int) -> torch.Tensor:
+    """Pipeline-parallel loss: the decoder's layers staged over the mesh's
+    "model" axis (``parallel/pipeline.forward_pipelined``, this rank's
+    stage in ``params``); the tower, projector, embedding and head whole on
+    every rank; the batch is this data rank's rows, split into ``n_micro``
+    microbatches. The same function as ``loss_fn``."""
+    from fastvlm_tpu_torch.parallel import pipeline as pp
+
+    embeds = vlm._spliced_prompt_embeds(
+        params, cfg, batch.get("images"), batch["ids"], batch["image_starts"])
+    b, t, d = embeds.shape
+    if b % n_micro:
+        raise ValueError(f"batch {b} not divisible by {n_micro} "
+                         f"microbatches")
+    positions = torch.arange(t, device=embeds.device)[None].expand(b, t)
+    mask = qwen2.prefill_mask(batch["attn_lens"], t, t,
+                              window=cfg.decoder.attn_window)
+    hidden = pp.forward_pipelined(
+        params["decoder"], cfg.decoder, embeds.reshape(n_micro, -1, t, d),
+        positions.reshape(n_micro, -1, t), mask.reshape(n_micro, -1, t, t),
+        mesh)
+    logits = qwen2.logits_from_hidden(params["decoder"],
+                                      hidden.reshape(b, t, d), cfg.decoder)
+    return cross_entropy(logits[:, :-1], batch["labels"][:, 1:],
+                         axis_group(mesh, DATA_AXIS))
 
 
-def train_step_pp(*args, **kwargs):
-    """Pipeline-parallel training step."""
-    raise NotImplementedError(f"train_step_pp: {NOT_PORTED}")
+def train_step_pp(
+    state: TrainState,
+    cfg: FastVLMConfig,
+    tx: AdamW,
+    batch: Dict[str, torch.Tensor],
+    mesh,
+    n_micro: int = 2,
+) -> Tuple[TrainState, torch.Tensor]:
+    """One step with the decoder pipelined over the mesh's "model" axis.
+    The state holds this rank's stage (``parallel/pipeline.stage_layout``
+    as its layout); layer params, gradients and moments stay stage-local.
+    Returns the global batch's loss."""
+    loss = loss_fn_pp(state.params, cfg, batch, mesh, n_micro)
+    loss.backward()
+    tx.update(state.params, state.opt_state, state.layout)
+    return (state._replace(step=state.step + 1),
+            _global_loss(loss, state.layout))

@@ -3,14 +3,23 @@
 Wires: checkpoint / config load (or a random tiny model for dry runs) ->
 dataset -> freeze policy -> Trainer loop with native save / resume. Runs on
 the card unless ``--device cpu`` asks for the CPU; without a card the
-default exits 1. The parallel flags (``--tp`` > 1, ``--sp``,
-``--pp-micro``, ``--zero1``, ``--fsdp``, ``--multihost`` /
-``--coordinator``) exit 2: not yet ported, see ROADMAP.md.
+default exits 1.
 
-Example:
+Parallel training (``parallel/``): ``--multihost`` joins the process group
+from torchrun's env, ``--coordinator host:port`` (or a ``file://`` URL)
+with ``--num-processes`` / ``--process-id`` from the flags; NCCL on the
+card, gloo with ``--device cpu``. ``--tp``, ``--sp``, ``--pp-micro``,
+``--zero1`` and ``--fsdp`` then lay the (data, model) mesh over the world's
+ranks (a one-rank world is made when none is up), with JAX's divisibility
+errors.
+
+Examples:
   python -m fastvlm_tpu_torch.train.train_sft --random-tiny --device cpu \\
       --data-path data/sft.json --image-folder data/images \\
       --output-dir ckpts/run1 --batch-size 4 --max-steps 8
+  torchrun --standalone --nproc-per-node 2 -m \\
+      fastvlm_tpu_torch.train.train_sft --multihost --device cpu \\
+      --random-tiny --data-path data/sft.json --tp 2 --sp
 """
 
 from __future__ import annotations
@@ -18,8 +27,6 @@ from __future__ import annotations
 import argparse
 import logging
 import sys
-
-NOT_PORTED = "not yet ported, see ROADMAP.md"
 
 
 def tiny_config(image_aspect_ratio: str = "pad"):
@@ -80,45 +87,64 @@ def main(argv=None):
     parser.add_argument("--bits", type=int, default=None, choices=[4, 8],
                         help="QLoRA: freeze an int4/int8-quantized decoder "
                              "base under the LoRA adapters")
-    # parallelism (not yet ported)
+    # parallelism
     parser.add_argument("--tp", type=int, default=1)
-    parser.add_argument("--sp", action="store_true")
-    parser.add_argument("--pp-micro", type=int, default=None)
-    parser.add_argument("--zero1", action="store_true")
-    parser.add_argument("--fsdp", action="store_true")
-    parser.add_argument("--multihost", action="store_true")
-    parser.add_argument("--coordinator", default=None)
+    parser.add_argument("--sp", action="store_true",
+                        help="sequence-parallel activations (T over the "
+                             "model axis)")
+    parser.add_argument("--pp-micro", type=int, default=None,
+                        help="pipeline-parallel decoder: stage layers over "
+                             "the model axis (--tp = stages) and stream N "
+                             "microbatches (GPipe)")
+    parser.add_argument("--zero1", action="store_true",
+                        help="shard optimizer state over the data axis")
+    parser.add_argument("--fsdp", action="store_true",
+                        help="fully shard params over the data axis")
+    parser.add_argument("--multihost", action="store_true",
+                        help="join the process group (torchrun's env)")
+    parser.add_argument("--coordinator", default=None,
+                        help="rendezvous host:port (or a tcp:// / file:// "
+                             "URL) for an explicit launch")
     parser.add_argument("--num-processes", type=int, default=None)
     parser.add_argument("--process-id", type=int, default=None)
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-
-    unported = [flag for flag, on in (
-        ("--tp > 1", args.tp > 1), ("--sp", args.sp),
-        ("--pp-micro", args.pp_micro), ("--zero1", args.zero1),
-        ("--fsdp", args.fsdp), ("--multihost", args.multihost),
-        ("--coordinator", args.coordinator),
-        ("--num-processes", args.num_processes is not None),
-        ("--process-id", args.process_id is not None)) if on]
-    if unported:
-        print(f"{', '.join(unported)}: {NOT_PORTED}", file=sys.stderr)
-        return 2
     if not args.random_tiny and not args.model_path:
         parser.error("--model-path required (or use --random-tiny)")
 
     import torch
+    import torch.distributed as dist
+
+    from fastvlm_tpu_torch.parallel import distributed
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("no CUDA device is available; pass --device cpu to train on "
+              "the CPU", file=sys.stderr)
+        return 1
+    owned = not dist.is_initialized()
+    try:
+        if args.multihost or args.coordinator:
+            distributed.initialize(args.coordinator, args.num_processes,
+                                   args.process_id, device=args.device)
+        return _train(parser, args)
+    finally:
+        if owned:
+            distributed.shutdown()
+
+
+def _train(parser, args) -> int:
+    import torch
+    import torch.distributed as dist
 
     from fastvlm_tpu_torch.config import resolve_dtype
     from fastvlm_tpu_torch.data.preprocessing import (
         ByteTokenizer, ImageProcessor)
     from fastvlm_tpu_torch.data.sft import DataArguments, SupervisedDataset
     from fastvlm_tpu_torch.models import vlm
+    from fastvlm_tpu_torch.parallel import distributed, make_mesh
+    from fastvlm_tpu_torch.parallel.mesh import DATA_AXIS, axis_size
     from fastvlm_tpu_torch.train.trainer import Trainer, TrainingArguments
 
-    if args.device == "cuda" and not torch.cuda.is_available():
-        print("no CUDA device is available; pass --device cpu to train on "
-              "the CPU", file=sys.stderr)
-        return 1
     if args.random_tiny:
         cfg = tiny_config(args.image_aspect_ratio)
         gen = torch.Generator()
@@ -134,6 +160,26 @@ def main(argv=None):
         cfg, params = load_vlm(args.model_path,
                                dtype=resolve_dtype(args.dtype))
         tokenizer = AutoTokenizer.from_pretrained(args.model_path)
+
+    if args.pp_micro and args.tp <= 1:
+        parser.error("--pp-micro needs --tp > 1 (stages on the model axis)")
+    mesh = None
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if args.tp > 1 or world > 1 or args.sp or args.zero1 or args.fsdp:
+        # the parallel paths run over a process group, of one rank if need be
+        distributed.initialize(num_processes=1, device=args.device)
+        mesh = make_mesh(tp=args.tp)
+        if args.pp_micro:
+            if cfg.decoder.num_layers % args.tp:
+                parser.error(f"--pp-micro needs num_layers "
+                             f"({cfg.decoder.num_layers}) divisible by "
+                             f"--tp ({args.tp}) stages")
+            dp = axis_size(mesh, DATA_AXIS)
+            if args.batch_size % args.pp_micro or \
+                    (args.batch_size // args.pp_micro) % dp:
+                parser.error(
+                    f"--pp-micro: batch {args.batch_size} must split into "
+                    f"{args.pp_micro} microbatches divisible by dp={dp}")
 
     data_args = DataArguments(
         data_path=args.data_path,
@@ -165,8 +211,12 @@ def main(argv=None):
         lora_r=args.lora_r,
         lora_alpha=args.lora_alpha,
         bits=args.bits,
+        zero1=args.zero1,
+        fsdp=args.fsdp,
     )
-    trainer = Trainer(cfg, params, dataset, train_args, device=args.device)
+    trainer = Trainer(cfg, params, dataset, train_args, mesh=mesh,
+                      pp_micro=args.pp_micro, seq_parallel=args.sp,
+                      device=args.device)
     result = trainer.train()
     print(result)
     return 0

@@ -7,9 +7,19 @@ from the latest ``checkpoint-{step}`` directory, and adapter-only
 checkpoints when only the projector trains. The checkpoint layout is JAX's
 (``checkpoint-{step}/{params,opt_state,mm_projector,lora_adapters}``), each
 written with ``utils/checkpoint.save_native`` instead of Orbax. Everything
-runs on ``device`` ("cuda" unless the caller asks for the CPU); the
-parallel schedules (a mesh, pipeline microbatches, sequence parallelism,
-ZeRO-1) are not ported yet and raise.
+runs on ``device`` ("cuda" unless the caller asks for the CPU).
+
+Parallel training (``parallel/``): with a ``mesh`` (``make_mesh`` over an
+initialized process group) every rank draws the same global batch from the
+same seeded sampler and keeps its data rank's rows [r B/dp, (r+1) B/dp), so
+a data-parallel run trains on JAX's batches. The params are split by a
+layout (``parallel/sharding.py``): Megatron TP over "model" by default,
+FSDP over "data" with ``fsdp``, the decoder's layers staged over "model"
+with ``pp_micro`` (GPipe microbatches, ``train_step_pp``); ``seq_parallel``
+adds sequence parallelism to TP and ``zero1`` slices the Adam moments over
+"data". LoRA / QLoRA under a mesh train data-parallel, every leaf whole.
+Checkpoints hold whole tensors in the one-process layout, written by the
+primary rank only, so a run resumes under any layout.
 
 The reference's gaps are kept as they are: a resumed run starts the
 sampler at epoch 0 again (it re-reads batches it trained on), LoRA and
@@ -31,8 +41,14 @@ from typing import Any, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from fastvlm_tpu_torch.config import FastVLMConfig
 from fastvlm_tpu_torch.data.sft import SupervisedDataset, collate
+from fastvlm_tpu_torch.parallel import sharding
+from fastvlm_tpu_torch.parallel.distributed import is_primary
+from fastvlm_tpu_torch.parallel.mesh import (
+    DATA_AXIS, axis_size, data_sharding, seq_sharding)
 from fastvlm_tpu_torch.train import step as step_mod
 from fastvlm_tpu_torch.train.sampler import LengthGroupedSampler
 from fastvlm_tpu_torch.utils.checkpoint import restore_native, save_native
@@ -57,6 +73,7 @@ class TrainingArguments:
     lora_alpha: float = 16.0
     bits: Optional[int] = None  # 4/8: a frozen quantized base under LoRA
     zero1: bool = False  # shard optimizer state over the data axis
+    fsdp: bool = False  # shard params over the data axis (with a mesh)
     group_by_modality_length: bool = False
     tune_mm_mlp_adapter: bool = False   # adapter-only training + checkpoints
     freeze_mm_mlp_adapter: bool = False
@@ -101,10 +118,6 @@ def _anyres_batches(dataset: SupervisedDataset, sampler, batch_size: int,
             buckets[key] = []
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what}: {step_mod.NOT_PORTED}")
-
-
 def _copy_into(dst, src) -> None:
     """Copy a restored tree into the live one leaf by leaf (the live leaves
     keep their identity, device and requires_grad)."""
@@ -119,19 +132,26 @@ class Trainer:
                  dataset: SupervisedDataset, args: TrainingArguments,
                  mesh=None, pp_micro=None, seq_parallel=False,
                  device="cuda"):
-        if mesh is not None:
-            raise _not_ported("Trainer(mesh=)")
-        if pp_micro:
-            raise _not_ported("Trainer(pp_micro=)")
-        if seq_parallel:
-            raise _not_ported("Trainer(seq_parallel=True)")
-        if args.zero1:
-            raise _not_ported("zero1=True")
         self.cfg = cfg
         self.args = args
         self.dataset = dataset
         self.device = torch.device(device)
         self.history: List[Dict[str, Any]] = []
+        self.mesh = mesh
+        # the parallel schedule: pipeline microbatches (the decoder staged
+        # over the model axis) or sequence-parallel activations
+        self.pp_micro = pp_micro
+        self._seq_sharding = None
+        if pp_micro and mesh is None:
+            raise ValueError("pp_micro stages the decoder over a mesh's "
+                             "model axis: pass mesh=")
+        if mesh is not None:
+            dp = axis_size(mesh, DATA_AXIS)
+            if args.batch_size % dp:
+                raise ValueError(f"batch {args.batch_size} not divisible "
+                                 f"by dp={dp}")
+            if seq_parallel:
+                self._seq_sharding = seq_sharding(mesh)
 
         steps_per_epoch = len(dataset) // args.batch_size
         total = args.max_steps or max(steps_per_epoch * args.num_epochs, 1)
@@ -176,7 +196,15 @@ class Trainer:
                 freeze_projector=args.freeze_mm_mlp_adapter,
                 grad_clip=args.grad_clip,
             )
-        self.state = step_mod.make_train_state(params, self.tx)
+        layout = None
+        if mesh is not None:
+            layout = self._layout(params, mesh)
+            params = layout.shard(params)
+        self.state = step_mod.make_train_state(params, self.tx, layout)
+        if args.zero1 and mesh is not None:
+            self.state = self.state._replace(
+                opt_state=sharding.shard_opt_state_zero1(
+                    self.state.opt_state, mesh, layout))
         self.sampler = LengthGroupedSampler(
             dataset.modality_lengths if args.group_by_modality_length
             else dataset.lengths,
@@ -185,7 +213,36 @@ class Trainer:
             seed=args.seed,
         )
 
+    def _layout(self, params, mesh) -> sharding.Layout:
+        if self.pp_micro:
+            from fastvlm_tpu_torch.parallel.pipeline import stage_layout
+
+            return stage_layout(params, mesh)
+        if self.args.fsdp:
+            return sharding.fsdp_layout(params, mesh)
+        if self.args.lora_enable:
+            return sharding.replicated_layout(params, mesh)
+        return sharding.tp_layout(params, self.cfg, mesh)
+
     # ---------------- checkpointing ----------------
+
+    def _whole(self, tree, prefix=""):
+        """The whole tree of a local one (collective under a mesh)."""
+        layout = self.state.layout
+        return tree if layout is None else layout.gather(tree, prefix)
+
+    def _whole_opt_state(self, whole_params) -> Dict[str, Any]:
+        """The optimizer state in the one-process layout (collective)."""
+        opt, layout = self.state.opt_state, self.state.layout
+        if layout is None:
+            return opt
+        params = dict(step_mod.named_leaves(self.state.params))
+        out = {"count": opt["count"]}
+        order = [p for p, _ in step_mod.named_leaves(whole_params)]
+        for key in ("mu", "nu"):
+            got = layout.gather_moments(opt[key], params)
+            out[key] = {p: got[p] for p in order if p in got}
+        return out
 
     def _ckpt_dir(self, step: int) -> str:
         return os.path.join(os.path.abspath(self.args.output_dir),
@@ -202,30 +259,49 @@ class Trainer:
         return self._ckpt_dir(max(steps)) if steps else None
 
     def save(self, step: int) -> None:
+        """Write ``checkpoint-{step}``: whole tensors in the one-process
+        layout, by the primary rank (every rank joins the gathers)."""
         path = self._ckpt_dir(step)
         params = self.state.params
         if self.args.lora_enable:
             from fastvlm_tpu_torch.train import lora
 
             # LoRA split save (reference train_qwen.py:1232-1242)
-            save_native(os.path.join(path, "lora_adapters"),
-                        lora.split_lora_state(params["decoder"]))
+            self._write(os.path.join(path, "lora_adapters"),
+                        lora.split_lora_state(self._whole(params)["decoder"]))
             logger.info("saved LoRA adapters %s", path)
             return
         if self.args.tune_mm_mlp_adapter:
             # adapter-only checkpoint (reference llava_trainer.py:244-265)
-            save_native(os.path.join(path, "mm_projector"),
-                        params["projector"])
+            self._write(os.path.join(path, "mm_projector"),
+                        self._whole(params["projector"], "projector"))
         else:
-            save_native(os.path.join(path, "params"), params)
+            whole = self._whole(params)
+            self._write(os.path.join(path, "params"), whole)
             # full checkpoints also carry the optimizer state, so a resume
             # continues the schedule and the moments
-            save_native(os.path.join(path, "opt_state"), self.state.opt_state)
+            self._write(os.path.join(path, "opt_state"),
+                        self._whole_opt_state(whole))
         logger.info("saved checkpoint %s", path)
+
+    def _write(self, path: str, tree) -> None:
+        if is_primary():
+            save_native(path, tree)
+        if self.state.layout is not None:
+            dist.barrier()
+
+    def _restore(self, path: str, live, prefix=""):
+        """Copy the whole tree under ``path`` into the live (local) one."""
+        layout = self.state.layout
+        if layout is None:
+            _copy_into(live, restore_native(path, live))
+        else:
+            _copy_into(live, layout.shard(restore_native(path), prefix))
 
     def resume(self) -> int:
         """Auto-resume from the latest checkpoint-* (reference
-        train_qwen.py:1224-1227); returns its step, 0 without one."""
+        train_qwen.py:1224-1227); returns its step, 0 without one. Any
+        layout resumes any checkpoint: they hold whole tensors."""
         path = self.latest_checkpoint()
         if path is None:
             return 0
@@ -238,23 +314,35 @@ class Trainer:
             _copy_into(like, restore_native(
                 os.path.join(path, "lora_adapters"), like))
         elif self.args.tune_mm_mlp_adapter:
-            _copy_into(params["projector"], restore_native(
-                os.path.join(path, "mm_projector"), params["projector"]))
+            self._restore(os.path.join(path, "mm_projector"),
+                          params["projector"], "projector")
         else:
-            _copy_into(params, restore_native(os.path.join(path, "params"),
-                                              params))
+            self._restore(os.path.join(path, "params"), params)
             opt_path = os.path.join(path, "opt_state")
             if os.path.isdir(opt_path):
-                _copy_into(self.state.opt_state, restore_native(
-                    opt_path, self.state.opt_state))
+                self._restore_opt_state(opt_path)
         self.state = self.state._replace(step=step)
         logger.info("resumed from %s (step %d)", path, step)
         return step
 
+    def _restore_opt_state(self, path: str) -> None:
+        live, layout = self.state.opt_state, self.state.layout
+        if layout is None:
+            _copy_into(live, restore_native(path, live))
+            return
+        whole = restore_native(path)
+        _copy_into(live, {"count": whole["count"], **{
+            k: layout.shard_moments(whole[k], live[k]) for k in ("mu", "nu")}})
+
     # ---------------- loop ----------------
 
     def _to_device(self, batch: Dict[str, np.ndarray]):
-        return {k: torch.from_numpy(v).to(self.device, non_blocking=True)
+        """A global batch on the device; under a mesh, this data rank's rows
+        [r B/dp, (r+1) B/dp) of it."""
+        rows = (lambda x: x) if self.mesh is None else \
+            data_sharding(self.mesh).local
+        return {k: rows(torch.from_numpy(v)).to(self.device,
+                                                non_blocking=True)
                 for k, v in batch.items()}
 
     def train(self) -> Dict[str, float]:
@@ -282,9 +370,20 @@ class Trainer:
                 anyres = batch.pop("_anyres", None)
                 tokens = int(batch["attn_lens"].sum())
                 data_ms = (time.perf_counter() - t_data) * 1e3
-                self.state, loss = step_mod.train_step(
-                    self.state, self.cfg, self.tx, self._to_device(batch),
-                    anyres=anyres)
+                batch = self._to_device(batch)
+                if self.pp_micro:
+                    if anyres is not None:
+                        raise ValueError(
+                            "anyres training composes with dp/tp/sp but not "
+                            "--pp-micro (loss_fn_pp has no tile path); drop "
+                            "--pp-micro or use image_aspect_ratio=pad")
+                    self.state, loss = step_mod.train_step_pp(
+                        self.state, self.cfg, self.tx, batch, self.mesh,
+                        self.pp_micro)
+                else:
+                    self.state, loss = step_mod.train_step(
+                        self.state, self.cfg, self.tx, batch,
+                        seq_sharding=self._seq_sharding, anyres=anyres)
                 step += 1
                 read = None
                 if step % args.log_steps == 0 or step == self.total_steps:

@@ -24,6 +24,9 @@ from fastvlm_tpu_torch.data.preprocessing import ImageProcessor
 from fastvlm_tpu_torch.train import sampler as tsampler
 from fastvlm_tpu_torch.utils import native_image as tni
 
+import torch_tiny as tt
+from torch_tiny import same_image_loader  # noqa: F401 (autouse fixture)
+
 TOK = ByteTokenizer()
 
 
@@ -269,7 +272,8 @@ def _assert_batch_equal(got, want):
 
 
 @pytest.mark.parametrize("conv_version", ["qwen_2", "v1", "plain_free"])
-def test_dataset_items_and_collate_equal_jax(pad_data, conv_version):
+def test_dataset_items_and_collate_equal_jax(pad_data, conv_version,
+                                             same_image_loader):
     data_path, folder = pad_data
     kw = {"conv_version": conv_version if conv_version != "plain_free"
           else "mpt", "max_len": 48 if conv_version == "v1" else 2048}
@@ -282,9 +286,13 @@ def test_dataset_items_and_collate_equal_jax(pad_data, conv_version):
         got, want = t[i], j[i]
         _assert_item_equal(got, want)
         items.append(got)
-    # the missing image fell back to sample 0; both loaders ran
+    # the missing image fell back to sample 0; both loaders ran where the
+    # native one loads in both packages (else both are pinned to PIL)
     assert items[3]["ids"] == items[0]["ids"]
-    assert t.image_loads["native"] >= 2 and t.image_loads["pil"] >= 1
+    if same_image_loader:
+        assert t.image_loads["native"] >= 2 and t.image_loads["pil"] >= 1
+    else:
+        assert t.image_loads["native"] == 0 and t.image_loads["pil"] >= 3
     for n_img, mult in ((4, 16), (16, 64)):
         got = tsft.collate(items, n_img, pad_to_multiple=mult)
         want = jsft.collate([j[i] for i in range(5)], n_img,
@@ -442,3 +450,31 @@ def test_native_loader_builds_under_the_port_build_dir(loaders):
     assert tni._LIB_PATH.endswith(
         os.path.join("fastvlm_tpu_torch", "_build", "libfvlm_image.so"))
     assert os.path.exists(tni._LIB_PATH)
+
+
+def test_loaders_out_of_step_are_pinned_to_one(tmp_path, monkeypatch):
+    """JAX's loader stuck on PIL (its in-place build read half-written by
+    another test process, which leaves ``_tried`` set for good) while the
+    port's decodes natively: the two datasets' images differ, and
+    ``torch_tiny.pin_image_loaders`` puts both on one loader, after which
+    the trainers' first batches are equal."""
+    from fastvlm_tpu.train import trainer as jtrainer
+    from fastvlm_tpu_torch.train import trainer as ttrainer
+
+    data = tt.sft_records(tmp_path)
+    monkeypatch.setattr(jni, "_lib", None)
+    monkeypatch.setattr(jni, "_tried", True)
+    t, j = tt.sft_datasets(data)
+    imaged = next(i for i in range(len(t)) if t[i]["has_image"]
+                  and t.records[i]["image"].endswith(".jpg"))
+    if tni.available():
+        assert not np.array_equal(t[imaged]["image"], j[imaged]["image"])
+    native = tt.pin_image_loaders(monkeypatch)
+    assert native == (jni._lib is not None) == (tni._lib is not None)
+    t, j = tt.sft_datasets(data)
+    assert np.array_equal(t[imaged]["image"], j[imaged]["image"])
+    got = next(ttrainer.batches(t, ttrainer.LengthGroupedSampler(
+        t.lengths, 4, seed=0), 4, 4))
+    want = next(jtrainer.batches(j, jtrainer.LengthGroupedSampler(
+        j.lengths, 4, seed=0), 4, 4))
+    _assert_batch_equal(got, want)

@@ -1,21 +1,27 @@
-"""The trainer's refusals, the train_sft CLI (``--random-tiny --device
-cpu``, the unported flags refused, the default device needing a card) and
+"""The trainer's parallel schedules and refusals, the train_sft CLI
+(``--random-tiny --device cpu``, each parallel flag in a one-rank gloo
+world or refused with JAX's error, the default device needing a card) and
 a trained tiny model generating through the port's ``Engine``."""
 
 import json
 import os
+import socket
 
 import pytest
 import torch
+import torch.distributed as dist
 
 from fastvlm_tpu_torch.data import sft as tsft
 from fastvlm_tpu_torch.data.preprocessing import ByteTokenizer, ImageProcessor
 from fastvlm_tpu_torch.train import train_sft
+from fastvlm_tpu_torch.train import step as tstep
 from fastvlm_tpu_torch.train import trainer as ttrainer
 from fastvlm_tpu_torch.utils.convert import from_jax_params
 
 import torch_tiny as tt
+from torch_tiny import one_rank_world  # noqa: F401 (fixture)
 from torch_tiny import one_torch_thread  # noqa: F401 (autouse fixture)
+from torch_tiny import same_image_loader  # noqa: F401 (autouse fixture)
 
 JC, TC = tt.JTRAIN, tt.TTRAIN
 
@@ -25,16 +31,25 @@ def data(tmp_path_factory):
     return tt.sft_records(tmp_path_factory.mktemp("sft"))
 
 
-def test_trainer_refuses_unported_schedules(data):
+def test_trainer_refuses_unported_schedules(data, one_rank_world):
+    """Every schedule builds on a one-rank mesh (the refusals that stood
+    here before the parallel port are gone); what the Trainer refuses is
+    JAX's: --bits without LoRA, and (the port's own) pp_micro without a
+    mesh and a batch that dp does not divide."""
     tds, _ = tt.sft_datasets(data)
     params = from_jax_params(tt.live_weights(JC), TC)
     args = ttrainer.TrainingArguments()
-    for kw in ({"mesh": object()}, {"pp_micro": 2}, {"seq_parallel": True}):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            ttrainer.Trainer(TC, params, tds, args, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ttrainer.Trainer(TC, params, tds,
-                         ttrainer.TrainingArguments(zero1=True), device="cpu")
+    mesh = one_rank_world
+    for kw in ({"mesh": mesh}, {"mesh": mesh, "pp_micro": 2},
+               {"mesh": mesh, "seq_parallel": True}):
+        tr = ttrainer.Trainer(TC, params, tds, args, device="cpu", **kw)
+        assert tr.state.layout is not None and tr.state.layout.mesh is mesh
+    tr = ttrainer.Trainer(TC, params, tds, ttrainer.TrainingArguments(
+        zero1=True), mesh=mesh, device="cpu")
+    assert set(tr.state.opt_state["mu"]) == set(
+        p for p, x in tstep.named_leaves(tr.state.params) if x.requires_grad)
+    with pytest.raises(ValueError, match="pass mesh="):
+        ttrainer.Trainer(TC, params, tds, args, pp_micro=2, device="cpu")
     with pytest.raises(ValueError, match="needs --lora-enable"):
         ttrainer.Trainer(TC, params, tds,
                          ttrainer.TrainingArguments(bits=8), device="cpu")
@@ -58,17 +73,50 @@ def test_train_sft_random_tiny_runs_on_the_cpu(data, tmp_path, capsys):
         "opt_state", "params"]
 
 
-@pytest.mark.parametrize("flags", [
-    ["--tp", "2"], ["--sp"], ["--pp-micro", "2"], ["--zero1"], ["--fsdp"],
-    ["--multihost"], ["--coordinator", "localhost:1234"],
-    ["--num-processes", "2"], ["--process-id", "0"]],
-    ids=lambda f: f[0])
-def test_unported_flags_exit_not_yet_ported(data, tmp_path, capsys, flags):
+def _free_port():
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return str(sock.getsockname()[1])
+
+
+@pytest.mark.parametrize("flag", [
+    "--tp", "--sp", "--pp-micro", "--zero1", "--fsdp", "--multihost",
+    "--coordinator", "--num-processes", "--process-id"])
+def test_unported_flags_exit_not_yet_ported(data, tmp_path, capsys,
+                                            monkeypatch, flag):
+    """The nine parallel flags, once refused with exit 2, run one step in a
+    one-rank gloo world (made for the mesh flags; from torchrun's env, a
+    ``file://`` rendezvous or an in-memory store for the launch flags) and
+    take it down after; ``--tp 2`` and ``--pp-micro 2`` on one rank raise
+    JAX's errors."""
     path, _ = data
-    rc = train_sft.main(["--random-tiny", "--device", "cpu", "--data-path",
-                         path, "--output-dir", str(tmp_path)] + flags)
-    assert rc == 2
-    assert "not yet ported, see ROADMAP.md" in capsys.readouterr().err
+    store = f"file://{tmp_path}/store"
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+    monkeypatch.setenv("MASTER_PORT", _free_port())
+    flags = {"--tp": ["--tp", "2"], "--sp": ["--sp"],
+             "--pp-micro": ["--pp-micro", "2"], "--zero1": ["--zero1"],
+             "--fsdp": ["--fsdp"], "--multihost": ["--multihost"],
+             "--coordinator": ["--coordinator", store],
+             "--num-processes": ["--multihost", "--num-processes", "1"],
+             "--process-id": ["--coordinator", store, "--num-processes",
+                              "1", "--process-id", "0"]}[flag]
+    argv = ["--random-tiny", "--device", "cpu", "--data-path", path,
+            "--output-dir", str(tmp_path / "run"), "--max-steps", "1",
+            "--save-steps", "0"] + flags
+    if flag == "--tp":
+        with pytest.raises(ValueError, match="not divisible by tp=2"):
+            train_sft.main(argv)
+    elif flag == "--pp-micro":
+        with pytest.raises(SystemExit) as exit_:
+            train_sft.main(argv)
+        assert exit_.value.code == 2
+        assert "--pp-micro needs --tp > 1" in capsys.readouterr().err
+    else:
+        assert train_sft.main(argv) == 0
+        assert "'steps': 1" in capsys.readouterr().out
+    assert not dist.is_initialized()
 
 
 def test_default_device_needs_a_card(data, tmp_path, capsys):

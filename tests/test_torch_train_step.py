@@ -32,6 +32,7 @@ from fastvlm_tpu_torch.utils.convert import (
     from_jax_params, opt_state_from_jax)
 
 import torch_tiny as tt
+from torch_tiny import one_rank_world  # noqa: F401 (fixture)
 from torch_tiny import one_torch_thread  # noqa: F401 (autouse fixture)
 
 JC, TC = tt.train_config(jcfg), tt.train_config(tcfg)
@@ -346,8 +347,64 @@ def test_train_step_runs_and_marks_only_trained_leaves():
     assert all(x.grad is None for _, x in tstep.named_leaves(state.params))
 
 
-def test_parallel_steps_not_yet_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tstep.train_step_pp(None, TC, None, {})
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tstep.loss_fn({}, TC, {}, seq_sharding=object())
+def test_parallel_steps_not_yet_ported(one_rank_world):
+    """The parallel steps, once refused, run: on a one-rank mesh (every
+    collective over one rank) ``train_step_pp`` with 2 microbatches and the
+    sequence-parallel ``loss_fn`` give the plain step's loss and params."""
+    from fastvlm_tpu_torch.parallel.mesh import seq_sharding
+    from fastvlm_tpu_torch.parallel.pipeline import stage_layout
+
+    mesh = one_rank_world
+    batch = _to_torch(_batch(b=2))
+    tx = tstep.make_optimizer(1e-3, total_steps=4)
+    plain, loss = tstep.train_step(tstep.make_train_state(
+        from_jax_params(_weights(), TC), tx), TC, tx, batch)
+    params = from_jax_params(_weights(), TC)
+    layout = stage_layout(params, mesh)
+    state = tstep.make_train_state(layout.shard(params), tx, layout)
+    state, pp_loss = tstep.train_step_pp(state, TC, tx, batch, mesh,
+                                         n_micro=2)
+    np.testing.assert_allclose(float(pp_loss), float(loss), rtol=1e-6)
+    for (p, a), (_, b) in zip(tstep.named_leaves(state.params),
+                              tstep.named_leaves(plain.params)):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
+                                   atol=2e-5, err_msg=p)
+    with torch.no_grad():
+        sp = tstep.loss_fn(from_jax_params(_weights(), TC), TC, batch,
+                           seq_sharding=seq_sharding(mesh))
+        want = tstep.loss_fn(from_jax_params(_weights(), TC), TC, batch)
+    np.testing.assert_allclose(float(sp), float(want), rtol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["tp", "sp", "zero1", "fsdp"])
+def test_one_rank_layouts_step_bitwise_like_one_process(one_rank_world,
+                                                        mode):
+    """On a one-rank mesh every collective is a copy, and the sharded
+    steps run the one-process step's ops in its order (the clip's norm
+    too): two steps give its params bit for bit, as the card's phase
+    parallel holds them at full width."""
+    from fastvlm_tpu_torch.parallel import sharding
+    from fastvlm_tpu_torch.parallel.mesh import seq_sharding
+
+    mesh = one_rank_world
+    batch = _to_torch(_batch(b=2))
+    tx = tstep.make_optimizer(1e-3, total_steps=4, freeze_vision=False)
+    plain = tstep.make_train_state(from_jax_params(_weights(), TC), tx)
+    params = from_jax_params(_weights(), TC)
+    layout = (sharding.fsdp_layout(params, mesh, min_size=64)
+              if mode == "fsdp" else sharding.tp_layout(params, TC, mesh))
+    state = tstep.make_train_state(layout.shard(params), tx, layout)
+    if mode == "zero1":
+        state = state._replace(opt_state=sharding.shard_opt_state_zero1(
+            state.opt_state, mesh, layout))
+    for _ in range(2):
+        plain, loss = tstep.train_step(plain, TC, tx, batch)
+        state, got = tstep.train_step(
+            state, TC, tx, batch,
+            seq_sharding=seq_sharding(mesh) if mode == "sp" else None)
+        assert torch.equal(got, loss)
+    want = dict(tstep.named_leaves(plain.params))
+    got = dict(tstep.named_leaves(layout.gather(state.params)))
+    assert sorted(got) == sorted(want)
+    for p, x in got.items():
+        assert torch.equal(x, want[p]), p

@@ -17,6 +17,7 @@ from fastvlm_tpu_torch.utils.convert import from_jax_params
 
 import torch_tiny as tt
 from torch_tiny import one_torch_thread  # noqa: F401 (autouse fixture)
+from torch_tiny import same_image_loader  # noqa: F401 (autouse fixture)
 
 JC, TC = tt.JTRAIN, tt.TTRAIN
 

@@ -7,6 +7,9 @@ training a live tower, 12 synthetic records and a pair of trainers."""
 import dataclasses
 import json
 import os
+import subprocess
+import sys
+import time
 
 import jax
 import jax.numpy as jnp
@@ -20,11 +23,13 @@ from fastvlm_tpu.data import preprocessing as jpreprocessing
 from fastvlm_tpu.data import sft as jsft
 from fastvlm_tpu.models import vlm as jvlm
 from fastvlm_tpu.train import trainer as jtrainer
+from fastvlm_tpu.utils import native_image as jni
 from fastvlm_tpu_torch import config as tcfg
 from fastvlm_tpu_torch import engine as tengine
 from fastvlm_tpu_torch.data import preprocessing
 from fastvlm_tpu_torch.data import sft as tsft
 from fastvlm_tpu_torch.train import trainer as ttrainer
+from fastvlm_tpu_torch.utils import native_image as tni
 from fastvlm_tpu_torch.utils.convert import from_jax_params
 
 
@@ -192,8 +197,34 @@ def sft_records(root):
     return str(path), str(root)
 
 
+def pin_image_loaders(monkeypatch) -> bool:
+    """Put both packages' JPEG loaders on one path for the test's duration:
+    native on both where both libraries load, PIL on both otherwise (each
+    module's ``_lib`` / ``_tried`` patched). A loader whose earlier load
+    failed is tried once more first: JAX's builds its library in place
+    under ``native/``, and a process that loads it while another builds it
+    fails for good. Returns whether the loaders are native."""
+    for mod in (jni, tni):
+        if mod._lib is None:
+            monkeypatch.setattr(mod, "_tried", False)
+    native = jni.available() and tni.available()
+    if not native:
+        for mod in (jni, tni):
+            monkeypatch.setattr(mod, "_lib", None)
+            monkeypatch.setattr(mod, "_tried", True)
+    return native
+
+
+@pytest.fixture(autouse=True)
+def same_image_loader(monkeypatch):
+    """Every test that imports this fixture compares batches decoded by one
+    loader in both packages (``pin_image_loaders``)."""
+    return pin_image_loaders(monkeypatch)
+
+
 def sft_datasets(data):
-    """(port dataset, JAX dataset) over ``sft_records``' files."""
+    """(port dataset, JAX dataset) over ``sft_records``' files; tests that
+    call it use the ``same_image_loader`` fixture."""
     path, folder = data
     t = tsft.SupervisedDataset(
         tsft.DataArguments(data_path=path, image_folder=folder),
@@ -267,3 +298,63 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+# ---------------------------------------------------------------------------
+# gloo worlds (tests/test_torch_parallel_train.py, test_torch_pipeline.py)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def one_rank_world():
+    """A gloo process group of one rank for the test's duration, and its
+    (1, 1) mesh."""
+    from fastvlm_tpu_torch.parallel import distributed, make_mesh
+
+    distributed.initialize(num_processes=1, device="cpu")
+    try:
+        yield make_mesh(dp=1, tp=1)
+    finally:
+        distributed.shutdown()
+
+
+WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "torch_parallel_worker.py")
+
+
+def run_world(root, n, scenarios, inputs, timeout=300):
+    """Run ``tests/torch_parallel_worker.py`` on ``n`` gloo ranks (a
+    ``file://`` rendezvous under ``root``) over ``inputs`` ({name: object},
+    written as .npy files); returns {scenario: [rank 0 result, ...]}. The
+    ranks are killed if any fails or the whole run outlasts ``timeout``
+    seconds."""
+    in_dir, out_dir = os.path.join(root, "in"), os.path.join(root, "out")
+    os.makedirs(in_dir)
+    os.makedirs(out_dir)
+    for name, obj in inputs.items():
+        np.save(os.path.join(in_dir, name + ".npy"), obj, allow_pickle=True)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("XLA_", "JAX_"))}
+    env["OMP_NUM_THREADS"] = "1"
+    procs = [subprocess.Popen(
+        [sys.executable, WORKER, str(r), str(n), os.path.join(root, "store"),
+         in_dir, out_dir, *scenarios], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(n)]
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [p for p in procs if p.poll() not in (None, 0)]
+            if failed or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        logs = [p.communicate()[0] for p in procs]
+    if any(p.returncode for p in procs):
+        raise AssertionError("gloo world failed:\n" + "\n".join(
+            f"[rank {r} rc {p.returncode}] {log[-3000:]}"
+            for r, (p, log) in enumerate(zip(procs, logs))))
+    return {s: [torch.load(os.path.join(out_dir, f"{s}.rank{r}.pt"),
+                           weights_only=False) for r in range(n)]
+            for s in scenarios}
