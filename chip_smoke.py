@@ -241,7 +241,29 @@ non-zero):
               written under the mesh
               and resumed by a one-process trainer, params and moments
               bitwise
- 20. small    a small f32 model on the card (kernels) agrees with the same
+ 20. tp       the tensor-parallel engine (Engine(mesh=)): K2 and K3 at the
+              heads a rank holds (7/1/64, 6/1/128, 14/2/128, 7/1/128: the
+              0.5B and 1.5B at tp 2, the 7B at tp 2 and 4), bf16, against
+              their plain versions at phase K2's / K3's split edges, one row
+              a call and B = 8, with each serving call's kernel time, bound
+              and plain time (and SDPA's beside K2); then Engine(mesh=
+              make_mesh(1, 1)) over NCCL at world size 1 (NCCL takes one
+              rank a device, and the machine has one card): phase main's
+              three requests give phase main's ids bit for bit (K1 44 a
+              request, K2 24 a step); then a world of 2 gloo processes
+              sharing the card (this script with --tp-rank, a file://
+              store): each draws phase main's weights and keeps its cut
+              (7/1/64 heads, half the MLP and the vocab), rank 0 serves
+              two Engine.generate requests (1024 px, 32 tokens, greedy)
+              and 4 requests at once through a BatchScheduler (K3 at
+              7/1/64) while rank 1 follows; checks that every rank made
+              rank 0's device calls with bitwise equal outputs, K1 44 a
+              prefill and K2 / K3 24 a step on every rank, and replays
+              four answers through phase main's engine within the tie
+              margin; prints TTFT, step wall ms and collectives a step
+              (gloo stages CUDA tensors through the host and both ranks
+              share one card's SMs: a correctness run, not TP's speed)
+ 21. small    a small f32 model on the card (kernels) agrees with the same
               model on the CPU (plain versions), logits and greedy ids,
               spec_decode's tokens, counts, passes and acceptances, and
               beam_search's tokens, lengths and scores (W = 3, K2 at batch
@@ -786,26 +808,43 @@ class IdTokenizer:
         return ",".join(str(int(i)) for i in ids)
 
 
-def phase_main(card):
+def main_config():
+    """Phase main's FastVLM-0.5B at full width, bf16."""
     from fastvlm_tpu_torch import config as C
-    from fastvlm_tpu_torch.engine import Engine
-    from fastvlm_tpu_torch.models import qwen2, vlm
-    from fastvlm_tpu_torch.ops.cuda.decode_attention import decode_attention
-    from fastvlm_tpu_torch.ops.cuda.ffn import fused_ffn
-    from fastvlm_tpu_torch.ops.kv_cache import init_cache
 
     decoder = C.qwen2_0_5b(param_dtype="bfloat16", compute_dtype="bfloat16")
     vision = C.FastViTConfig(image_size=1024, param_dtype="bfloat16",
                              compute_dtype="bfloat16")
-    cfg = C.FastVLMConfig(
+    return C.FastVLMConfig(
         vision=vision, decoder=decoder,
         projector=C.ProjectorConfig(mm_hidden_size=vision.out_channels,
                                     hidden_size=decoder.hidden_size))
+
+
+def main_params(cfg):
+    """Phase main's random weights (seed 0, drawn on the card), the decoder
+    fused (qkv, gateup)."""
+    from fastvlm_tpu_torch.models import qwen2, vlm
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    t0 = time.perf_counter()
     params = vlm.init(gen, cfg, "cuda")
-    params["decoder"] = qwen2.fuse_decoder_params(params["decoder"], decoder)
+    params["decoder"] = qwen2.fuse_decoder_params(params["decoder"],
+                                                  cfg.decoder)
+    return params
+
+
+def phase_main(card):
+    from fastvlm_tpu_torch.engine import Engine
+    from fastvlm_tpu_torch.models import vlm
+    from fastvlm_tpu_torch.ops.cuda.decode_attention import decode_attention
+    from fastvlm_tpu_torch.ops.cuda.ffn import fused_ffn
+    from fastvlm_tpu_torch.ops.kv_cache import init_cache
+
+    cfg = main_config()
+    decoder = cfg.decoder
+    t0 = time.perf_counter()
+    params = main_params(cfg)
     engine = Engine(cfg, params, IdTokenizer())
     torch.cuda.synchronize()
     log("main", f"0.5B engine built at full width on the card in "
@@ -876,6 +915,7 @@ def phase_main(card):
             "ttft_ms": [s["ttft_ms"] for _, s in results],
             "tok_per_s": [s["tok_per_s"] for _, s in results],
             "peak_gib": peak_gb, "engine": engine, "params": params,
+            "prompts": prompts,
             "answers": dict(zip(prompts, (text for text, _ in results)))}
 
 
@@ -4700,6 +4740,432 @@ def phase_parallel(card, train_res):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase tp: the tensor-parallel engine
+# ---------------------------------------------------------------------------
+
+# (Hq, Hkv, D) of a rank's heads: Qwen2-0.5B and Qwen2-1.5B at tp 2,
+# Qwen2-7B at tp 2 and at tp 4
+TP_GEOMETRIES = ((7, 1, 64), (6, 1, 128), (14, 2, 128), (7, 1, 128))
+TP_RANKS = 2
+TP_REQUESTS = (("Describe the image.", 0), ("What is written in the image?", 1))
+TP_BATCH = (("Describe the image.", 2), ("What is in the picture?", 3),
+            ("Describe the scene in detail.", 4), ("Read the text.", 5))
+TP_JOIN_S = 600
+
+
+def _tp_kernels(gen):
+    """K2 and K3 at the heads a tensor-parallel rank holds, bf16, against
+    their plain versions at phase K2's / K3's split edges, one row a call
+    (B = 1) and batched (B = 8); then each at its serving call (K2: B = 1
+    and B = 8 rows of 400 keys in a 416-slot cache; K3: B = 8, lengths
+    400-600, pages of 64): kernel time (profiler), plain, bound, and SDPA
+    beside K2."""
+    from fastvlm_tpu_torch.ops.cuda.decode_attention import (
+        decode_attention, decode_attention_reference, split_size)
+    from fastvlm_tpu_torch.ops.cuda.paged_decode_attention import (
+        paged_decode_attention, paged_decode_attention_reference)
+    from fastvlm_tpu_torch.ops.cuda.paged_decode_attention import (
+        split_size as paged_split_size)
+
+    dt = torch.bfloat16
+    rng = np.random.RandomState(13)
+    s_cap = 4096
+    out = {"k2_err": 0.0, "k3_err": 0.0, "k2": {}, "k3": {}}
+    for hq, hkv, d in TP_GEOMETRIES:
+        geo = f"{hq}/{hkv}/{d}"
+        split = split_size(1, hkv, d, s_cap, dt)
+        lens = [min(n, s_cap) for n in (1, split - 1, split, split + 1,
+                                         2 * split + 7, s_cap, 77, 1000)]
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dt)
+                   for shape in ((8, hq, d), (8, s_cap, hkv, d),
+                                 (8, s_cap, hkv, d)))
+        ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        want = decode_attention_reference(q, k, v, ln)
+        rows = torch.cat([decode_attention(
+            q[i:i + 1], k[i:i + 1].contiguous(), v[i:i + 1].contiguous(),
+            ln[i:i + 1].clone()) for i in range(8)])
+        errs = [compare(got, want, K2_TOL[dt], f"tp K2 {geo} {name}")[0]
+                for name, got in (("B=1", rows),
+                                  ("B=8", decode_attention(q, k, v, ln)))]
+        out["k2_err"] = max(out["k2_err"], *errs)
+        pts = {b: _k2_point(gen, b, hq, hkv, d, 416, 400) for b in (1, 8)}
+        out["k2_err"] = max(out["k2_err"], *(p["err"] for p in pts.values()))
+        out["k2"][geo] = {f"B={b}": {key: p[key] for key in (
+            "kernel_ms", "ms", "plain_ms", "bound_ms", "library_ms",
+            "library_kernel_ms")} for b, p in pts.items()}
+        log("tp", f"K2 {geo} bf16: lengths {lens} (a row alone: "
+                  f"{-(-s_cap // split)} splits of {split}): max_abs_err B=1 "
+                  f"{errs[0]:.3e}, B=8 {errs[1]:.3e}; serving call "
+                  + "; ".join(
+                      f"B={b}: kernel time {fmt_us(p['kernel_ms'])}, bound "
+                      f"{p['bound_ms'] * 1e3:.4f} us (bytes), plain "
+                      f"{p['plain_ms']:.4f} ms, SDPA kernel time "
+                      f"{fmt_us(p['library_kernel_ms'])}"
+                      for b, p in pts.items()))
+
+        psplit = paged_split_size(1, hkv, d, s_cap, dt)
+        plens = [min(n, s_cap) for n in (1, psplit - 1, psplit, psplit + 1,
+                                          2 * psplit + 7, s_cap, 5, 400)]
+        args = _k3_case(gen, rng, hq, hkv, d, 64, plens, dt,
+                        width=s_cap // 64, pad_rows=(6,))
+        want = paged_decode_attention_reference(*args)
+        q, kp, vp, tables, lengths = args
+        first = torch.cat([paged_decode_attention(
+            q[i:i + 1], kp, vp, tables[i:i + 1], lengths[i:i + 1])
+            for i in range(8)])
+        again = torch.cat([paged_decode_attention(
+            q[i:i + 1], kp, vp, tables[i:i + 1], lengths[i:i + 1])
+            for i in range(8)])
+        if not torch.equal(first, again):
+            raise AssertionError(f"tp K3 {geo}: a second call on the stream "
+                                 f"gave another result")
+        errs = [compare(got, want, K3_TOL[dt], f"tp K3 {geo} {name}")[0]
+                for name, got in (("B=1", first),
+                                  ("B=8", paged_decode_attention(*args)))]
+        out["k3_err"] = max(out["k3_err"], *errs)
+        serve_lens = [int(n) for n in rng.randint(400, 601, size=8)]
+        width = -(-max(serve_lens) // 64)
+        sargs = _k3_case(gen, rng, hq, hkv, d, 64, serve_lens, dt,
+                         pool_pages=257, width=width)
+        out["k3_err"] = max(out["k3_err"], compare(
+            paged_decode_attention(*sargs),
+            paged_decode_attention_reference(*sargs), K3_TOL[dt],
+            f"tp K3 {geo} serving call")[0])
+        call = lambda: paged_decode_attention(*sargs)  # noqa: E731
+        k_ms = kernel_time_ms(call, reps=50)
+        bound = (attn_bound_ms(sargs[0], sargs[4], hkv, 2)
+                 + sargs[3].numel() * 4 / HBM_BPS * 1e3)
+        pt = {"kernel_ms": k_ms, "ms": time_ms(call, reps=50),
+              "plain_ms": time_ms(
+                  lambda: paged_decode_attention_reference(*sargs), reps=50),
+              "bound_ms": bound}
+        out["k3"][geo] = {"B=8": pt}
+        log("tp", f"K3 {geo} bf16 page 64: lengths {plens} (row 6 unmapped; "
+                  f"a row alone: {-(-s_cap // psplit)} splits of {psplit}): "
+                  f"max_abs_err B=1 {errs[0]:.3e} (twice, bitwise equal), "
+                  f"B=8 {errs[1]:.3e}; serving call B=8 lengths "
+                  f"{min(serve_lens)}-{max(serve_lens)}: kernel time "
+                  f"{fmt_us(k_ms)}, bound {bound * 1e3:.4f} us (bytes), "
+                  f"share {'not measured' if k_ms is None else f'{bound / k_ms:.4f}'}"
+                  f", plain {pt['plain_ms']:.4f} ms")
+    return out
+
+
+def _tp_world_of_one(main_engine, prompts, answers):
+    """Engine(mesh=make_mesh(1, 1)) over NCCL at world size 1 (one card):
+    phase main's three requests give phase main's ids bit for bit, K1 44 a
+    request, K2 24 a decode step."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from fastvlm_tpu_torch.engine import Engine
+    from fastvlm_tpu_torch.parallel import distributed, make_mesh
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_tp1_")
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    layers = main_engine.cfg.decoder.num_layers
+    n_ffn = sum(main_engine.cfg.vision.layers)  # K1 calls an image: 44
+    try:
+        distributed.initialize(f"file://{work}/store", device="cuda")
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            raise AssertionError(f"tp: backend {dist.get_backend()}, world "
+                                 f"{dist.get_world_size()}")
+        engine = Engine(main_engine.cfg, main_engine.params, IdTokenizer(),
+                        mesh=make_mesh(dp=1, tp=1))
+        image = np.random.RandomState(0).randint(0, 256, (1024, 1024, 3),
+                                                 dtype=np.uint8)
+        _zero_launches()
+        results = [(p, *engine.generate(engine.build_prompt(p), image,
+                                         max_new_tokens=32))
+                   for p in prompts]
+        k1, k2, k3 = (int(x) for x in _launches())
+        engine.close()
+        del engine
+    finally:
+        distributed.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    steps = sum(st["decode_steps"] for _, _, st in results)
+    differ = [p for p, text, _ in results if text != answers[p]]
+    if differ:
+        raise AssertionError(f"tp: the NCCL world of one gave other ids than "
+                             f"phase main for {differ}")
+    if k1 != n_ffn * len(results) or k2 != layers * steps or k3:
+        raise AssertionError(f"tp: NCCL world of one launched K1 {k1}, K2 "
+                             f"{k2}, K3 {k3} for {len(results)} requests of "
+                             f"{steps} decode steps")
+    log("tp", f"NCCL world of one (make_mesh(1, 1) on cuda): "
+              f"{len(results)} requests gave phase main's ids bit for bit; "
+              f"K1 {k1} = {n_ffn} x {len(results)}, K2 {k2} = {layers} x "
+              f"{steps} "
+              f"steps, K3 0")
+    return {"launches": [k1, k2, k3], "decode_steps": steps}
+
+
+class _WorldMesh:
+    """The (data=1, model=world) mesh of a gloo world whose ranks share one
+    card: the members of ``DeviceMesh`` the port reads, on "cuda" with the
+    world's process group as "model" (``make_mesh`` lays a gloo world on
+    the CPU; NCCL takes one rank a device)."""
+
+    device_type = "cuda"
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, world):
+        import torch.distributed as dist
+
+        self._dist = dist
+        self.mesh = torch.arange(world).reshape(1, world)
+
+    def get_group(self, axis):
+        if axis != "model":
+            raise ValueError(f"no group for {axis!r}")
+        return self._dist.group.WORLD
+
+    def get_local_rank(self, axis):
+        return self._dist.get_rank() if axis == "model" else 0
+
+
+def tp_rank_main(rank, world, store, out):
+    """One rank of phase tp's gloo world on the card (``python3
+    chip_smoke.py --tp-rank RANK WORLD STORE OUT``): phase main's weights
+    cut by the layout, rank 0 serving TP_REQUESTS through Engine.generate
+    and TP_BATCH through a BatchScheduler, the others following. Each
+    rank saves its device calls (name, K1 / K2 / K3 launches, collectives,
+    wall ms, tokens) to OUT/rank<r>.pt."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from fastvlm_tpu_torch.engine import Engine
+    from fastvlm_tpu_torch.ops.kv_cache import KVCache, PagedKVCache
+    from fastvlm_tpu_torch.serve.batcher import BatchScheduler
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=TP_JOIN_S))
+    # the engine's collectives (parallel/collectives.py calls these), not
+    # the lockstep channel's broadcasts
+    collectives = {"n": 0}
+    for name in ("all_reduce", "all_gather"):
+        def counted(*a, _fn=getattr(dist, name), **kw):
+            collectives["n"] += 1
+            return _fn(*a, **kw)
+
+        setattr(dist, name, counted)
+    cfg = main_config()
+    engine = Engine(cfg, main_params(cfg), IdTokenizer(),
+                    mesh=_WorldMesh(world))
+    gc.collect()
+    torch.cuda.empty_cache()
+    calls = []
+
+    def host(x):
+        if isinstance(x, (KVCache, PagedKVCache)):
+            return None
+        if torch.is_tensor(x):
+            return x.detach().cpu()
+        if isinstance(x, (tuple, list)):
+            return [host(v) for v in x]
+        return None
+
+    for name, fn in list(engine._calls.items()):
+        def rec(*a, _fn=fn, _name=name, **kw):
+            before, n0 = _launches(), collectives["n"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = _fn(*a, **kw)
+            torch.cuda.synchronize()
+            calls.append({"name": _name, "k": kw.get("k"),
+                          "ms": (time.perf_counter() - t0) * 1000,
+                          "launches": (_launches() - before).tolist(),
+                          "collectives": collectives["n"] - n0,
+                          "out": host(res)})
+            return res
+        engine._calls[name] = rec
+
+    result = {"rank": rank, "calls": calls,
+              "kv_heads": engine._kv_heads,
+              "local_shapes": {n: tuple(engine.params["decoder"]["layers"][0]
+                                        [n]["w"].shape)
+                               for n in ("q", "k", "o", "gate", "down")}}
+    if engine.is_leader:
+        rng = np.random.RandomState(11)
+        images = [rng.randint(0, 256, (1024, 1024, 3), dtype=np.uint8)
+                  for _ in range(6)]
+        try:
+            result["generate"] = [
+                engine.generate(engine.build_prompt(p), images[i],
+                                max_new_tokens=32) for p, i in TP_REQUESTS]
+            sched = BatchScheduler(engine, max_batch=8, window_ms=100,
+                                   page_size=64, pool_tokens=16384)
+            try:
+                clients = [Client(sched, engine, p, images[i], 32)
+                           for p, i in TP_BATCH]
+                result["batch"] = [c.result(f"tp batch request {n}")
+                                   for n, c in enumerate(clients)]
+                result["batch_counters"] = dict(sched.counters)
+            finally:
+                sched.shutdown()
+        finally:
+            engine.close()
+    else:
+        engine.follow()
+    torch.save(result, os.path.join(out, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def _tp_two_ranks(card, main_engine):
+    """Phase tp's gloo world of TP_RANKS processes sharing the card
+    (``tp_rank_main``); checks and prints what they saved."""
+    import shutil
+
+    layers = main_engine.cfg.decoder.num_layers
+    n_ffn = sum(main_engine.cfg.vision.layers)  # K1 calls an image: 44
+    work = tempfile.mkdtemp(prefix="chip_smoke_tp2_")
+    t0 = time.perf_counter()
+    logs = [open(os.path.join(work, f"rank{r}.log"), "w+")
+            for r in range(TP_RANKS)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
+         str(TP_RANKS), os.path.join(work, "store"), work],
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(TP_RANKS)]
+    try:
+        deadline = time.monotonic() + TP_JOIN_S
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) \
+                    or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    try:
+        if any(p.returncode for p in procs):
+            tails = []
+            for f in logs:
+                f.seek(0)
+                tails.append(f.read()[-4000:])
+            raise AssertionError("tp: the gloo world failed:\n" + "\n".join(
+                f"[rank {r} rc {p.returncode}] {tail}"
+                for r, (p, tail) in enumerate(zip(procs, tails))))
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"),
+                            weights_only=False) for r in range(TP_RANKS)]
+    finally:
+        for f in logs:
+            f.close()
+        shutil.rmtree(work, ignore_errors=True)
+    lead = ranks[0]
+    names = [c["name"] for c in lead["calls"]]
+    for res in ranks[1:]:
+        if [c["name"] for c in res["calls"]] != names:
+            raise AssertionError(f"tp: rank {res['rank']} made other calls "
+                                 f"than rank 0")
+        for i, (a, b) in enumerate(zip(lead["calls"], res["calls"])):
+            if not _tp_same(a["out"], b["out"]):
+                raise AssertionError(f"tp: rank {res['rank']}'s call {i} "
+                                     f"({a['name']}) gave other outputs than "
+                                     f"rank 0's")
+    totals = []
+    for res in ranks:
+        for c in res["calls"]:
+            k1, k2, k3 = c["launches"]
+            steps = c["k"] or 0
+            if c["name"] == "prefill" and k1 != n_ffn:
+                raise AssertionError(f"tp rank {res['rank']}: a prefill "
+                                     f"launched K1 {k1} times, expected "
+                                     f"{n_ffn}")
+            if c["name"] == "decode_chunk" and \
+                    (k2 + k3 != layers * steps or min(k2, k3) != 0):
+                raise AssertionError(f"tp rank {res['rank']}: a {steps}-step "
+                                     f"chunk launched K2 {k2}, K3 {k3}")
+        totals.append(np.sum([c["launches"] for c in res["calls"]],
+                             axis=0).tolist())
+    gens = [c for c in lead["calls"] if c["name"] == "decode_chunk"]
+    dense = [c for c in gens if c["launches"][1]]
+    paged = [c for c in gens if c["launches"][2]]
+    if not dense or not paged:
+        raise AssertionError("tp: no dense (K2) or no paged (K3) decode "
+                             "chunk ran")
+    requests = [(p, i, text, st) for (p, i), (text, st) in
+                zip(TP_REQUESTS, lead["generate"])]
+    rng = np.random.RandomState(11)
+    images = [rng.randint(0, 256, (1024, 1024, 3), dtype=np.uint8)
+              for _ in range(6)]
+    for p, i, text, st in requests:
+        _check_replay("tp", f"TP request {p!r}", main_engine, p, images[i],
+                      text)
+    for (p, i), last in list(zip(TP_BATCH, lead["batch"]))[:2]:
+        _check_replay("tp", f"TP batched request {p!r}", main_engine, p,
+                      images[i], last["text"])
+    per_step = [c["collectives"] / c["k"] for c in gens]
+    step_ms = [c["ms"] / c["k"] for c in dense]
+    log("tp", f"gloo world of {TP_RANKS} ranks sharing {card} "
+              f"({wall:.1f} s with start-up): each rank holds q/k/o/gate/down "
+              f"{lead['local_shapes']} and {lead['kv_heads']} kv head(s); "
+              f"every rank made rank 0's {len(names)} device calls with "
+              f"bitwise equal outputs (tokens, logits, lengths); launches "
+              f"K1/K2/K3 by rank {totals} (K1 {n_ffn} a prefill, K2 or K3 "
+              f"{layers} a step)")
+    log("tp", f"Engine.generate: TTFT "
+              f"{[round(st['ttft_ms'], 2) for *_, st in requests]} ms, "
+              f"{[st['decode_tokens'] for *_, st in requests]} tokens at "
+              f"{[round(st['tok_per_s'], 2) for *_, st in requests]} tok/s; "
+              f"dense step wall {statistics.median(step_ms):.2f} ms (median "
+              f"over {len(dense)} chunks, host clock with a synchronise); "
+              f"BatchScheduler: 4 requests at once, TTFT "
+              f"{[round(u['stats']['ttft_ms'], 2) for u in lead['batch']]} ms, "
+              f"paged step wall "
+              f"{statistics.median(c['ms'] / c['k'] for c in paged):.2f} ms; "
+              f"collective calls a decode step {sorted(set(per_step))} "
+              f"(all_reduce + all_gather)")
+    return {"launches_by_rank": totals, "wall_s": wall,
+            "ttft_ms": [st["ttft_ms"] for *_, st in requests],
+            "tok_per_s": [st["tok_per_s"] for *_, st in requests],
+            "dense_step_ms": statistics.median(step_ms),
+            "paged_step_ms": statistics.median(c["ms"] / c["k"]
+                                               for c in paged),
+            "collectives_per_step": sorted(set(per_step))}
+
+
+def _tp_launches(tp_res, kernel):
+    """Phase tp's launches of kernel 0 (K1), 1 (K2) or 2 (K3) by path."""
+    out = {"tp-nccl-1": tp_res["nccl1"]["launches"][kernel]}
+    for r, launches in enumerate(tp_res["gloo"]["launches_by_rank"]):
+        out[f"tp-gloo-2-rank{r}"] = launches[kernel]
+    return out
+
+
+def _tp_same(a, b):
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and torch.equal(a, b)
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) and all(
+            _tp_same(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def phase_tp(card, main_engine, prompts, answers, gen):
+    """The tensor-parallel engine on the card; see the module docstring."""
+    t0 = time.perf_counter()
+    res = {"kernels": _tp_kernels(gen)}
+    res["nccl1"] = _tp_world_of_one(main_engine, prompts, answers)
+    res["gloo"] = _tp_two_ranks(card, main_engine)
+    res["s"] = time.perf_counter() - t0
+    log("tp", f"phase took {res['s']:.1f} s")
+    return res
+
+
 def iter_batches(trainer, cfg):
     """The trainer's batches, on the card."""
     from fastvlm_tpu_torch.train.trainer import batches
@@ -4775,7 +5241,10 @@ def _train_small():
     return {"loss_rel_err": loss_err, "param_rel_err": worst, "k1": k1}
 
 
-def main() -> int:
+def main(argv) -> int:
+    if argv[:1] == ["--tp-rank"]:  # one rank of phase tp's gloo world
+        sys.path.insert(0, ROOT)
+        return tp_rank_main(int(argv[1]), int(argv[2]), argv[3], argv[4])
     # fail before printing anything without a card or outside a checkout
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only "
@@ -4790,11 +5259,18 @@ def main() -> int:
     gen.manual_seed(0)
 
     phase_build()
+    if argv == ["--tp-only"]:  # phase tp alone, after the engine it needs
+        main_res = phase_main(card)
+        tp_res = phase_tp(card, main_res["engine"], main_res["prompts"],
+                          main_res["answers"], gen)
+        print(json.dumps({"tp": tp_res}, default=str), flush=True)
+        return 0
     k1_err, k1 = phase_k1(gen)
     k2_err, k2 = phase_k2(gen)
     k3_err, k3 = phase_k3(gen)
     main_res = phase_main(card)
     engine = main_res.pop("engine")
+    main_prompts, main_answers = main_res["prompts"], dict(main_res["answers"])
     serve_res = phase_serve(card, engine)
     serve15_res = phase_serve_15b(card)
     video_res = phase_video(card, engine)
@@ -4824,6 +5300,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_res = phase_train(card, gen)
     par_res = phase_parallel(card, train_res)
+    tp_res = phase_tp(card, engine, main_prompts, main_answers, gen)
+    tp_k = tp_res["kernels"]
     phase_small()
     quant_paths = ("7b-int8", "7b-w8a8", "7b-int4", "decode-int8",
                    "decode-w8a8")
@@ -4856,7 +5334,8 @@ def main() -> int:
                                  for p in quant_paths},
                               "kv-int8": int(kv_launches[0]),
                               "export": export_res["encoder"]["k1"],
-                              **train_res["k1"], **par_res["k1"]},
+                              **train_res["k1"], **par_res["k1"],
+                              **_tp_launches(tp_res, 0)},
          "max_abs_err": max(k1_err, anyres_res["k1_err"],
                             train_res["k1_fwd_err"]),
          "ms": k1["ms"], "kernel_ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
@@ -4891,9 +5370,11 @@ def main() -> int:
                               "worker-llava": worker_res["llava"][1],
                               **{p: quant_res[p]["launches"][1]
                                  for p in quant_paths},
-                              "kv-int8": int(kv_launches[1])},
+                              "kv-int8": int(kv_launches[1]),
+                              **_tp_launches(tp_res, 1)},
          "max_abs_err": max(k2_err, beam_res["k2_max_abs_err"],
-                            llava_res["k2_err"], k2_7b["err"]),
+                            llava_res["k2_err"], k2_7b["err"],
+                            tp_k["k2_err"]),
          "ms": k2["ms"], "kernel_ms": k2["kernel_ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": "bytes",
          "library_ms": k2["library_ms"],
@@ -4910,7 +5391,8 @@ def main() -> int:
              for b, pt in llava_res["k2"].items()},
          "qwen2_7b_28_4_128_b8": {
              k: k2_7b[k] for k in ("kernel_ms", "ms", "plain_ms", "bound_ms",
-                                   "library_ms", "library_kernel_ms")}},
+                                   "library_ms", "library_kernel_ms")},
+         "tp_local_heads": tp_k["k2"]},
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "fastvlm_tpu_torch/csrc/paged_decode_attention.cu",
          "replaces": "fastvlm_tpu/ops/pallas/decode_attention.py:215",
@@ -4924,8 +5406,9 @@ def main() -> int:
                               "worker": worker_res["worker"][2],
                               "worker-batch": worker_res["batch"][2],
                               "worker-llava": worker_res["llava"][2],
-                              "kv-int8": int(kv_launches[2])},
-         "max_abs_err": max(k3_err, worker_res["k3_err"]),
+                              "kv-int8": int(kv_launches[2]),
+                              **_tp_launches(tp_res, 2)},
+         "max_abs_err": max(k3_err, worker_res["k3_err"], tp_k["k3_err"]),
          "ms": k3["ms"], "kernel_ms": k3["kernel_ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": "bytes", "library_ms": None,
          "host_us": k3["host_us"], "dense_k2_kernel_ms": k3["dense_k2_kernel_ms"],
@@ -4935,7 +5418,8 @@ def main() -> int:
                      "on a dense cache of the same rows, context only; "
                      "max_abs_err also over the 7B worker's B=4 32/32/128 "
                      "call",
-         "llava_32_32_128_b4": worker_res["k3"]},
+         "llava_32_32_128_b4": worker_res["k3"],
+         "tp_local_heads": tp_k["k3"]},
     ]}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4945,4 +5429,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

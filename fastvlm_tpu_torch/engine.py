@@ -17,6 +17,20 @@ search. The dense cache is int8 for a decoder with
 run as they come. ``build_engine`` loads a HF checkpoint directory or
 builds the tiny random model.
 
+Every call that runs the decoder or allocates a KV cache goes through
+``Engine.call`` (the registry ``_device_calls``): the engine's own paths,
+``serve/batcher.py`` and ``video.py`` alike. Tensor parallelism
+(``mesh=``, a (data=1, model=tp) mesh, the port of the JAX engine's
+``mesh=`` / ``shard_cache``): each rank holds its pieces of the decoder
+(``parallel/sharding.serving_layout``; tower and projector whole) and
+sizes every KV cache by its own kv heads (``sharding.kv_heads``). Rank 0
+runs the host API; ``call`` sends each device call to the other ranks
+first (``parallel/lockstep.py``), which serve it in ``follow()`` until
+rank 0's ``close()``. The tower of an anyres or multi-image request runs
+on rank 0 alone (its merged features cross with the prefill); a single
+image's runs inside the prefill, on every rank. Without a mesh ``call``
+makes the call, nothing more.
+
 Used by: predict CLI, serve/batcher.py, video.py, chip_smoke.py.
 """
 
@@ -37,10 +51,9 @@ from fastvlm_tpu_torch.data.preprocessing import (
     select_best_resolution, tokenizer_image_token)
 from fastvlm_tpu_torch.models import vlm
 from fastvlm_tpu_torch.models.fastvit import fold_layer_scale
-from fastvlm_tpu_torch.ops import image_ops
+from fastvlm_tpu_torch.ops import beam, image_ops
 from fastvlm_tpu_torch.ops.anyres import num_merged_tokens
-from fastvlm_tpu_torch.ops.beam import beam_search
-from fastvlm_tpu_torch.ops.kv_cache import init_cache
+from fastvlm_tpu_torch.ops.kv_cache import init_cache, init_paged_cache
 from fastvlm_tpu_torch.ops.sampling import SamplingParams, sample
 from fastvlm_tpu_torch.ops.splice import (
     expand_image_ids, expand_image_ids_multi, pad_batch)
@@ -96,7 +109,11 @@ class Engine:
         bucket: int = 64,
         chunk: int = 16,
         eos_ids: Optional[Tuple[int, ...]] = None,
+        mesh=None,
     ):
+        """``mesh``: a (data=1, model=tp) ``parallel.make_mesh`` mesh on the
+        params' device type; every rank of it builds the Engine from the
+        whole tree, the ranks after the first then ``follow()``."""
         self.cfg = cfg
         # inference build: fold FastViTHD's layer scales into the adjacent
         # weights (exact; the FFN kernel then skips its layer-scale
@@ -126,6 +143,120 @@ class Engine:
         # the dense KV cache's storage: int8 (with scale planes) for a
         # decoder with kv_cache_dtype="int8", else the compute dtype
         self._kv_dtype = vlm.kv_cache_dtype(cfg)
+        self.mesh = mesh
+        self.group = None      # the mesh's "model" process group
+        self.lockstep = None
+        self.rank = 0
+        self._kv_heads = cfg.decoder.num_kv_heads  # this rank's cache heads
+        self._calls = self._device_calls()
+        if mesh is not None:
+            self._shard(mesh)
+
+    # ---------------- device calls and the mesh ----------------
+
+    def _device_calls(self) -> Dict[str, Any]:
+        """The registry of the calls that run the decoder or allocate a KV
+        cache: on a mesh, the calls every rank makes."""
+        def on_params(module, name):
+            # looked up at each call, as a direct call would be
+            return lambda *a, **kw: getattr(module, name)(
+                self.params, self.cfg, *a, group=self.group, **kw)
+
+        calls = {name: on_params(vlm, name) for name in (
+            "prefill", "prefill_continue", "decode_step", "decode_chunk",
+            "spec_stream_chunk", "spec_decode", "spec_decode_from_tok")}
+        calls["beam_search"] = on_params(beam, "beam_search")
+        calls["init_cache"] = self._init_cache
+        calls["init_paged_cache"] = self._init_paged_cache
+        return calls
+
+    def call(self, name: str, *args, **kw):
+        """Make the device call ``name`` (``_device_calls``) on this
+        engine's params, e.g. ``call("prefill", images, ids, lens, starts,
+        cache)`` for ``vlm.prefill(params, cfg, ...)``. On a mesh, rank 0
+        sends it to the other ranks first."""
+        if self.lockstep is not None:
+            return self.lockstep.call(name, args, kw,
+                                      local=name.startswith("init_"))
+        return self._calls[name](*args, **kw)
+
+    def new_cache(self, batch: int, max_len: int, dtype=None):
+        """A dense KV cache over this rank's kv heads, in the engine's KV
+        dtype unless ``dtype`` is given."""
+        return self.call("init_cache", batch, max_len, dtype)
+
+    def new_pool(self, num_pages: int, page_size: int):
+        """A paged KV pool of ``num_pages`` pages (plus the sink) over this
+        rank's kv heads, in the compute dtype, with a 1-row empty table."""
+        return self.call("init_paged_cache", num_pages, page_size)
+
+    def _init_cache(self, batch, max_len, dtype=None):
+        dec = self.cfg.decoder
+        return init_cache(dec.num_layers, batch, max_len, self._kv_heads,
+                          dec.head_dim, dtype or self._kv_dtype, self.device)
+
+    def _init_paged_cache(self, num_pages, page_size):
+        dec = self.cfg.decoder
+        return init_paged_cache(dec.num_layers, 1, num_pages, page_size, 1,
+                                self._kv_heads, dec.head_dim, self._dtype,
+                                self.device)
+
+    def _shard(self, mesh) -> None:
+        """Cut the params to this rank's pieces and open the lockstep
+        channel (collective: every rank of the world calls it)."""
+        import torch.distributed as dist
+
+        from fastvlm_tpu_torch.models.qwen2 import split_fused_layer
+        from fastvlm_tpu_torch.parallel import collectives as coll
+        from fastvlm_tpu_torch.parallel.lockstep import Lockstep
+        from fastvlm_tpu_torch.parallel.mesh import (
+            DATA_AXIS, MODEL_AXIS, axis_group, axis_size)
+        from fastvlm_tpu_torch.parallel.sharding import (
+            kv_heads, serving_layout)
+
+        if axis_size(mesh, DATA_AXIS) != 1:
+            raise ValueError(f"Engine(mesh=): serving takes a (data=1, "
+                             f"model=tp) mesh, got data="
+                             f"{axis_size(mesh, DATA_AXIS)}")
+        if mesh.device_type != self.device.type:
+            raise ValueError(f"Engine(mesh=): the mesh is on "
+                             f"{mesh.device_type!r} but the params on "
+                             f"{self.device.type!r}")
+        tp = axis_size(mesh, MODEL_AXIS)
+        params = self.params
+        if tp > 1:
+            # the layout splits q / k / v and gate / up apart
+            dec = params["decoder"]
+            params = {**params, "decoder": {**dec, "layers": [
+                split_fused_layer(lp, self.cfg.decoder)
+                for lp in dec["layers"]]}}
+        self.params = serving_layout(params, self.cfg, mesh).shard(params)
+        self.group = axis_group(mesh, MODEL_AXIS)
+        self.rank = coll.rank(self.group)
+        self._kv_heads = len(kv_heads(self.cfg.decoder, tp, self.rank))
+        self.lockstep = Lockstep(self._calls,
+                                 dist.get_process_group_ranks(self.group),
+                                 self.device)
+
+    @property
+    def is_leader(self) -> bool:
+        """Whether this rank runs the host API (rank 0 of the mesh, or the
+        only rank)."""
+        return self.rank == 0
+
+    def follow(self) -> None:
+        """A rank after the first: make rank 0's device calls until its
+        ``close()``."""
+        if self.lockstep is None or self.is_leader:
+            raise RuntimeError("Engine.follow: only the ranks after the "
+                               "first of a mesh follow")
+        with torch.inference_mode():
+            self.lockstep.follow()
+
+    def close(self) -> None:
+        """Rank 0 of a mesh: release the followers (a no-op elsewhere)."""
+        if self.lockstep is not None and self.is_leader:
+            self.lockstep.stop()
 
     # ---------------- prompt/image preparation ----------------
 
@@ -308,19 +439,16 @@ class Engine:
         # host), so the cache is sized for n_chunks * chunk writes; a verify
         # pass writes draft_k + 1 slots past the committed length
         n_chunks = -(-max_new // self.chunk)
-        cache = init_cache(cfg.decoder.num_layers, b,
-                           (vlm.spec_cache_len(t, max_new, draft_k) if spec
-                            else t + n_chunks * self.chunk),
-                           cfg.decoder.num_kv_heads, cfg.decoder.head_dim,
-                           self._kv_dtype, self.device)
+        cache = self.new_cache(b, (vlm.spec_cache_len(t, max_new, draft_k)
+                                   if spec else t + n_chunks * self.chunk))
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed if seed is not None else time.time_ns() % 2**31)
 
         _sync(self.device)
         t0 = time.perf_counter()
-        logits, cache = vlm.prefill(self.params, cfg, inputs["images"], ids,
-                                    inputs["lens"], inputs["starts"], cache,
-                                    vision_embeds=inputs["vision_embeds"])
+        logits, cache = self.call("prefill", inputs["images"], ids,
+                                  inputs["lens"], inputs["starts"], cache,
+                                  vision_embeds=inputs["vision_embeds"])
         tok = sample(gen, logits, sampling)
         first = int(tok[0])  # the host read waits for the device
         stats.ttft_ms = inputs["encode_ms"] + (time.perf_counter() - t0) * 1000
@@ -374,8 +502,8 @@ class Engine:
                                         draft_k=draft_k, eos_ids=self.eos_ids)
             m = max(1, -(-self.chunk // (draft_k + 1)))
             while not done_host and emitted < max_new:
-                toks, counts, carry = vlm.spec_stream_chunk(
-                    self.params, cfg, carry, m=m, max_new_tokens=max_new,
+                toks, counts, carry = self.call(
+                    "spec_stream_chunk", carry, m=m, max_new_tokens=max_new,
                     eos_ids=self.eos_ids, draft_k=draft_k)
                 host = torch.cat([counts[:, None], toks], dim=1)[0].tolist()
                 n = host[0]
@@ -396,8 +524,8 @@ class Engine:
 
         while not done_host and emitted < max_new:
             take = min(self.chunk, max_new - emitted)
-            toks, done, tok, cache = vlm.decode_chunk(
-                self.params, cfg, tok, done, cache, gen, k=self.chunk,
+            toks, done, tok, cache = self.call(
+                "decode_chunk", tok, done, cache, gen, k=self.chunk,
                 eos_ids=self.eos_ids, sampling=sampling)
             stats.decode_steps += self.chunk
             host_toks = toks[0].cpu().tolist()[:take]
@@ -434,18 +562,15 @@ class Engine:
         b, t = ids.shape
         stats = RequestStats(prompt_tokens=inputs["prompt_tokens"],
                              encode_ms=inputs["encode_ms"])
-        cache = init_cache(cfg.decoder.num_layers, b,
-                           vlm.spec_cache_len(t, max_new, draft_k),
-                           cfg.decoder.num_kv_heads, cfg.decoder.head_dim,
-                           self._kv_dtype, self.device)
+        cache = self.new_cache(b, vlm.spec_cache_len(t, max_new, draft_k))
         _sync(self.device)
         t0 = time.perf_counter()
-        logits, cache = vlm.prefill(self.params, cfg, inputs["images"], ids,
-                                    lens, inputs["starts"], cache,
-                                    vision_embeds=inputs["vision_embeds"])
-        res = vlm.spec_decode(self.params, cfg, logits, cache, ids, lens,
-                              max_new_tokens=max_new, eos_ids=self.eos_ids,
-                              draft_k=draft_k)
+        logits, cache = self.call("prefill", inputs["images"], ids, lens,
+                                  inputs["starts"], cache,
+                                  vision_embeds=inputs["vision_embeds"])
+        res = self.call("spec_decode", logits, cache, ids, lens,
+                        max_new_tokens=max_new, eos_ids=self.eos_ids,
+                        draft_k=draft_k)
         n = int(res.num_generated[0])
         toks = res.tokens[0, :n].tolist()
         stats.decode_ms = (time.perf_counter() - t0) * 1000
@@ -490,17 +615,15 @@ class Engine:
         b, t = ids.shape
         stats = RequestStats(prompt_tokens=inputs["prompt_tokens"],
                              encode_ms=inputs["encode_ms"])
-        cache = init_cache(cfg.decoder.num_layers, b, t + max_new,
-                           cfg.decoder.num_kv_heads, cfg.decoder.head_dim,
-                           self._kv_dtype, self.device)
+        cache = self.new_cache(b, t + max_new)
         _sync(self.device)
         t0 = time.perf_counter()
-        logits, cache = vlm.prefill(self.params, cfg, inputs["images"], ids,
-                                    lens, inputs["starts"], cache,
-                                    vision_embeds=inputs["vision_embeds"])
-        res = beam_search(self.params, cfg, logits, cache,
-                          num_beams=num_beams, max_new_tokens=max_new,
-                          eos_ids=self.eos_ids, length_penalty=length_penalty)
+        logits, cache = self.call("prefill", inputs["images"], ids, lens,
+                                  inputs["starts"], cache,
+                                  vision_embeds=inputs["vision_embeds"])
+        res = self.call("beam_search", logits, cache, num_beams=num_beams,
+                        max_new_tokens=max_new, eos_ids=self.eos_ids,
+                        length_penalty=length_penalty)
         n = int(res.lengths[0])  # the host's one read
         toks = res.tokens[0, :n].tolist()
         stats.ttft_ms = inputs["encode_ms"] + (time.perf_counter() - t0) * 1000
@@ -519,8 +642,8 @@ class Engine:
         (``vlm.prefill_continue``): the scheduler's prefix-cache hits and
         admission chunks, and the video path's frames. Returns (logits,
         cache)."""
-        return vlm.prefill_continue(self.params, self.cfg, images, ids, lens,
-                                    starts, offset, cache)
+        return self.call("prefill_continue", images, ids, lens, starts,
+                         offset, cache)
 
     # ---------------- internals ----------------
 
@@ -590,7 +713,9 @@ def build_engine(model_path: Optional[str] = None, *, random_tiny: bool = False,
     otherwise ``transformers.AutoTokenizer.from_pretrained(model_path)``: a
     machine without ``transformers`` passes its own, and without one the
     import raises. ``random_tiny=True``: the tiny random model (weights
-    from ``seed``, byte tokenizer, float32)."""
+    from ``seed``, byte tokenizer, float32). ``engine_kw`` go to
+    ``Engine``: ``mesh=`` makes a tensor-parallel engine, each rank
+    building it from the whole weights."""
     if device not in ("cuda", "cpu"):
         raise ValueError(f"build_engine: device must be 'cuda' or 'cpu', got {device!r}")
     if device == "cuda" and not torch.cuda.is_available():

@@ -58,6 +58,7 @@ from fastvlm_tpu_torch.ops.kv_cache import (
     token_dest, write_paged, write_prompt, write_token)
 from fastvlm_tpu_torch.ops.quant import card_layout, quantized_matmul
 from fastvlm_tpu_torch.parallel import collectives as coll
+from fastvlm_tpu_torch.parallel.sharding import kv_heads
 
 Params = Dict[str, Any]
 
@@ -140,6 +141,28 @@ def fuse_decoder_params(params: Params, cfg: Qwen2Config) -> Params:
             lp["gateup"] = _cat_linears([lp.pop("gate"), lp.pop("up")])
         layers.append(lp)
     return {**params, "layers": layers}
+
+
+def split_fused_layer(layer: Params, cfg: Qwen2Config) -> Params:
+    """Undo ``fuse_decoder_params`` (qkv / gateup concats) in one float
+    layer."""
+    out = dict(layer)
+    if "qkv" in out:
+        qkv = out.pop("qkv")
+        qd, kvd = cfg.q_dim, cfg.kv_dim
+        for name, sl in (("q", slice(0, qd)),
+                         ("k", slice(qd, qd + kvd)),
+                         ("v", slice(qd + kvd, qd + 2 * kvd))):
+            p = {"w": qkv["w"][..., sl]}
+            if "b" in qkv:
+                p["b"] = qkv["b"][..., sl]
+            out[name] = p
+    if "gateup" in out:
+        gu = out.pop("gateup")
+        half = gu["w"].shape[-1] // 2
+        out["gate"] = {"w": gu["w"][..., :half]}
+        out["up"] = {"w": gu["w"][..., half:]}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -317,6 +340,15 @@ def _split(p, whole: int, dim: int) -> bool:
     return "w" in p and p["w"].shape[dim] != whole
 
 
+def _take_heads(x, heads):
+    """Heads ``heads`` of (B, T, H, D) ``x``: a slice where they run in
+    order, else a gather."""
+    lo = heads[0]
+    if heads == list(range(lo, lo + len(heads))):
+        return x[:, :, lo:lo + len(heads)]
+    return x[:, :, torch.tensor(heads, device=x.device)]
+
+
 def _layer(x, lp, cfg: Qwen2Config, cos, sin, cache_k, cache_v, mask,
            lengths, prefill, bias=None, prefill_offset=0, block_tables=None,
            dest=None, kv_lens=None, cache_ks=None, cache_vs=None, group=None,
@@ -329,11 +361,14 @@ def _layer(x, lp, cfg: Qwen2Config, cos, sin, cache_k, cache_v, mask,
     step once its token is written (computed once per forward).
     cache_ks/vs: (B, S_max, Hkv) scales when the dense cache is int8.
 
-    ``group`` (no cache): the mesh's "model" process group of a
-    tensor-parallel training forward. A block whose leaves are pieces of
-    the config's dims (``parallel/sharding.py``) computes on this rank's
-    heads or MLP columns, between Megatron's f and g. ``seq``: sequence
-    parallelism, where ``x`` holds this rank's T/tp tokens."""
+    ``group``: the mesh's "model" process group of a tensor-parallel
+    forward, training (no cache) or serving (either cache). A block whose
+    leaves are pieces of the config's dims (``parallel/sharding.py``)
+    computes on this rank's heads or MLP columns, between Megatron's f and
+    g; where the k / v projections stay whole, the rank keeps the kv heads
+    its q heads read (``sharding.kv_heads``), and the caches hold those
+    heads only. ``seq``: sequence parallelism, where ``x`` holds this
+    rank's T/tp tokens."""
     attn_tp = mlp_tp = whole_kv = False
     ln1, ln2 = lp["ln1"], lp["ln2"]
     if group is not None:
@@ -364,9 +399,8 @@ def _layer(x, lp, cfg: Qwen2Config, cos, sin, cache_k, cache_v, mask,
     if attn_tp:
         hq, r = q.shape[2], coll.rank(group)
         if whole_kv:
-            kv = (r * hq + torch.arange(hq, device=q.device)) // (
-                cfg.num_heads // cfg.num_kv_heads)
-            k, v = k[:, :, kv], v[:, :, kv]
+            heads = kv_heads(cfg, coll.size(group), r)
+            k, v = _take_heads(k, heads), _take_heads(v, heads)
         if bias is not None:
             bias = bias[:, r * hq:(r + 1) * hq]
 
@@ -502,8 +536,9 @@ def forward(
     keeping its activations (``torch.utils.checkpoint``, JAX's
     ``jax.checkpoint`` around the scanned layer).
 
-    The training path also runs on tensor-parallel pieces (``_layer``'s
-    ``group`` and ``seq``): with ``seq`` each rank holds T/tp tokens
+    Both paths also run on tensor-parallel pieces (``_layer``'s ``group``;
+    a cache then holds this rank's kv heads). Training adds ``seq``: each
+    rank holds T/tp tokens
     between blocks (T must divide), all-gathered before attention and the
     MLP and reduce-scattered after; the final hidden states come back
     whole on every rank. ``gather(i, lp)`` materializes layer i's FSDP
@@ -552,7 +587,8 @@ def forward(
                 x = _train_layer(*args)
             continue
         x = _layer(x, lp, cfg, cos, sin, ck, cv, mask, lengths, prefill, bias,
-                   prefill_offset, tables, dest, new_lengths, cks, cvs)
+                   prefill_offset, tables, dest, new_lengths, cks, cvs,
+                   group=group)
     new_cache = None
     if cache is not None:
         new_cache = dataclasses.replace(cache, lengths=new_lengths)

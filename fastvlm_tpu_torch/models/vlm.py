@@ -31,6 +31,12 @@ for the scheduler. The JAX ``lax.while_loop`` checks ``all(done)`` on the
 device; here the host reads it once a verify pass, so passes, drafts and
 acceptances equal JAX's exactly.
 
+Tensor parallelism (``engine.Engine(mesh=)``): every function that runs
+the decoder takes ``group``, the mesh's "model" process group, and the
+params and caches are then this rank's pieces (``parallel/sharding.py``):
+the embedding lookup and the vocab-split logits are reduced and gathered
+over it, so every rank holds the same logits and picks the same tokens.
+
 int8 KV (``cfg.decoder.kv_cache_dtype == "int8"``): ``generate`` and
 ``generate_spec`` allocate the int8 dense cache (``kv_cache_dtype``); every
 other function takes the cache it is given, and the writes carry its scale
@@ -202,24 +208,26 @@ def prefill(
     image_starts: torch.Tensor,      # (B,) -1 for text-only rows
     cache: Union[KVCache, PagedKVCache],
     vision_embeds: Optional[torch.Tensor] = None,
+    group=None,
 ) -> Tuple[torch.Tensor, Union[KVCache, PagedKVCache]]:
     """Encode + prefill. Returns (next-token logits (B, V) f32, cache).
 
     The cache is empty, so prefill attends the prompt's own keys under a
     (B, T, T) mask; logits come from each row's last real token."""
-    embeds = _spliced_prompt_embeds(params, cfg, images, ids, image_starts,
-                                    vision_embeds)
+    embeds = _spliced_prompt_embeds(
+        params, cfg, images, ids, image_starts, vision_embeds,
+        text=qwen2.embed(params["decoder"], ids, cfg.decoder, group))
     b, t, _ = embeds.shape
     positions = torch.arange(t, device=embeds.device)[None, :].expand(b, t)
     mask = qwen2.prefill_mask(seq_lens, t, t, window=cfg.decoder.attn_window)
     hidden, cache = qwen2.forward(params["decoder"], cfg.decoder, embeds,
                                   positions, cache=cache, mask=mask,
-                                  prefill=True)
+                                  prefill=True, group=group)
     cache = dataclasses.replace(cache, lengths=seq_lens.to(torch.int32))
     last = (seq_lens.long() - 1).clamp(0, t - 1)
     last_hidden = hidden[torch.arange(b, device=hidden.device), last][:, None]
     logits = qwen2.logits_from_hidden(params["decoder"], last_hidden,
-                                      cfg.decoder)
+                                      cfg.decoder, group)
     return logits[:, 0], cache
 
 
@@ -232,6 +240,7 @@ def prefill_continue(
     image_starts: torch.Tensor,   # (B,) start WITHIN the suffix; -1 if none
     offset: int,                  # tokens already cached (the prefix)
     cache: Union[KVCache, PagedKVCache],
+    group=None,
 ) -> Tuple[torch.Tensor, Union[KVCache, PagedKVCache]]:
     """Continue a prefill after ``offset`` cached prefix tokens: the video
     path's per-frame suffix, a prefix-cache hit's suffix, or one chunk of a
@@ -240,8 +249,9 @@ def prefill_continue(
     over the dense cache, or over the paged rows gathered into order).
     Returns (next-token logits (B, V) f32 at each row's last real suffix
     token, cache with lengths offset + suffix_lens)."""
-    embeds = _spliced_prompt_embeds(params, cfg, images, suffix_ids,
-                                    image_starts)
+    embeds = _spliced_prompt_embeds(
+        params, cfg, images, suffix_ids, image_starts,
+        text=qwen2.embed(params["decoder"], suffix_ids, cfg.decoder, group))
     b, t, _ = embeds.shape
     dev = embeds.device
     positions = offset + torch.arange(t, device=dev)[None, :].expand(b, t)
@@ -253,31 +263,33 @@ def prefill_continue(
     mask = mask[None].expand(b, t, cache.max_len)
     hidden, cache = qwen2.forward(params["decoder"], cfg.decoder, embeds,
                                   positions, cache=cache, mask=mask,
-                                  prefill=True, prefill_offset=offset)
+                                  prefill=True, prefill_offset=offset,
+                                  group=group)
     cache = dataclasses.replace(
         cache, lengths=(offset + suffix_lens).to(torch.int32))
     last = (suffix_lens.long() - 1).clamp(0, t - 1)
     last_hidden = hidden[torch.arange(b, device=dev), last][:, None]
     logits = qwen2.logits_from_hidden(params["decoder"], last_hidden,
-                                      cfg.decoder)
+                                      cfg.decoder, group)
     return logits[:, 0], cache
 
 
 def decode_step(params: Params, cfg: FastVLMConfig, tokens: torch.Tensor,
-                cache: Union[KVCache, PagedKVCache]
+                cache: Union[KVCache, PagedKVCache], group=None
                 ) -> Tuple[torch.Tensor, Union[KVCache, PagedKVCache]]:
     """One decode step: embed the last tokens (B,), attend over the cache
     (kernel K2 on a dense cache, K3 on a paged one, on the card), return
     (logits (B, V), cache)."""
-    embeds = qwen2.embed(params["decoder"], tokens[:, None]).to(
-        resolve_dtype(cfg.decoder.compute_dtype))
+    embeds = qwen2.embed(params["decoder"], tokens[:, None], cfg.decoder,
+                         group).to(resolve_dtype(cfg.decoder.compute_dtype))
     positions = cache.lengths[:, None]
     mask = qwen2.decode_mask(cache.lengths, cache.max_len,
                              window=cfg.decoder.attn_window)
     hidden, cache = qwen2.forward(params["decoder"], cfg.decoder, embeds,
                                   positions, cache=cache, mask=mask,
-                                  prefill=False)
-    logits = qwen2.logits_from_hidden(params["decoder"], hidden, cfg.decoder)
+                                  prefill=False, group=group)
+    logits = qwen2.logits_from_hidden(params["decoder"], hidden, cfg.decoder,
+                                      group)
     return logits[:, 0], cache
 
 
@@ -293,6 +305,7 @@ def decode_chunk(
     eos_ids: Tuple[int, ...] = (151645,),
     sampling: SamplingParams = SamplingParams(),
     row_sampling: Optional[RowSampling] = None,
+    group=None,
 ):
     """Decode k tokens without reading anything back to the host: the
     streaming unit. Slots after a row's EOS hold 0. ``row_sampling`` (per-row
@@ -304,7 +317,7 @@ def decode_chunk(
     toks = []
     tok = last_tok
     for _ in range(k):
-        logits, cache = decode_step(params, cfg, tok, cache)
+        logits, cache = decode_step(params, cfg, tok, cache, group)
         if row_sampling is not None:
             new = sample_rows(generator, logits, row_sampling)
         else:
@@ -379,7 +392,7 @@ def spec_cache_len(prompt_bucket: int, max_new_tokens: int,
 
 
 def _spec_verify_pass(params, cfg, last_tok, done, num, cache, hist, hist_len,
-                      *, k, ngram_n, eos, max_new_tokens, cd):
+                      *, k, ngram_n, eos, max_new_tokens, cd, group=None):
     """One verify pass: draft k tokens from the history, run the decoder
     over [last_tok, draft] at each row's own offset, commit the longest
     matching prefix + the model's next token, cut at the first EOS inside
@@ -391,7 +404,7 @@ def _spec_verify_pass(params, cfg, last_tok, done, num, cache, hist, hist_len,
     active = ~done
     draft = ngram_draft(hist, hist_len, k, n=ngram_n)
     seq = torch.cat([last_tok[:, None], draft], dim=1)       # (B, k+1)
-    embeds = qwen2.embed(params["decoder"], seq).to(cd)
+    embeds = qwen2.embed(params["decoder"], seq, cfg.decoder, group).to(cd)
     lengths = cache.lengths
     steps = torch.arange(k + 1, dtype=torch.int32, device=dev)
     positions = lengths[:, None] + steps[None]
@@ -399,8 +412,9 @@ def _spec_verify_pass(params, cfg, last_tok, done, num, cache, hist, hist_len,
                      window=cfg.decoder.attn_window)
     hidden, cache = qwen2.forward(params["decoder"], cfg.decoder, embeds,
                                   positions, cache=cache, mask=mask,
-                                  prefill=False)
-    logits = qwen2.logits_from_hidden(params["decoder"], hidden, cfg.decoder)
+                                  prefill=False, group=group)
+    logits = qwen2.logits_from_hidden(params["decoder"], hidden, cfg.decoder,
+                                      group)
     g = logits.argmax(dim=-1).to(torch.int32)                # (B, k+1)
 
     count = accept_counts(draft, g[:, :k]) + 1               # + the bonus
@@ -431,7 +445,8 @@ def _spec_history(corpus, corpus_lens, tok0, width):
 
 
 def _spec_loop(params, cfg, tok0, cache, corpus, corpus_lens,
-               max_new_tokens, eos_ids, draft_k, ngram_n) -> SpecResult:
+               max_new_tokens, eos_ids, draft_k, ngram_n,
+               group=None) -> SpecResult:
     """Verify passes until every row is done: the loop shared by
     ``spec_decode`` and ``spec_decode_from_tok``. Gives the tokens of greedy
     decode (up to float reassociation: a pass scores k+1 positions in one
@@ -462,7 +477,8 @@ def _spec_loop(params, cfg, tok0, cache, corpus, corpus_lens,
         active = ~done
         g, count, done, last_tok, cache, hist, hist_len = _spec_verify_pass(
             params, cfg, last_tok, done, num, cache, hist, hist_len, k=k,
-            ngram_n=ngram_n, eos=eos, max_new_tokens=max_new_tokens, cd=cd)
+            ngram_n=ngram_n, eos=eos, max_new_tokens=max_new_tokens, cd=cd,
+            group=group)
         out = masked_window_write(out, g, num, count, k + 1)
         drafted = drafted + (active.to(torch.int32) * k).sum()
         accepted = accepted + torch.where(active, count - 1, 0).sum()
@@ -477,24 +493,26 @@ def _spec_loop(params, cfg, tok0, cache, corpus, corpus_lens,
 
 def spec_decode(params, cfg, logits, cache, ids, seq_lens, *,
                 max_new_tokens: int = 256, eos_ids=(151645,),
-                draft_k: int = 8, ngram_n: int = 3) -> SpecResult:
+                draft_k: int = 8, ngram_n: int = 3,
+                group=None) -> SpecResult:
     """Greedy speculative decode after prefill: logits (B, V) are the
     prefill's, cache holds the prompt (max_len >= spec_cache_len(...)), and
     the prompt ids (B, T) are the draft corpus."""
     tok0 = logits.argmax(dim=-1).to(torch.int32)
     return _spec_loop(params, cfg, tok0, cache, ids, seq_lens,
-                      max_new_tokens, eos_ids, draft_k, ngram_n)
+                      max_new_tokens, eos_ids, draft_k, ngram_n, group)
 
 
 def spec_decode_from_tok(params, cfg, tok0, cache, corpus, corpus_lens, *,
                          max_new_tokens: int = 256, eos_ids=(151645,),
-                         draft_k: int = 8, ngram_n: int = 3) -> SpecResult:
+                         draft_k: int = 8, ngram_n: int = 3,
+                         group=None) -> SpecResult:
     """Greedy speculative decode for a caller that already has the first
     token (the video path reads it for TTFT); ``corpus`` (B, T) with
     ``corpus_lens`` is the draft corpus (the video path's holds the
     previous frame's answer)."""
     return _spec_loop(params, cfg, tok0, cache, corpus, corpus_lens,
-                      max_new_tokens, eos_ids, draft_k, ngram_n)
+                      max_new_tokens, eos_ids, draft_k, ngram_n, group)
 
 
 class SpecCarry(NamedTuple):
@@ -526,7 +544,7 @@ def spec_carry_init(cfg, tok0, cache, corpus, corpus_lens, *,
 
 def spec_stream_chunk(params, cfg, carry: SpecCarry, *, m: int = 4,
                       max_new_tokens: int = 256, eos_ids=(151645,),
-                      draft_k: int = 8, ngram_n: int = 3):
+                      draft_k: int = 8, ngram_n: int = 3, group=None):
     """``m`` verify passes, no host read: the streaming unit of speculative
     decode (the counterpart of ``decode_chunk``), committing m..m*(k+1)
     tokens a row. Returns (tokens (B, m*(k+1)) zero-padded, counts (B,),
@@ -552,7 +570,7 @@ def spec_stream_chunk(params, cfg, carry: SpecCarry, *, m: int = 4,
         g, count, done, last_tok, cache, hist, hist_len = _spec_verify_pass(
             params, cfg, carry.last_tok, carry.done, carry.num, carry.cache,
             carry.hist, carry.hist_len, k=k, ngram_n=ngram_n, eos=eos,
-            max_new_tokens=max_new_tokens, cd=cd)
+            max_new_tokens=max_new_tokens, cd=cd, group=group)
         out = masked_window_write(out, g, off, count, k + 1)
         carry = SpecCarry(last_tok=last_tok, done=done, num=carry.num + count,
                           cache=cache, hist=hist, hist_len=hist_len)

@@ -99,9 +99,13 @@ def beam_search(
     max_new_tokens: int = 64,
     eos_ids: Tuple[int, ...] = (151645,),
     length_penalty: float = 1.0,
+    group=None,
 ) -> BeamResult:
     """The cache must hold each row's prompt plus max_new_tokens - 1 decode
-    writes (the engine allocates prompt bucket + max_new_tokens)."""
+    writes (the engine allocates prompt bucket + max_new_tokens). ``group``:
+    a tensor-parallel engine's "model" group (``vlm.decode_step``); each
+    rank reorders its own cache's kv heads, on the same parents, since
+    every rank holds the same logits."""
     b, v = prefill_logits.shape
     w = num_beams
     n2 = min(2 * w, v)
@@ -144,7 +148,7 @@ def beam_search(
     row0 = torch.arange(b, device=dev)[:, None] * w
     for step in range(1, max_new_tokens):
         logits, cache = vlm.decode_step(params, cfg, last_tok.reshape(b * w),
-                                        cache)
+                                        cache, group)
         logp = torch.log_softmax(logits.float(), dim=-1)
         total = live_scores[:, :, None] + logp.reshape(b, w, v)
         cand_score, idx = _top_k(total.reshape(b, w * v), n2)

@@ -75,6 +75,19 @@ def initialize(coordinator_address: Optional[str] = None,
                 dist.get_rank(), dist.get_world_size())
 
 
+def tp_world_error(tp: int, module: str) -> Optional[str]:
+    """A CLI's message for a ``--tp`` other than the world's size (the
+    env's ``WORLD_SIZE``, 1 without one), or None when they agree: the
+    ranks of a tensor-parallel engine are processes that torchrun
+    starts."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if tp == world:
+        return None
+    return (f"--tp {tp} needs a world of {tp} processes, one a rank "
+            f"(WORLD_SIZE is {world}): run torchrun --nproc-per-node {tp} "
+            f"-m {module} --tp {tp} ...")
+
+
 def is_primary() -> bool:
     """True on the process that writes checkpoints and logs (rank 0, or the
     only process when no group is up)."""

@@ -27,12 +27,18 @@ slices a whole tree into local pieces, gathers local pieces back (a
 checkpoint is written whole), gathers FSDP leaves at use, reduces
 gradients over "data" and sums a global norm over exactly the axes each
 leaf is split on.
+
+Serving (``engine.Engine(mesh=)``) cuts the tree with ``serving_layout``
+and sizes every KV cache by ``kv_heads``: JAX splits its cache over the
+kv heads where they divide tp and keeps it whole otherwise; here a rank
+keeps the kv heads its own q heads read, so that the decode kernels see a
+whole number of q heads per kv head.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Iterable, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -330,6 +336,47 @@ def fsdp_layout(params, mesh, min_size: int = 2 ** 14) -> Layout:
     return Layout(mesh, {p: fsdp_spec(
         x, dp, min_size, n if p.startswith("decoder/layers/") else 1)
         for p, x in _named(params)})
+
+
+def kv_heads(cfg, tp: int, rank: int) -> List[int]:
+    """The kv heads (indices into the config's) that rank ``rank`` of a
+    ``tp``-wide "model" axis attends with and keeps in its KV cache, in the
+    order its local q heads use them: local q head j reads local kv head
+    j // (Hq_local // len(heads)).
+
+    Heads that do not divide tp leave attention whole: every kv head. kv
+    heads that divide tp: the rank's slice of them (the split k / v
+    projections give exactly these). Otherwise (k / v stay whole, as in
+    ``_whole_heads``): the kv heads the rank's q heads read, once each
+    where they form equal groups, as the decode kernels need (Hq_local %
+    Hkv_local == 0); else one a q head."""
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    if tp == 1 or hq % tp:
+        return list(range(hkv))
+    lq, g = hq // tp, hq // hkv
+    per_q = [(rank * lq + j) // g for j in range(lq)]
+    heads = sorted(set(per_q))
+    group = lq // len(heads)
+    if lq % len(heads) == 0 and all(per_q[j] == heads[j // group]
+                                    for j in range(lq)):
+        return heads
+    return per_q
+
+
+def serving_layout(params, cfg, mesh) -> Layout:
+    """The layout of a tensor-parallel Engine: ``tp_layout``. A decoder
+    with quantized leaves (``ops/quant.py``: ``w_q`` / ``scale``) has no
+    spec and raises ValueError, as JAX's ``shard_vlm`` fails on such a
+    tree (its specs name ``w`` / ``b`` leaves)."""
+    quant = [p for p, _ in _named(params.get("decoder", {}), "decoder")
+             if p.endswith("/w_q")]
+    if quant:
+        raise ValueError(
+            f"tensor-parallel serving takes a float decoder: {quant[0]} "
+            f"and {len(quant) - 1} more are quantized leaves, which the "
+            f"layout has no spec for (the JAX package's shard_vlm fails "
+            f"on them too)")
+    return tp_layout(params, cfg, mesh)
 
 
 def shard_vlm(params, cfg, mesh):

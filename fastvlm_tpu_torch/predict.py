@@ -16,7 +16,15 @@ decodes speculatively by prompt lookup (``Engine.generate_spec``,
 ``--model-path`` instead of generating (``utils/checkpoint.
 verify_checkpoint``: every key consumed, the encoder's features, and the
 goldens of ``--goldens`` at 1e-3), prints the JSON report and PASS or FAIL.
-``--tp > 1`` exits with an error: it is not yet ported (see ROADMAP.md).
+
+``--tp N`` shards the decoder over N processes, one a rank
+(``Engine(mesh=)``), started by torchrun:
+
+  torchrun --nproc-per-node 2 -m fastvlm_tpu_torch.predict --tp 2 \
+      --model-path ckpts/llava-fastvithd_7b_stage3 --image-file img.jpg
+
+rank 0 prints; the others follow its device calls. ``--tp`` must equal
+torchrun's ``WORLD_SIZE``, else the CLI exits with 2.
 """
 
 from __future__ import annotations
@@ -27,8 +35,6 @@ import sys
 import time
 
 import numpy as np
-
-NOT_PORTED = "not yet ported, see ROADMAP.md"
 
 
 def build_prompt(user_prompt: str, conv_mode: str = "qwen_2",
@@ -69,7 +75,10 @@ def main(argv=None) -> int:
     parser.add_argument("--random-weights", action="store_true",
                         help="smoke mode: tiny random model, byte tokenizer")
     parser.add_argument("--timing", action="store_true")
-    parser.add_argument("--tp", type=int, default=1)
+    parser.add_argument("--tp", type=int, default=1,
+                        help="tensor-parallel degree: the decoder sharded "
+                             "over a (1, tp) mesh of tp processes (torchrun "
+                             "--nproc-per-node tp)")
     parser.add_argument("--verify-checkpoint", action="store_true",
                         help="audit --model-path instead of generating: "
                              "every state-dict key consumed, the encoder's "
@@ -80,9 +89,15 @@ def main(argv=None) -> int:
                              "by the reference encoder")
     args = parser.parse_args(argv)
 
-    if args.tp > 1:
-        print(f"--tp > 1: {NOT_PORTED}", file=sys.stderr)
+    from fastvlm_tpu_torch.parallel.distributed import tp_world_error
+
+    world_error = tp_world_error(args.tp, "fastvlm_tpu_torch.predict")
+    if args.tp > 1 and world_error:
+        print(world_error, file=sys.stderr)
         return 2
+    if args.verify_checkpoint and args.tp > 1:
+        parser.error("--verify-checkpoint audits a checkpoint in one "
+                     "process: drop --tp")
     if args.verify_checkpoint and not args.model_path:
         parser.error("--verify-checkpoint requires --model-path")
     if not args.random_weights and not args.model_path:
@@ -93,7 +108,6 @@ def main(argv=None) -> int:
     import torch
 
     from fastvlm_tpu_torch.engine import build_engine
-    from fastvlm_tpu_torch.ops.sampling import SamplingParams
 
     device = args.device
     if device == "cuda" and not torch.cuda.is_available():
@@ -111,12 +125,37 @@ def main(argv=None) -> int:
               and report.get("golden_pass_1e-3", True))
         print(("PASS" if ok else "FAIL"), file=sys.stderr)
         return 0 if ok else 1
-    if args.random_weights:
-        engine = build_engine(random_tiny=True, device=device,
-                              conv_mode=args.conv_mode)
-    else:
-        engine = build_engine(args.model_path, dtype=args.dtype,
-                              device=device, conv_mode=args.conv_mode)
+    mesh = None
+    if args.tp > 1:
+        from fastvlm_tpu_torch.parallel import distributed, make_mesh
+
+        distributed.initialize(device=device)
+        mesh = make_mesh(dp=1, tp=args.tp)
+    try:
+        if args.random_weights:
+            engine = build_engine(random_tiny=True, device=device,
+                                  conv_mode=args.conv_mode, mesh=mesh)
+        else:
+            engine = build_engine(args.model_path, dtype=args.dtype,
+                                  device=device, conv_mode=args.conv_mode,
+                                  mesh=mesh)
+        if not engine.is_leader:
+            engine.follow()
+            return 0
+        try:
+            return _generate(args, engine, device)
+        finally:
+            engine.close()
+    finally:
+        if mesh is not None:
+            distributed.shutdown()
+
+
+def _generate(args, engine, device) -> int:
+    import torch
+
+    from fastvlm_tpu_torch.ops.sampling import SamplingParams
+
     cfg = engine.cfg
     prompt = build_prompt(args.prompt, args.conv_mode)
     if args.image_file:

@@ -70,7 +70,7 @@ in place too.
 
 The dense per-batch path (``paged=False``, and any engine whose KV cache
 is int8: the pool has no int8 layout, as in JAX): a gathered batch prefills
-into a dense cache of its own (``init_cache`` in the engine's
+into a dense cache of its own (``engine.new_cache``, in the engine's
 ``_kv_dtype``) and decodes k-token chunks to its end, as the JAX scheduler
 does with ``tables is None``: no admission, shrink, prefix cache, chunked
 admission or speculative chunks; ``warmup()`` does nothing there.
@@ -114,6 +114,12 @@ Where the port differs without changing an output:
 Threads: ``submit()`` from any thread; one scheduler thread runs the loop
 under its own ``torch.inference_mode()`` (the mode is per thread) and reads
 tokens back once per chunk.
+
+Over a tensor-parallel engine (``Engine(mesh=)``) the scheduler runs on
+rank 0 alone: its pool, tables and page accounting are host state there,
+and every device call (the pool's and a dense batch's constructors, the
+prefills, decode and spec chunks, ``warmup``'s) goes through
+``engine.call``, which the other ranks follow with their own kv heads.
 """
 
 from __future__ import annotations
@@ -131,8 +137,7 @@ import torch
 
 from fastvlm_tpu_torch.models import vlm
 from fastvlm_tpu_torch.ops.cuda.paged_decode_attention import PAGE_SIZES
-from fastvlm_tpu_torch.ops.kv_cache import (
-    PagedKVCache, init_cache, init_paged_cache)
+from fastvlm_tpu_torch.ops.kv_cache import PagedKVCache
 from fastvlm_tpu_torch.ops.sampling import (
     RowSampling, SamplingParams, sample, sample_rows)
 from fastvlm_tpu_torch.ops.splice import pad_batch
@@ -457,7 +462,7 @@ class BatchScheduler:
         if not self.paged:
             return 0
         engine = self.engine
-        cfg, dec, dev = engine.cfg, engine.cfg.decoder, engine.device
+        cfg, dev = engine.cfg, engine.device
         sampling = sampling or SamplingParams()
         k = engine.chunk
         spec_on = self.spec and sampling.temperature <= 0.0
@@ -469,9 +474,7 @@ class BatchScheduler:
         pps = min(self.pool.num_pages, -(-(pad_to + max_new_tokens
                                           + spec_slack) // self.page_size))
         if self._pool_kv is None:
-            c0 = init_paged_cache(
-                dec.num_layers, 1, self.pool.num_pages, self.page_size, 1,
-                dec.num_kv_heads, dec.head_dim, engine._dtype, dev)
+            c0 = engine.new_pool(self.pool.num_pages, self.page_size)
             self._pool_kv = (c0.k_pages, c0.v_pages)
         hw = self._hist_width(pad_to + max_new_tokens + spec_slack)
         gen = torch.Generator(device=dev)
@@ -490,8 +493,8 @@ class BatchScheduler:
         n = 0
         with torch.inference_mode():
             for nb in (c for c in (1, 2, 4, 8) if c <= self.max_batch):
-                vlm.decode_chunk(
-                    engine.params, cfg, zeros(nb), zeros(nb, dtype=torch.bool),
+                engine.call(
+                    "decode_chunk", zeros(nb), zeros(nb, dtype=torch.bool),
                     blank(nb, pps), gen, k=k, eos_ids=engine.eos_ids,
                     row_sampling=RowSampling.build([sampling] * nb, nb, dev))
                 self._warm_shapes.add(("plain", nb, k))
@@ -501,8 +504,8 @@ class BatchScheduler:
                         last_tok=zeros(nb), done=zeros(nb, dtype=torch.bool),
                         num=zeros(nb) + 1, cache=blank(nb, pps),
                         hist=zeros(nb, hw), hist_len=zeros(nb) + 1)
-                    vlm.spec_stream_chunk(
-                        engine.params, cfg, carry, m=spec_m,
+                    engine.call(
+                        "spec_stream_chunk", carry, m=spec_m,
                         max_new_tokens=pps * self.page_size,
                         eos_ids=engine.eos_ids, draft_k=spec_k,
                         ngram_n=self.spec_ngram_n)
@@ -515,17 +518,15 @@ class BatchScheduler:
                 if images and pad_to >= cfg.num_image_tokens:
                     kinds.append((zeros(1, s, s, 3, dtype=engine._dtype), 0))
                 for image, start in kinds:
-                    vlm.prefill(engine.params, cfg, image, zeros(1, pad_to),
+                    engine.call("prefill", image, zeros(1, pad_to),
                                 torch.tensor([pad_to], dtype=torch.int32,
                                              device=dev),
                                 torch.tensor([start], dtype=torch.int32,
                                              device=dev),
                                 blank(1, width))
                     n += 1
-                dense = init_cache(dec.num_layers, 1, pad_to + k,
-                                   dec.num_kv_heads, dec.head_dim,
-                                   engine._dtype, dev)
-                vlm.decode_step(engine.params, cfg, zeros(1), dense)
+                dense = engine.new_cache(1, pad_to + k, engine._dtype)
+                engine.call("decode_step", zeros(1), dense)
                 n += 1
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
@@ -732,12 +733,8 @@ class BatchScheduler:
         ``row_pages[i]``. Pad rows keep an all-(-1) table: their cache
         writes drop into the sink page."""
         engine = self.engine
-        cfg = engine.cfg
         if self._pool_kv is None:
-            c0 = init_paged_cache(
-                cfg.decoder.num_layers, 1, self.pool.num_pages, self.page_size,
-                1, cfg.decoder.num_kv_heads, cfg.decoder.head_dim,
-                engine._dtype, engine.device)
+            c0 = engine.new_pool(self.pool.num_pages, self.page_size)
             self._pool_kv = (c0.k_pages, c0.v_pages)
         tables = np.full((b, self.pool.num_pages), -1, np.int32)
         for i, pgs in enumerate(row_pages):
@@ -944,10 +941,7 @@ class BatchScheduler:
                 # before the host closes it, and a dense write past S_max
                 # raises (JAX clamps it)
                 max_new = max(r.max_new_tokens for r in batch)
-                cache = init_cache(
-                    cfg.decoder.num_layers, b, pad_to + (max_new // k + 1) * k,
-                    cfg.decoder.num_kv_heads, cfg.decoder.head_dim,
-                    engine._kv_dtype, dev)
+                cache = engine.new_cache(b, pad_to + (max_new // k + 1) * k)
         except BaseException:
             for pgs in row_pages:
                 if pgs:
@@ -1273,8 +1267,8 @@ class BatchScheduler:
                             prep["images"], ids_row, start0, cached_len, plen,
                             view)
                     else:
-                        logits, view = vlm.prefill(
-                            engine.params, cfg, prep["images"], prep["ids"],
+                        logits, view = engine.call(
+                            "prefill", prep["images"], prep["ids"],
                             prep["lens"], prep["starts"], view,
                             vision_embeds=prep["vision_embeds"])
                         self._count_prefill(prep["images"] is not None)
@@ -1479,8 +1473,8 @@ class BatchScheduler:
                     torch.from_numpy(slens).to(dev),
                     torch.from_numpy(sstarts).to(dev), batch_cached, cache)
             else:
-                logits, cache = vlm.prefill(
-                    engine.params, cfg, images, torch.from_numpy(ids).to(dev),
+                logits, cache = engine.call(
+                    "prefill", images, torch.from_numpy(ids).to(dev),
                     torch.from_numpy(lens).to(dev),
                     torch.from_numpy(starts).to(dev), cache)
             self._count_prefill(True)
@@ -1562,8 +1556,8 @@ class BatchScheduler:
                     carry = vlm.SpecCarry(last_tok=tok, done=done, num=num,
                                           cache=cache, hist=hist,
                                           hist_len=hist_len)
-                    toks, counts, carry = vlm.spec_stream_chunk(
-                        engine.params, cfg, carry, m=spec_m,
+                    toks, counts, carry = engine.call(
+                        "spec_stream_chunk", carry, m=spec_m,
                         max_new_tokens=tables.shape[1] * self.page_size,
                         eos_ids=engine.eos_ids, draft_k=spec_k,
                         ngram_n=self.spec_ngram_n)
@@ -1579,8 +1573,8 @@ class BatchScheduler:
                     committed = int(counts_host.sum())
                     shape_key = ("spec", b, spec_m, int(hist.shape[1]))
                 else:
-                    toks, done, tok, cache = vlm.decode_chunk(
-                        engine.params, cfg, tok, done, cache, self._gen, k=k,
+                    toks, done, tok, cache = engine.call(
+                        "decode_chunk", tok, done, cache, self._gen, k=k,
                         eos_ids=engine.eos_ids, row_sampling=row_samp())
                     host = toks.cpu().numpy()  # the host read = the sync
                     host_done = done.cpu().numpy()

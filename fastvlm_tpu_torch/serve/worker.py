@@ -27,6 +27,12 @@ cache, K2). The scheduler is built with
 the page size, pool size, speculative chunks and the admission chunk. The
 JAX worker's ``persist_view`` keyword is not accepted: the port's scheduler
 reads the pool in place and has no views (serve/batcher.py).
+
+``--tp N`` serves a tensor-parallel engine (``Engine(mesh=)``) from N
+processes started by ``torchrun --nproc-per-node N -m
+fastvlm_tpu_torch.serve.worker --tp N ...``: rank 0 serves HTTP (and runs
+the scheduler), the other ranks follow its device calls. ``--tp`` must
+equal torchrun's ``WORLD_SIZE``, else ``main`` exits with 2.
 """
 
 from __future__ import annotations
@@ -431,11 +437,16 @@ def main(argv=None) -> int:
     parser.add_argument("--dtype", default="bfloat16")
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                         help="where the model runs")
-    parser.add_argument("--tp", type=int, default=1)
+    parser.add_argument("--tp", type=int, default=1,
+                        help="tensor-parallel degree: the decoder sharded "
+                             "over a (1, tp) mesh of tp processes (torchrun "
+                             "--nproc-per-node tp); rank 0 serves HTTP")
     args = parser.parse_args(argv)
-    if args.tp > 1:
-        print("--tp > 1: the tensor-parallel engine is not ported (one "
-              "card), see ROADMAP.md", file=sys.stderr)
+    from fastvlm_tpu_torch.parallel.distributed import tp_world_error
+
+    world_error = tp_world_error(args.tp, "fastvlm_tpu_torch.serve.worker")
+    if args.tp > 1 and world_error:
+        print(world_error, file=sys.stderr)
         return 2
     if not args.random_weights and not args.model_path:
         parser.error("--model-path required (or use --random-weights)")
@@ -445,15 +456,36 @@ def main(argv=None) -> int:
         return 1
     build_logger(logger.name, f"model_worker_{args.port}.log")
 
-    from aiohttp import web
-
     from fastvlm_tpu_torch.engine import build_engine
 
-    if args.random_weights:
-        engine = build_engine(random_tiny=True, device=args.device)
-    else:
-        engine = build_engine(args.model_path, dtype=args.dtype,
-                              device=args.device)
+    mesh = None
+    if args.tp > 1:
+        from fastvlm_tpu_torch.parallel import distributed, make_mesh
+
+        distributed.initialize(device=args.device)
+        mesh = make_mesh(dp=1, tp=args.tp)
+    try:
+        if args.random_weights:
+            engine = build_engine(random_tiny=True, device=args.device,
+                                  mesh=mesh)
+        else:
+            engine = build_engine(args.model_path, dtype=args.dtype,
+                                  device=args.device, mesh=mesh)
+        if not engine.is_leader:
+            engine.follow()
+            return 0
+        try:
+            return _serve(args, engine)
+        finally:
+            engine.close()
+    finally:
+        if mesh is not None:
+            distributed.shutdown()
+
+
+def _serve(args, engine) -> int:
+    from aiohttp import web
+
     logger.info("engine ready (%s) on %s", args.model_name or args.model_path,
                 args.device)
     name = args.model_name or (args.model_path or "fastvlm-tiny").split("/")[-1]

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from fastvlm_tpu_torch.config import FastVLMConfig
+from fastvlm_tpu_torch.models import qwen2
 from fastvlm_tpu_torch.utils.checkpoint import PROJECTOR_PREFIX, VISION_PREFIX
 
 Array = np.ndarray
@@ -141,33 +142,12 @@ def export_projector(params: Params, sd: Dict[str, Array],
         _linear_out(sd, f"{prefix}{2 * i}", layer)
 
 
-def _split_fused(layer: Params, cfg) -> Params:
-    """Undo qwen2.fuse_decoder_params (qkv / gateup concats) in one layer."""
-    out = dict(layer)
-    if "qkv" in out:
-        qkv = out.pop("qkv")
-        qd, kvd = cfg.q_dim, cfg.kv_dim
-        for name, sl in (("q", slice(0, qd)),
-                         ("k", slice(qd, qd + kvd)),
-                         ("v", slice(qd + kvd, qd + 2 * kvd))):
-            p = {"w": qkv["w"][..., sl]}
-            if "b" in qkv:
-                p["b"] = qkv["b"][..., sl]
-            out[name] = p
-    if "gateup" in out:
-        gu = out.pop("gateup")
-        half = gu["w"].shape[-1] // 2
-        out["gate"] = {"w": gu["w"][..., :half]}
-        out["up"] = {"w": gu["w"][..., half:]}
-    return out
-
-
 def export_decoder(params: Params, cfg, sd: Dict[str, Array],
                    prefix: str = "") -> None:
     g = lambda n: prefix + n  # noqa: E731
     sd[g("model.embed_tokens.weight")] = _np32(params["embed"])
     for i in range(cfg.num_layers):
-        lp = _split_fused(params["layers"][i], cfg)
+        lp = qwen2.split_fused_layer(params["layers"][i], cfg)
         base = g(f"model.layers.{i}.")
         sd[base + "input_layernorm.weight"] = _np32(lp["ln1"])
         _linear_out(sd, base + "self_attn.q_proj", lp["q"])
@@ -190,7 +170,7 @@ def export_decoder_mpt(params: Params, cfg, sd: Dict[str, Array],
     g = lambda n: prefix + n  # noqa: E731
     sd[g("transformer.wte.weight")] = _np32(params["embed"])
     for i in range(cfg.num_layers):
-        lp = _split_fused(params["layers"][i], cfg)
+        lp = qwen2.split_fused_layer(params["layers"][i], cfg)
         base = g(f"transformer.blocks.{i}.")
         sd[base + "norm_1.weight"] = _np32(lp["ln1"])
         sd[base + "attn.Wqkv.weight"] = np.concatenate(

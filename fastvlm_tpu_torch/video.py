@@ -29,6 +29,10 @@ frame):
 
 Frames are PIL images or (H, W, 3) arrays of any size; arrays go to the
 device as they are and are resized there (``Engine.prepare_array_image``).
+
+The device calls go through ``engine.call`` (the cache's constructor, the
+prefills, decode chunks and spec decodes), so a tensor-parallel engine
+serves VideoQA on rank 0 while the other ranks follow.
 """
 
 from __future__ import annotations
@@ -41,8 +45,6 @@ import torch
 
 from fastvlm_tpu_torch.data.preprocessing import (
     process_images, tokenizer_image_token)
-from fastvlm_tpu_torch.models import vlm
-from fastvlm_tpu_torch.ops.kv_cache import init_cache
 from fastvlm_tpu_torch.ops.sampling import SamplingParams, sample
 from fastvlm_tpu_torch.ops.splice import expand_image_ids, pad_batch
 
@@ -80,10 +82,8 @@ class VideoQA:
                                          device=dev)  # image at suffix 0
         # a verify pass writes draft_k + 1 slots past the committed length
         slack = draft_k + 1 if spec else 0
-        self.cache = init_cache(
-            cfg.decoder.num_layers, 1, start + bucket + max_new_tokens + slack,
-            cfg.decoder.num_kv_heads, cfg.decoder.head_dim, engine._kv_dtype,
-            dev)
+        self.cache = engine.new_cache(1, start + bucket + max_new_tokens
+                                      + slack)
         if spec:
             # draft corpus = [prompt row | the previous frame's answer at
             # start + bucket]; the answer region is rewritten every frame
@@ -103,8 +103,8 @@ class VideoQA:
         pre_ids, pre_lens, pre_starts = pad_batch(
             [np.asarray(row[:start], np.int32)], [-1], start)
         with torch.inference_mode():
-            _, self.cache = vlm.prefill(
-                engine.params, cfg, None, torch.as_tensor(pre_ids).to(dev),
+            _, self.cache = engine.call(
+                "prefill", None, torch.as_tensor(pre_ids).to(dev),
                 torch.as_tensor(pre_lens).to(dev),
                 torch.as_tensor(pre_starts).to(dev), self.cache)
 
@@ -128,8 +128,8 @@ class VideoQA:
 
     def _decode_chunk(self, tok, done, cache, emitted):
         k = min(self.engine.chunk, self.max_new_tokens - emitted)
-        toks, done, tok, cache = vlm.decode_chunk(
-            self.engine.params, self.cfg, tok, done, cache, self._gen, k=k,
+        toks, done, tok, cache = self.engine.call(
+            "decode_chunk", tok, done, cache, self._gen, k=k,
             eos_ids=self.engine.eos_ids, sampling=self.sampling)
         return toks, done, tok, cache, emitted + k
 
@@ -155,8 +155,8 @@ class VideoQA:
         """Spec decode of a frame from its first token, then the corpus
         reseeded with this answer; returns the packed row [num, steps,
         accepted, drafted, tokens...] for one host read."""
-        res = vlm.spec_decode_from_tok(
-            self.engine.params, self.cfg, tok, cache, self._corpus,
+        res = self.engine.call(
+            "spec_decode_from_tok", tok, cache, self._corpus,
             self._corpus_lens, max_new_tokens=self.max_new_tokens,
             eos_ids=self.engine.eos_ids, draft_k=self.draft_k)
         off = self._answer_off

@@ -266,13 +266,16 @@ def test_port_never_imports_jax():
     ["--num_beams", "2"], [],
     ["--verify-checkpoint"], ["--model-path", "ckpt"],
 ])
-def test_predict_refuses_unported_flags(flags, capsys):
-    """``--tp > 1`` is the one flag not yet ported: it is refused, and named
-    alone, beside each flag that now runs."""
-    assert predict.main(["--random-weights", "--tp", "2", *flags]) != 0
+def test_predict_refuses_unported_flags(flags, monkeypatch, capsys):
+    """``--tp 2`` outside a world of 2 processes is refused, beside each
+    flag that runs, with the message that names torchrun (the ranks are
+    the processes it starts), and names nothing else."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    assert predict.main(["--random-weights", "--tp", "2", *flags]) == 2
     err = capsys.readouterr().err
-    assert "not yet ported, see ROADMAP.md" in err
-    assert err.startswith("--tp > 1:") and "--num_beams" not in err
+    assert err.startswith("--tp 2 needs a world of 2 processes")
+    assert "torchrun --nproc-per-node 2 -m fastvlm_tpu_torch.predict" in err
+    assert "--num_beams" not in err and "not yet ported" not in err
 
 
 def test_predict_random_weights_runs(capsys):

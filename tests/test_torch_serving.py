@@ -690,10 +690,14 @@ def test_out_of_memory_maps_to_its_error_code(exc, code):
     (["--random-weights"], 1), (["--random-weights", "--device", "cuda"], 1),
     (["--random-weights", "--tp", "2"], 2)])
 def test_worker_main_refuses_without_a_card(monkeypatch, capsys, argv, rc):
+    """Without a card the worker exits 1 and names --device cpu; ``--tp 2``
+    outside a world of 2 processes exits 2 and names torchrun."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     assert worker.main(argv) == rc
     err = capsys.readouterr().err
-    assert ("--device cpu" in err) if rc == 1 else ("not ported" in err)
+    assert ("--device cpu" in err) if rc == 1 else (
+        "torchrun --nproc-per-node 2 -m fastvlm_tpu_torch.serve.worker" in err)
 
 
 def test_cli_refuses_without_a_card(monkeypatch, capsys):

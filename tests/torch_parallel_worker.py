@@ -1,8 +1,9 @@
-"""One rank of the gloo worlds of tests/test_torch_parallel_train.py and
-tests/test_torch_pipeline.py: runs the named scenarios of the port's
-parallel training on the tiny training config and writes each one's result
-(whole params gathered over the mesh, losses, per-rank facts) to
-``<out>/<scenario>.rank<r>.pt``. Imports the port only, never JAX: the
+"""One rank of the gloo worlds of tests/test_torch_parallel_train.py,
+tests/test_torch_pipeline.py and tests/test_torch_engine_tp*.py: runs the
+named scenarios of the port's parallel training on the tiny training
+config, or of its tensor-parallel engine, and writes each one's result
+(whole params gathered over the mesh, losses, per-rank facts, answers and
+device-call logs) to ``<out>/<scenario>.rank<r>.pt``. Imports the port only, never JAX: the
 parent test computes the JAX side and passes the inputs as .npy files.
 
     python tests/torch_parallel_worker.py RANK WORLD STORE IN_DIR OUT_DIR \\
@@ -12,6 +13,7 @@ parent test computes the JAX side and passes the inputs as .npy files.
 import dataclasses
 import os
 import sys
+import threading
 import traceback
 
 import numpy as np
@@ -281,6 +283,302 @@ def sc_pp_checkpoint(ctx):
             "opt": tr._whole_opt_state(whole)}
 
 
+# ---------------------------------------------------------------------------
+# the tensor-parallel engine (tests/test_torch_engine_tp.py at tp = 2,
+# tests/test_torch_engine_tp4.py at tp = 4: the world is the mesh). Every
+# rank builds the engine; rank 0 drives it and returns its answers, the
+# others follow until rank 0 closes it. Each rank returns the outputs of
+# every device call it made (``_record_calls``), for the test to hold the
+# followers' to rank 0's.
+# ---------------------------------------------------------------------------
+
+TP_PROMPTS = {"chat": "hello mesh", "stream": "stream across the mesh",
+              "spec": "repeat after me " * 3,
+              "batch": ["alpha mesh", "beta mesh"]}
+
+
+def lively_config(kv_cache_dtype=None):
+    """tests/torch_tiny.py's ``tiny(tcfg)``: the 128 px training config with
+    an untied head."""
+    cfg = tiny_config()
+    return dataclasses.replace(cfg, decoder=dataclasses.replace(
+        cfg.decoder, tie_word_embeddings=False,
+        kv_cache_dtype=kv_cache_dtype))
+
+
+def tp_image(seed=0, size=128):
+    return np.random.RandomState(seed).randint(0, 256, (size, size, 3),
+                                               dtype=np.uint8)
+
+
+def _host(x):
+    """A call's output on the host, a cache by its lengths only (its
+    planes hold this rank's kv heads)."""
+    from fastvlm_tpu_torch.ops.kv_cache import KVCache, PagedKVCache
+
+    if isinstance(x, (KVCache, PagedKVCache)):
+        return ("cache", x.lengths.cpu().clone())
+    if torch.is_tensor(x):
+        return x.detach().cpu().clone()
+    if isinstance(x, (tuple, list)):
+        return [_host(v) for v in x]
+    return x
+
+
+def _record_calls(engine):
+    """Wrap the engine's device-call registry (which its lockstep channel
+    shares): every call made on this rank appends (name, outputs)."""
+    log = []
+    for name, fn in list(engine._calls.items()):
+        def rec(*a, _fn=fn, _name=name, **kw):
+            out = _fn(*a, **kw)
+            log.append((_name, _host(out)))
+            return out
+        engine._calls[name] = rec
+    return log
+
+
+def _tp_engine(cfg, np_params, **kw):
+    from fastvlm_tpu_torch.data.preprocessing import ByteTokenizer
+    from fastvlm_tpu_torch.engine import Engine
+
+    tok = ByteTokenizer()
+    mesh = make_mesh(dp=1, tp=torch.distributed.get_world_size())
+    engine = Engine(cfg, from_jax_params(np_params, cfg), tok,
+                    eos_ids=(tok.eos_token_id,), mesh=mesh, **kw)
+    return engine, _record_calls(engine)
+
+
+def _drive(engine, log, drive):
+    """Rank 0 runs ``drive(engine)`` and closes the engine; the others
+    follow. Returns this rank's answers (rank 0's) and call log."""
+    if not engine.is_leader:
+        engine.follow()
+        return {"log": log}
+    try:
+        out = drive(engine)
+    finally:
+        engine.close()
+    return {**out, "log": log}
+
+
+def tp_pieces(engine):
+    """The shapes of layer 0's pieces, the embedding's, and the kv heads a
+    dense cache holds."""
+    from fastvlm_tpu_torch.parallel.sharding import kv_heads
+
+    dec = engine.params["decoder"]
+    lp = dec["layers"][0]
+    shapes = {n: tuple(lp[n]["w"].shape) for n in ("q", "k", "v", "o", "gate",
+                                                   "up", "down")}
+    shapes["embed"] = tuple(dec["embed"].shape)
+    return {"shapes": shapes,
+            "cache_heads": engine.new_cache(1, 8).k.shape[3],
+            "kv_heads": kv_heads(engine.cfg.decoder,
+                                 torch.distributed.get_world_size(),
+                                 engine.rank)}
+
+
+def tp_batch(engine, prompts, max_new_tokens=5):
+    """``prompts`` through a BatchScheduler over ``engine``, one thread
+    each (tests/test_engine_tp.py's scheduler settings)."""
+    from fastvlm_tpu_torch.serve.batcher import BatchScheduler
+
+    sched = BatchScheduler(engine, window_ms=100, paged=True, page_size=16,
+                           pool_tokens=8192)
+    results = [None] * len(prompts)
+
+    def run(i):
+        last = None
+        for last in sched.submit(engine.build_prompt(prompts[i]),
+                                 max_new_tokens=max_new_tokens):
+            pass
+        results[i] = last.get("error", last["text"])
+
+    try:
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sched.shutdown()
+    return results
+
+
+TP_SYSTEM = "You are a careful assistant who looks closely at pictures. "
+# (question, new tokens): A alone, B admitted while A decodes, C after both
+TP_SERVE = (("what is in it?", 40),
+            ("and what else can you see in this small picture here?", 8),
+            ("what is in it now?", 8))
+
+
+def _last_text(stream):
+    last = {"text": None}
+    for last in stream:
+        pass
+    return last.get("error", last["text"])
+
+
+def tp_serving(engine, image):
+    """TP_SERVE through a BatchScheduler with the prefix cache, 8-token
+    chunked admission and spec chunks: A alone (spec chunks), B submitted
+    at A's first token (a prefix hit, admitted in chunks while A decodes),
+    C once both closed (a prefix hit). Returns the texts and counters."""
+    from fastvlm_tpu_torch.serve.batcher import BatchScheduler
+
+    sched = BatchScheduler(engine, window_ms=5, page_size=16,
+                           pool_tokens=4096, prefix_cache=True,
+                           prefill_chunk=8, spec=True)
+
+    def submit(question, n):
+        return sched.submit(engine.build_prompt(question, TP_SYSTEM), image,
+                            max_new_tokens=n)
+
+    try:
+        a = submit(*TP_SERVE[0])
+        first = next(a)
+        texts = [None, None]
+        # submit() queues the request at its first next(): B's own thread
+        tb = threading.Thread(target=lambda: texts.__setitem__(
+            1, _last_text(submit(*TP_SERVE[1]))))
+        tb.start()
+        texts[0] = _last_text([first, *a])
+        tb.join(timeout=120)
+        texts.append(_last_text(submit(*TP_SERVE[2])))
+        return {"texts": texts, "counters": dict(sched.counters)}
+    finally:
+        sched.shutdown()
+
+
+def tp_video(engine):
+    """VideoQA over frames 1, 2: asked in turn, pipelined, and with spec
+    decoding."""
+    from fastvlm_tpu_torch.video import VideoQA, qa_over_stream
+
+    frames = [tp_image(s) for s in (1, 2)]
+    out = {}
+    for name, kw, pipelined in (("ask", {}, False),
+                                ("pipelined", {}, True),
+                                ("spec", {"spec": True}, False)):
+        qa = VideoQA(engine, "what changed?", max_new_tokens=6, **kw)
+        out[name] = [t for t, _ in qa_over_stream(qa, frames,
+                                                 pipelined=pipelined)]
+    return out
+
+
+def sc_tp_engine(ctx):
+    """tests/test_engine_tp.py's requests through the TP engine over the
+    JAX tiny engine's weights, a sampled request, and a ModelWorker's
+    streamed answer."""
+    from fastvlm_tpu_torch.engine import tiny_config as engine_tiny
+    from fastvlm_tpu_torch.ops.sampling import SamplingParams
+    from fastvlm_tpu_torch.serve.protocol import iter_chunks
+    from fastvlm_tpu_torch.serve.worker import ModelWorker
+
+    engine, log = _tp_engine(engine_tiny(), load(ctx["in"], "tiny_weights"))
+    pieces = tp_pieces(engine)
+
+    def drive(e):
+        p = TP_PROMPTS
+        stream_prompt = e.build_prompt(p["stream"])
+        worker = ModelWorker(e, "fastvlm-tiny")
+        msgs = list(iter_chunks(worker.generate_stream({
+            "prompt": e.build_prompt(p["chat"]), "max_new_tokens": 8,
+            "temperature": 0.0})))
+        return {
+            "chat": e.chat(p["chat"], max_new_tokens=12)[0],
+            "stream": [u["text"] for u in e.stream(stream_prompt,
+                                                   max_new_tokens=10)],
+            "spec": e.generate_spec(e.build_prompt(p["spec"]),
+                                    max_new_tokens=16)[0],
+            "batch": tp_batch(e, p["batch"]),
+            "sampled": e.chat(p["chat"], max_new_tokens=12, seed=7,
+                              sampling=SamplingParams(temperature=0.7))[0],
+            "worker": msgs}
+
+    return {**pieces, **_drive(engine, log, drive)}
+
+
+def sc_tp_lively(ctx):
+    """Livelier weights (decoder N(0, 0.2), untied head): prefill logits,
+    an image chat, beam search W = 2, a sampled request, VideoQA over two
+    frames, the scheduler's prefix cache, chunked admission and spec
+    chunks; then an int8-KV engine's image chat and dense batch."""
+    from fastvlm_tpu_torch.ops.sampling import SamplingParams
+
+    weights = load(ctx["in"], "lively_weights")
+    image = tp_image()
+    out = {}
+    engine, log = _tp_engine(lively_config(), weights)
+    out["pieces"] = tp_pieces(engine)
+
+    def drive(e):
+        prompt = e.build_prompt("describe the picture")
+        with torch.inference_mode():
+            inp = e.prepare(prompt, image)
+            cache = e.new_cache(1, inp["ids"].shape[1])
+            logits, _ = e.call("prefill", inp["images"], inp["ids"],
+                               inp["lens"], inp["starts"], cache)
+        return {
+            "logits": logits.cpu(),
+            "chat": e.chat("describe the picture", image,
+                           max_new_tokens=12)[0],
+            "beam": e.generate_beam(prompt, image, num_beams=2,
+                                    max_new_tokens=8)[0],
+            "sampled": e.chat("describe the picture", image,
+                              max_new_tokens=12, seed=3,
+                              sampling=SamplingParams(temperature=0.7))[0],
+            "video": tp_video(e),
+            "serving": tp_serving(e, image)}
+
+    out["main"] = _drive(engine, log, drive)
+    engine, log = _tp_engine(lively_config("int8"), weights)
+    out["int8"] = _drive(engine, log, lambda e: {
+        "chat": e.chat("describe the picture", image, max_new_tokens=12)[0],
+        "batch": tp_batch(e, TP_PROMPTS["batch"])})
+    return out
+
+
+def sc_tp_unknown_call(ctx):
+    """Rank 0 sends a call outside the registry down the lockstep channel:
+    the follower raises."""
+    from fastvlm_tpu_torch.engine import tiny_config as engine_tiny
+
+    engine, _ = _tp_engine(engine_tiny(), load(ctx["in"], "tiny_weights"))
+    ls = engine.lockstep
+    if engine.is_leader:
+        torch.distributed.broadcast_object_list(
+            [("forward", (), {}, False, [])], src=ls.src, group=ls.group)
+        return {}
+    try:
+        engine.follow()
+    except ValueError as e:
+        return {"raised": str(e)}
+    return {"raised": None}
+
+
+def sc_tp_dead_follower(ctx):
+    """Rank 1 builds the engine and exits without following; rank 0's next
+    request must raise, not hang (the world's last scenario)."""
+    import time
+
+    from fastvlm_tpu_torch.engine import tiny_config as engine_tiny
+
+    engine, _ = _tp_engine(engine_tiny(), load(ctx["in"], "tiny_weights"))
+    if not engine.is_leader:
+        return {}
+    time.sleep(2)  # rank 1 is gone by now
+    t0 = time.monotonic()
+    try:
+        engine.chat(TP_PROMPTS["chat"], max_new_tokens=4)
+    except RuntimeError as e:
+        return {"raised": f"{type(e).__name__}: {e}"[:300],
+                "seconds": time.monotonic() - t0}
+    return {"raised": None, "seconds": time.monotonic() - t0}
+
+
 SCENARIOS = {
     "pp_forward": sc_pp_forward,
     "pp_checkpoint": sc_pp_checkpoint,
@@ -306,6 +604,10 @@ SCENARIOS = {
                         zero1=True),
     "tower_fsdp": _step(4, 1, "batch", kind="fsdp", min_size=64,
                         opt={"freeze_vision": False}),
+    "tp_engine": sc_tp_engine,
+    "tp_lively": sc_tp_lively,
+    "tp_unknown_call": sc_tp_unknown_call,
+    "tp_dead_follower": sc_tp_dead_follower,
 }
 
 

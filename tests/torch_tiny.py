@@ -321,12 +321,12 @@ WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "torch_parallel_worker.py")
 
 
-def run_world(root, n, scenarios, inputs, timeout=300):
-    """Run ``tests/torch_parallel_worker.py`` on ``n`` gloo ranks (a
+def start_world(root, n, scenarios, inputs, timeout=300):
+    """Start ``tests/torch_parallel_worker.py`` on ``n`` gloo ranks (a
     ``file://`` rendezvous under ``root``) over ``inputs`` ({name: object},
-    written as .npy files); returns {scenario: [rank 0 result, ...]}. The
-    ranks are killed if any fails or the whole run outlasts ``timeout``
-    seconds."""
+    written as .npy files), and return at once; ``finish_world`` waits
+    for it. The ranks are killed if any fails or the whole run outlasts
+    ``timeout`` seconds from here."""
     in_dir, out_dir = os.path.join(root, "in"), os.path.join(root, "out")
     os.makedirs(in_dir)
     os.makedirs(out_dir)
@@ -339,11 +339,26 @@ def run_world(root, n, scenarios, inputs, timeout=300):
         [sys.executable, WORKER, str(r), str(n), os.path.join(root, "store"),
          in_dir, out_dir, *scenarios], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(n)]
-    deadline = time.monotonic() + timeout
+    return {"procs": procs, "out": out_dir, "scenarios": scenarios,
+            "deadline": time.monotonic() + timeout}
+
+
+def stop_world(world) -> None:
+    """Kill the ranks still running (a no-op once ``finish_world`` ran)."""
+    for p in world["procs"]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def finish_world(world):
+    """Wait for a ``start_world`` world; returns {scenario: [rank 0 result,
+    ...]}, or raises with every rank's log tail if one failed."""
+    procs = world["procs"]
     try:
         while any(p.poll() is None for p in procs):
             failed = [p for p in procs if p.poll() not in (None, 0)]
-            if failed or time.monotonic() > deadline:
+            if failed or time.monotonic() > world["deadline"]:
                 break
             time.sleep(0.05)
     finally:
@@ -355,6 +370,11 @@ def run_world(root, n, scenarios, inputs, timeout=300):
         raise AssertionError("gloo world failed:\n" + "\n".join(
             f"[rank {r} rc {p.returncode}] {log[-3000:]}"
             for r, (p, log) in enumerate(zip(procs, logs))))
-    return {s: [torch.load(os.path.join(out_dir, f"{s}.rank{r}.pt"),
-                           weights_only=False) for r in range(n)]
-            for s in scenarios}
+    return {s: [torch.load(os.path.join(world["out"], f"{s}.rank{r}.pt"),
+                           weights_only=False) for r in range(len(procs))]
+            for s in world["scenarios"]}
+
+
+def run_world(root, n, scenarios, inputs, timeout=300):
+    """``start_world`` then ``finish_world``."""
+    return finish_world(start_world(root, n, scenarios, inputs, timeout))
