@@ -67,6 +67,26 @@ non-zero):
               decode profile at the same batch and lengths: step ms on the
               paged pool and on a dense cache of the same rows, device ops,
               device ms and K3 (or K2) ms and launches a step
+  7b. serve-view  the JAX scheduler's serving modes over phase 7's engine:
+              8 greedy requests of 32 new tokens (4 with distinct 1024 px
+              images at once, then 2 and 2 more admitted once the ones
+              before decode) through fresh schedulers in place (K3),
+              chunk_view=True, persist_view=True and persist_view=True,
+              pipeline_depth=2, in turns and back. Checks every stream's
+              finish, 4 admissions and (but at depth 2) a grow, K1 = 44 per
+              image prefill,
+              K3 = 24 a decode step and no K2 in place, K2 = 24 a step and
+              no K3 with a view, the persistent view's gathers, syncs and
+              row updates, pipelined groups at depth 2, the pool's pages
+              all back, and a dense teacher-forced replay of every
+              distinct answer within the tie margin. Prints served tok/s,
+              a step's ms and the counters of each round; a steady-state
+              profile of each mode at batch 8 (step ms, device ops and
+              ms, K2 / K3 launches and ms a step: K2 24 and K3 0 on the
+              persistent view); then a pool smaller than the prompts: the
+              gathered batch served on a dense cache (K1 44, K2 24 a step,
+              K3 0, no page mapped, replays). ``--serve-view-only`` runs
+              phases main and serve-view alone
   8. serve-1.5b  a BatchScheduler at the JAX scheduler's defaults for a
               1.5B decoder (prefix cache on, 256-token chunked admission,
               2 rows mid-prefill at most) over a full-width engine:
@@ -1246,6 +1266,341 @@ def phase_serve(card, main_engine):
                  f"ms): {ratio:.4f}")
     return {"k1_launches": k1, "k3_launches": k3, "tok_s": served / wall_s,
             "peak_gib": peak_gb}
+
+
+VIEW_MODES = (("in place", {}), ("chunk view", {"chunk_view": True}),
+              ("persist view", {"persist_view": True}),
+              ("persist depth 2", {"persist_view": True,
+                                   "pipeline_depth": 2}))
+
+
+def _view_step_profile(engine, rng, b=8, lengths=(330, 371), pool=256,
+                       n_chunks=4):
+    """Steady-state decode at the serving batch in each scheduler mode, on
+    one pool (``pool`` pages of 64, each row's pages scattered over it) of
+    ``b`` rows of ``lengths`` (low, high + 1) tokens, greedy, the engine's
+    chunks: in place (K3), the chunk view (a gather, k dense steps, a
+    write-back a chunk), the persistent view (k dense steps a chunk on a
+    view gathered once) and the persistent view 2 chunks a host read. Step
+    ms by the host clock from dispatch to the host read, over passes of
+    ``n_chunks`` chunks (groups for depth 2) in the order of VIEW_MODES
+    and back; then one profiled pass of each: device ops, device ms, and
+    K2's and K3's launches (the wrappers' counts) and ms a step."""
+    import dataclasses
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fastvlm_tpu_torch.models import vlm
+    from fastvlm_tpu_torch.ops.cuda.decode_attention import (
+        decode_attention, decode_attention_reference)
+    from fastvlm_tpu_torch.ops.kv_cache import init_paged_cache
+    from fastvlm_tpu_torch.ops.sampling import RowSampling, SamplingParams
+
+    dec = engine.cfg.decoder
+    k, page = engine.chunk, 64
+    lengths = rng.randint(*lengths, size=b).astype(np.int32)
+    span = -(-(int(lengths.max()) + 5 * 2 * k) // page)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    base = init_paged_cache(dec.num_layers, b, pool, page, span,
+                            dec.num_kv_heads, dec.head_dim, torch.bfloat16,
+                            "cuda")
+    tables = rng.permutation(pool)[:b * span].reshape(b, span)
+    base = dataclasses.replace(
+        base, block_tables=torch.from_numpy(tables.astype(np.int32)).cuda())
+    for t in (base.k_pages, base.v_pages):
+        t.normal_(generator=gen)
+    start = torch.from_numpy(lengths).cuda()
+    tok0 = torch.randint(0, dec.vocab_size, (b,), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    rows = RowSampling.build([SamplingParams()] * b, b, "cuda")
+    s_bucket = -(-(int(lengths.max()) + 5 * 2 * k) // page) * page
+
+    # K2 at the views' shape: layer 0 of the gathered view, a step's
+    # lengths, at the batch buckets the serving rounds decode at
+    view = vlm.gather_view(dataclasses.replace(base, lengths=start.clone()),
+                           s_bucket)
+    k2_check = []
+    for nb in (8, 4, 2):
+        nb = min(nb, b)
+        q = torch.randn((nb, dec.num_heads, dec.head_dim), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        kc, vc = view.k[0, :nb], view.v[0, :nb]
+        lens = view.lengths[:nb] + 1
+        err, ratio = compare(decode_attention(q, kc, vc, lens),
+                             decode_attention_reference(q, kc, vc, lens),
+                             K2_TOL[torch.bfloat16],
+                             f"K2 on the view, B={nb}")
+        k2_check.append((nb, err, ratio))
+    del view
+
+    def dispatches(mode, n):
+        """Reset the rows, one warm dispatch, then n; each one's ms."""
+        cache = dataclasses.replace(base, lengths=start.clone())
+        tok, done = tok0, torch.zeros((b,), dtype=torch.bool, device="cuda")
+        kw = dict(k=k, eos_ids=engine.eos_ids, row_sampling=rows)
+        view = None
+        if mode.startswith("persist"):
+            view = vlm.gather_view(cache, s_bucket)
+        depth = 2 if mode == "persist depth 2" else 1
+        out = []
+        for i in range(n + 1):
+            t0 = time.perf_counter()
+            group = []
+            for _ in range(depth):
+                if view is not None:
+                    toks, done, tok, view = vlm.decode_chunk(
+                        engine.params, engine.cfg, tok, done, view, gen, **kw)
+                elif mode == "chunk view":
+                    toks, done, tok, cache = vlm.decode_chunk_paged(
+                        engine.params, engine.cfg, tok, done, cache, gen,
+                        s_bucket=s_bucket, **kw)
+                else:
+                    toks, done, tok, cache = vlm.decode_chunk(
+                        engine.params, engine.cfg, tok, done, cache, gen,
+                        **kw)
+                group.append(toks)
+            torch.cat(group, dim=1).cpu()
+            if i:
+                out.append((time.perf_counter() - t0) * 1000 / depth)
+        return out, depth
+
+    names = [m for m, _ in VIEW_MODES]
+    step_ms = {m: [] for m in names}
+    out = {}
+    with torch.inference_mode():
+        for mode in names + names[::-1]:
+            ms, _ = dispatches(mode, n_chunks)
+            step_ms[mode].append(statistics.median(ms) / k)
+        for mode in names:
+            dispatches(mode, 0)
+            torch.cuda.synchronize()
+            before = _launches()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                _, depth = dispatches(mode, 1)
+                torch.cuda.synchronize()
+            launched = (_launches() - before)
+            rows_ = [e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA]
+            steps = 2 * depth * k  # the warm dispatch and the one after it
+            k3 = [e for e in rows_ if "paged_decode_kernel" in e.key]
+            k2 = [e for e in rows_ if "decode_kernel" in e.key
+                  and "paged" not in e.key]
+            out[mode] = {
+                "step_ms": step_ms[mode],
+                "kernels": sum(e.count for e in rows_) / steps,
+                "device_ms": sum(e.self_device_time_total
+                                 for e in rows_) / steps / 1000,
+                "k2_launches": float(launched[1]) / steps,
+                "k3_launches": float(launched[2]) / steps,
+                "k2_ms": sum(e.self_device_time_total for e in k2)
+                / steps / 1000,
+                "k3_ms": sum(e.self_device_time_total for e in k3)
+                / steps / 1000}
+    return {"lengths": (int(lengths.min()), int(lengths.max())),
+            "s_bucket": s_bucket, "modes": out, "k2_check": k2_check}
+
+
+def phase_serve_view(card, main_engine):
+    """The JAX scheduler's serving modes over phase serve's engine and
+    traffic shape (8 greedy requests of 32 tokens: 4 gathered, then 2 and
+    2 admitted once the ones before decode), each mode through a fresh
+    scheduler, the modes in turns (VIEW_MODES, then back); a steady-state
+    step profile of each; and one batch whose prompts the pool cannot hold
+    (the dense fallback)."""
+    from fastvlm_tpu_torch.engine import Engine
+    from fastvlm_tpu_torch.ops.cuda.decode_attention import (
+        decode_attention, decode_attention_reference)
+    from fastvlm_tpu_torch.serve.batcher import BatchScheduler
+
+    cfg = main_engine.cfg
+    layers = cfg.decoder.num_layers
+    engine = Engine(cfg, main_engine.params, IdTokenizer(), chunk=8)
+    rng = np.random.RandomState(11)
+    images = [rng.randint(0, 256, (1024, 1024, 3), dtype=np.uint8)
+              for _ in range(8)]
+    first = [("Describe the image.", 0), ("What is in the picture?", 1),
+             ("Describe the scene in detail.", 2), ("Read the text.", 3)]
+    late = [[("What colour dominates?", 4), ("Count the objects.", 5)],
+            [("Where was this taken?", 6), ("Describe the lighting.", 7)]]
+    jobs = first + late[0] + late[1]
+
+    def serve_round(mode, knobs):
+        """The traffic once through a fresh scheduler: (last updates,
+        counters, K1/K2/K3 launches, served tok/s, step ms, pool clean)."""
+        sched = BatchScheduler(engine, max_batch=8, window_ms=100,
+                               page_size=64, pool_tokens=16384, **knobs)
+        sched.trace = []
+        torch.cuda.synchronize()
+        _zero_launches()
+        try:
+            clients = [Client(sched, engine, p, images[i], 32)
+                       for p, i in first]
+            for wave in late:
+                if not clients[-1].decoding.wait(JOIN_S):
+                    raise AssertionError(f"{mode}: a batch never decoded")
+                clients += [Client(sched, engine, p, images[i], 32)
+                            for p, i in wave]
+            last = [c.result(f"{mode} request {n}")
+                    for n, c in enumerate(clients)]
+            launches = _launches()
+        finally:
+            sched.shutdown()
+        t_start = next(e[0] for e in sched.trace if e[1] == "batch_start")
+        served = sum(u["stats"]["decode_tokens"] for u in last)
+        wall_s = max(c.t_closed for c in clients) - t_start
+        disp = [e for e in sched.trace if e[1] == "disp"]
+        return {"last": last, "counters": dict(sched.counters),
+                "launches": launches, "tok_s": served / wall_s,
+                "step_ms": statistics.median(e[5] / e[4] for e in disp),
+                "clean": sched.pool.free_pages == sched.pool.num_pages}
+
+    t0 = time.perf_counter()
+    names = [m for m, _ in VIEW_MODES]
+    runs = {m: [] for m in names}
+    for mode in names + names[::-1]:
+        runs[mode].append(serve_round(mode, dict(VIEW_MODES)[mode]))
+    replayed = {}
+    res = {}
+    for mode in names:
+        for r in runs[mode]:
+            c, (k1, k2, k3) = r["counters"], r["launches"]
+            steps = c["decode_steps"]
+            log("serve-view", f"{mode}: served {r['tok_s']:.3f} tok/s, a "
+                              f"decode step {r['step_ms']:.3f} ms (median of "
+                              f"the chunks' dispatch-to-read time); K1 {k1}, "
+                              f"K2 {k2}, K3 {k3} for {steps} decode steps; "
+                              f"counters {c}")
+            if not r["clean"]:
+                raise AssertionError(f"{mode}: pages missing after serving")
+            # at depth 2 the first rows may close before the late ones
+            # arrive (their second group leaves at once): no grow needed
+            if c.get("admitted", 0) < 4 or (
+                    mode != "persist depth 2" and c.get("grown", 0) < 1):
+                raise AssertionError(f"{mode}: admissions {c}")
+            if k1 != 44 * c["image_prefills"]:
+                raise AssertionError(f"{mode}: K1 {k1} for "
+                                     f"{c['image_prefills']} image prefills")
+            want = (0, layers * steps) if mode == "in place" else \
+                (layers * steps, 0)
+            if steps == 0 or (k2, k3) != want:
+                raise AssertionError(f"{mode}: K2 / K3 launched {k2} / {k3} "
+                                     f"times for {steps} decode steps, "
+                                     f"expected {want}")
+            if mode.startswith("persist") and not (
+                    c.get("view_gathers") and c.get("view_syncs")
+                    and c.get("view_row_updates")):
+                raise AssertionError(f"{mode}: a view counter is 0: {c}")
+            if mode == "persist depth 2" and not c.get("pipelined_groups"):
+                raise AssertionError(f"{mode}: no pipelined group: {c}")
+            if c.get("view_dropped_stale"):
+                raise AssertionError(f"{mode}: a stale view was dropped")
+            # every greedy answer within the tie margin of the dense path
+            # (each distinct answer replayed once)
+            for n, u in enumerate(r["last"]):
+                p, img = jobs[n]
+                if u["text"] not in replayed.setdefault(n, set()):
+                    _check_replay("serve-view", f"{mode} request {n}",
+                                  engine, p, images[img], u["text"])
+                    replayed[n].add(u["text"])
+        res[mode] = {
+            "tok_s": [r["tok_s"] for r in runs[mode]],
+            "step_ms": [r["step_ms"] for r in runs[mode]],
+            "launches": [int(x) for x in runs[mode][1]["launches"]],
+            "counters": runs[mode][1]["counters"]}
+    differing = sum(len(v) > 1 for v in replayed.values())
+    log("serve-view", f"{len(names)} modes x 2 rounds in "
+                      f"{time.perf_counter() - t0:.1f} s; {differing} of 8 "
+                      f"requests answered differently by some mode (each "
+                      f"answer within the tie margin of the dense path)")
+
+    prof = _view_step_profile(engine, rng)
+    lo, hi = prof["lengths"]
+    for nb, err, ratio in prof["k2_check"]:
+        log("serve-view", f"K2 on a gathered view (B={nb}, "
+                          f"{cfg.decoder.num_heads}/{cfg.decoder.num_kv_heads}"
+                          f"/{cfg.decoder.head_dim} bf16, width "
+                          f"{prof['s_bucket']}, lengths {lo + 1}-{hi + 1}): "
+                          f"max_abs_err {err:.3e} against the plain version "
+                          f"(tol ratio {ratio:.3f} <= 1)")
+    for mode in names:
+        p = prof["modes"][mode]
+        log("serve-view", f"steady state, batch 8, lengths {lo}-{hi}, "
+                          f"view {prof['s_bucket']}, {mode}: a step "
+                          f"{p['step_ms'][0]:.3f} / {p['step_ms'][1]:.3f} ms "
+                          f"(two passes); {p['kernels']:.1f} device ops, "
+                          f"{p['device_ms']:.4f} ms of device time, K2 "
+                          f"{p['k2_launches']:.1f} launches {p['k2_ms']:.4f} "
+                          f"ms, K3 {p['k3_launches']:.1f} launches "
+                          f"{p['k3_ms']:.4f} ms a step (profiler, wrappers' "
+                          f"counts)")
+    for mode in ("persist view", "persist depth 2"):
+        p = prof["modes"][mode]
+        if (p["k2_launches"], p["k3_launches"]) != (layers, 0):
+            raise AssertionError(f"{mode} steady state: K2 / K3 "
+                                 f"{p['k2_launches']} / {p['k3_launches']} "
+                                 f"a step, expected {layers} / 0")
+
+    # the dense fallback: a pool smaller than either prompt serves the
+    # gathered batch on a dense cache of its own (K2), as the JAX scheduler
+    page = 64
+    need = -(-engine.prepare(engine.build_prompt(first[0][0]),
+                             images[0])["prompt_tokens"] // page)
+    sched = BatchScheduler(engine, max_batch=8, window_ms=200,
+                           page_size=page, pool_tokens=(need - 1) * page)
+    _zero_launches()
+    try:
+        clients = [Client(sched, engine, p, images[i], 16)
+                   for p, i in first[:2]]
+        last = [c.result(f"dense fallback request {n}")
+                for n, c in enumerate(clients)]
+        k1, k2, k3 = (int(x) for x in _launches())
+    finally:
+        sched.shutdown()
+    c = dict(sched.counters)
+    if c.get("dense_fallbacks") != 1 or c.get("prefills") != 1:
+        raise AssertionError(f"dense fallback: counters {c}")
+    if (k1, k2, k3) != (44, layers * c["decode_steps"], 0):
+        raise AssertionError(f"dense fallback: K1 / K2 / K3 {k1} / {k2} / "
+                             f"{k3} for {c['decode_steps']} steps")
+    if sched.pool.min_free != sched.pool.num_pages:
+        raise AssertionError("dense fallback: the pool was mapped")
+    # K2 at the fallback's shape: B = 2 over the dense batch cache (the
+    # batch's padded prompt + a chunk past the cap), halfway through
+    preps = [engine.prepare(engine.build_prompt(p), images[i])
+             for p, i in first[:2]]
+    s_max = (max(int(x["ids"].shape[1]) for x in preps)
+             + (16 // engine.chunk + 1) * engine.chunk)
+    dec = cfg.decoder
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    q, kc, vc = (torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16) for shape in (
+            (2, dec.num_heads, dec.head_dim),
+            (2, s_max, dec.num_kv_heads, dec.head_dim),
+            (2, s_max, dec.num_kv_heads, dec.head_dim)))
+    lens = torch.tensor([int(x["prompt_tokens"]) + 9 for x in preps],
+                        dtype=torch.int32, device="cuda")
+    fb_err, fb_ratio = compare(decode_attention(q, kc, vc, lens),
+                               decode_attention_reference(q, kc, vc, lens),
+                               K2_TOL[torch.bfloat16],
+                               "K2 at the dense fallback's shape")
+    log("serve-view", f"K2 at the dense fallback's shape (B=2, "
+                      f"{dec.num_heads}/{dec.num_kv_heads}/{dec.head_dim} "
+                      f"bf16, S_max {s_max}, lengths {lens.tolist()}): "
+                      f"max_abs_err {fb_err:.3e} against the plain version "
+                      f"(tol ratio {fb_ratio:.3f} <= 1)")
+    for n, (p, i) in enumerate(first[:2]):
+        _check_replay("serve-view", f"dense fallback request {n}", engine,
+                      p, images[i], last[n]["text"])
+    log("serve-view", f"dense fallback: a pool of {need - 1} pages under "
+                      f"{need}-page prompts served 2 requests in one dense "
+                      f"batch: K1 {k1}, K2 {k2} = {layers} x "
+                      f"{c['decode_steps']} steps, K3 0, pool unmapped; "
+                      f"phase {time.perf_counter() - t0:.1f} s on {card}")
+    return {"modes": res, "profile": prof["modes"],
+            "fallback_launches": [k1, k2, k3]}
 
 
 # one system prompt for every serve-1.5b request: 5 full 64-token pages
@@ -5265,6 +5620,10 @@ def main(argv) -> int:
                           main_res["answers"], gen)
         print(json.dumps({"tp": tp_res}, default=str), flush=True)
         return 0
+    if argv == ["--serve-view-only"]:  # phase serve-view alone, likewise
+        view_res = phase_serve_view(card, phase_main(card)["engine"])
+        print(json.dumps({"serve-view": view_res}, default=str), flush=True)
+        return 0
     k1_err, k1 = phase_k1(gen)
     k2_err, k2 = phase_k2(gen)
     k3_err, k3 = phase_k3(gen)
@@ -5272,6 +5631,10 @@ def main(argv) -> int:
     engine = main_res.pop("engine")
     main_prompts, main_answers = main_res["prompts"], dict(main_res["answers"])
     serve_res = phase_serve(card, engine)
+    view_res = phase_serve_view(card, engine)
+    view_launches = {f"serve-view {m}": r["launches"]
+                     for m, r in view_res["modes"].items()}
+    view_launches["serve-view dense fallback"] = view_res["fallback_launches"]
     serve15_res = phase_serve_15b(card)
     video_res = phase_video(card, engine)
     spec_res = phase_spec(card, engine)
@@ -5315,6 +5678,7 @@ def main(argv) -> int:
          "launches": main_res["k1_launches"],
          "launches_by_path": {"main": main_res["k1_launches"],
                               "serve": serve_res["k1_launches"],
+                              **{p: n[0] for p, n in view_launches.items()},
                               "serve-1.5b": serve15_res["k1_launches"],
                               "video": video_res["k1_launches"],
                               "spec": spec_res["k1_launches"],
@@ -5358,6 +5722,7 @@ def main(argv) -> int:
          "replaces": "fastvlm_tpu/ops/pallas/decode_attention.py:167",
          "launches": main_res["k2_launches"],
          "launches_by_path": {"main": main_res["k2_launches"],
+                              **{p: n[1] for p, n in view_launches.items()},
                               "video": video_res["k2_launches"],
                               "checkpoint": ckpt_res["k2_launches"],
                               "beam": beam_res["k2_launches"],
@@ -5398,6 +5763,7 @@ def main(argv) -> int:
          "replaces": "fastvlm_tpu/ops/pallas/decode_attention.py:215",
          "launches": serve_res["k3_launches"],
          "launches_by_path": {"serve": serve_res["k3_launches"],
+                              **{p: n[2] for p, n in view_launches.items()},
                               "serve-1.5b": serve15_res["k3_launches"],
                               "spec-serve": spec_res["serve_k3"],
                               "serve-fairness": anyres_res["fair"][2],

@@ -59,6 +59,11 @@ from fastvlm_tpu_torch.ops.splice import (
     expand_image_ids, expand_image_ids_multi, pad_batch)
 
 
+# device calls whose results hold new KV planes: the caches' constructors
+# and a gathered view of the pool (each rank's own kv heads)
+_LOCAL_CALLS = frozenset({"init_cache", "init_paged_cache", "gather_view"})
+
+
 def _sync(device: torch.device) -> None:
     """Wait for the device's queued work (a no-op on the CPU)."""
     if device.type == "cuda":
@@ -162,10 +167,16 @@ class Engine:
             return lambda *a, **kw: getattr(module, name)(
                 self.params, self.cfg, *a, group=self.group, **kw)
 
+        def plain(module, name):
+            return lambda *a, **kw: getattr(module, name)(*a, **kw)
+
         calls = {name: on_params(vlm, name) for name in (
             "prefill", "prefill_continue", "decode_step", "decode_chunk",
-            "spec_stream_chunk", "spec_decode", "spec_decode_from_tok")}
+            "spec_stream_chunk", "spec_decode", "spec_decode_from_tok",
+            "decode_chunk_paged")}
         calls["beam_search"] = on_params(beam, "beam_search")
+        for name in ("gather_view", "sync_pool_from_view", "update_view_row"):
+            calls[name] = plain(vlm, name)  # the pool's views: no params
         calls["init_cache"] = self._init_cache
         calls["init_paged_cache"] = self._init_paged_cache
         return calls
@@ -174,10 +185,12 @@ class Engine:
         """Make the device call ``name`` (``_device_calls``) on this
         engine's params, e.g. ``call("prefill", images, ids, lens, starts,
         cache)`` for ``vlm.prefill(params, cfg, ...)``. On a mesh, rank 0
-        sends it to the other ranks first."""
+        sends it to the other ranks first; the results of the calls that
+        make new KV planes (``_LOCAL_CALLS``) are rank-local there, and
+        cross by handle afterwards."""
         if self.lockstep is not None:
             return self.lockstep.call(name, args, kw,
-                                      local=name.startswith("init_"))
+                                      local=name in _LOCAL_CALLS)
         return self._calls[name](*args, **kw)
 
     def new_cache(self, batch: int, max_len: int, dtype=None):

@@ -17,6 +17,9 @@ Attention routes, over a dense ``KVCache`` or a paged ``PagedKVCache``:
     the dense cache, or kernel K3 (``ops/cuda/paged_decode_attention.py``)
     on the pool in place, when the decoder has no ALiBi bias and no sliding
     window, as the JAX package's Pallas routes do;
+  * a paged decode step of ``vlm.decode_chunk_pool`` (``pool_inplace``)
+    attends the whole pool under an ownership mask (``_attend_pool``, plain
+    torch, as JAX computes it in XLA);
   * otherwise ``_attend`` over the whole cache with ``decode_mask``, or
     with ``ops/speculative.spec_mask`` for a speculative verify pass (T =
     k + 1 tokens written at each row's own offset; the kernels take T = 1
@@ -54,8 +57,8 @@ from fastvlm_tpu_torch.ops.cuda.decode_attention import decode_attention
 from fastvlm_tpu_torch.ops.cuda.paged_decode_attention import (
     paged_decode_attention)
 from fastvlm_tpu_torch.ops.kv_cache import (
-    KVCache, PagedKVCache, dequantize_view, gather_pages, prompt_dest,
-    token_dest, write_paged, write_prompt, write_token)
+    KVCache, PagedKVCache, dequantize_view, gather_pages, pool_ownership,
+    prompt_dest, token_dest, write_paged, write_prompt, write_token)
 from fastvlm_tpu_torch.ops.quant import card_layout, quantized_matmul
 from fastvlm_tpu_torch.parallel import collectives as coll
 from fastvlm_tpu_torch.parallel.sharding import kv_heads
@@ -294,6 +297,38 @@ def _attend(q, k, v, mask, bias=None):
     return out.to(v.dtype).reshape(b, t, hq * d)
 
 
+def _attend_pool(q, k_pool, v_pool, owner, base, lengths, window=None):
+    """Decode attention over the whole page pool in place, JAX's
+    ``_attend_pool``: every row's query scores every pool token in one
+    product, and token (p, slot) counts for row b where ``owner[p] == b``
+    and ``base[p] + slot <= lengths[b]``. A row with no valid token (its
+    pages freed) gets zeros, not NaN. q: (B, 1, Hq, D); k/v_pool: (P, page,
+    Hkv, D); owner / base: (P,) (``ops/kv_cache.pool_ownership``); lengths:
+    (B,) before this step's write."""
+    b, t, hq, d = q.shape
+    p, page, hkv, _ = k_pool.shape
+    kf = k_pool.reshape(p * page, hkv, d).to(q.dtype)
+    vf = v_pool.reshape(p * page, hkv, d)
+    qq = q.reshape(b, t, hkv, hq // hkv, d)
+    scores = torch.einsum("bthgd,shd->bhgts", qq.float(),
+                          kf.float()) * (d ** -0.5)
+    slot = torch.arange(page, dtype=torch.int32, device=q.device)
+    pos = (base[:, None] + slot[None, :]).reshape(-1)
+    own = owner.repeat_interleave(page)
+    rows = torch.arange(b, dtype=torch.int32, device=q.device)[:, None]
+    valid = (own[None, :] == rows) & (pos[None, :] <= lengths[:, None])
+    if window is not None:
+        valid = valid & (lengths[:, None] - pos[None, :] < window)
+    scores = torch.where(valid[:, None, None, None, :], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    probs = torch.where(valid.any(-1)[:, None, None, None, None], probs,
+                        torch.zeros_like(probs)).to(vf.dtype)
+    out = torch.einsum("bhgts,shd->bthgd", probs.float(),
+                       vf.float()).to(q.dtype)
+    return out.reshape(b, t, hq * d)
+
+
 def _attend_quant(q, k8, ks, v8, vs, mask):
     """Attention over an int8 dense cache without a dequantized copy: the
     per-token scales come out of the products, scores[s] = (q . k8[s]) *
@@ -352,7 +387,7 @@ def _take_heads(x, heads):
 def _layer(x, lp, cfg: Qwen2Config, cos, sin, cache_k, cache_v, mask,
            lengths, prefill, bias=None, prefill_offset=0, block_tables=None,
            dest=None, kv_lens=None, cache_ks=None, cache_vs=None, group=None,
-           seq=False):
+           seq=False, pool_owner=None, pool_base=None):
     """One decoder layer. cache_k/v: (B, S_max, Hkv, D) views of the dense
     cache, (P + 1, page, Hkv, D) pool slices when ``block_tables`` is given
     (the paged serving layout; ``dest`` holds the flat pool rows of this
@@ -368,7 +403,9 @@ def _layer(x, lp, cfg: Qwen2Config, cos, sin, cache_k, cache_v, mask,
     g; where the k / v projections stay whole, the rank keeps the kv heads
     its q heads read (``sharding.kv_heads``), and the caches hold those
     heads only. ``seq``: sequence parallelism, where ``x`` holds this
-    rank's T/tp tokens."""
+    rank's T/tp tokens. ``pool_owner`` / ``pool_base``: a paged decode
+    step attends the pool's first len(pool_owner) pages in place under
+    their ownership mask (``_attend_pool``)."""
     attn_tp = mlp_tp = whole_kv = False
     ln1, ln2 = lp["ln1"], lp["ln2"]
     if group is not None:
@@ -441,6 +478,11 @@ def _layer(x, lp, cfg: Qwen2Config, cos, sin, cache_k, cache_v, mask,
             out = decode_attention(q[:, 0].contiguous(), cache_k.to(q.dtype),
                                    cache_v.to(q.dtype), kv_lens)
             attn = out.reshape(b, 1, -1)
+    elif pool_owner is not None:  # paged decode step over the whole pool
+        write_paged(cache_k, cache_v, k, v, dest)
+        n = pool_owner.shape[0]
+        attn = _attend_pool(q, cache_k[:n], cache_v[:n], pool_owner,
+                            pool_base, lengths, cfg.attn_window)
     else:  # paged decode step
         write_paged(cache_k, cache_v, k, v, dest)
         if use_kernel:
@@ -525,6 +567,8 @@ def forward(
     group=None,
     seq: bool = False,
     gather=None,
+    pool_inplace: bool = False,
+    pool_bucket: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[Union[KVCache, PagedKVCache]]]:
     """Run the decoder stack over embeddings; returns (hidden, cache).
 
@@ -542,7 +586,11 @@ def forward(
     between blocks (T must divide), all-gathered before attention and the
     MLP and reduce-scattered after; the final hidden states come back
     whole on every rank. ``gather(i, lp)`` materializes layer i's FSDP
-    leaves inside the (rematerialized) layer."""
+    leaves inside the (rematerialized) layer.
+
+    ``pool_inplace`` (a paged decode step; ``vlm.decode_chunk_pool``):
+    attend the whole pool under an ownership mask (``_attend_pool``), or
+    its first ``pool_bucket`` pages, instead of kernel K3."""
     x = inputs_embeds
     b, t, _ = x.shape
     if mask is None:
@@ -560,7 +608,7 @@ def forward(
     # them and sets the lengths itself (vlm._spec_verify_pass)
     new_lengths = None if cache is None else lengths + (t if prefill else 1)
     paged = isinstance(cache, PagedKVCache)
-    tables = dest = None
+    tables = dest = owner = basep = None
     if paged:
         # the writes' pool rows are the same in every layer
         tables = cache.block_tables
@@ -568,6 +616,16 @@ def forward(
                             cache.num_pages) if prefill else
                 token_dest(tables, lengths, cache.page_size, cache.num_pages,
                            t))
+        if pool_inplace and not prefill:
+            owner, basep = pool_ownership(tables, cache.num_pages,
+                                          cache.page_size)
+            if pool_bucket is not None:
+                owner, basep = owner[:pool_bucket], basep[:pool_bucket]
+    elif cache is not None and cache.pool_view and not prefill:
+        # a decode write past S_max lands at S_max - t, as JAX's
+        # dynamic_update_slice clamps it: a pool view's finished rows run
+        # on past its width (positions and masks keep the true lengths)
+        lengths = lengths.clamp(max=cache.max_len - t)
     quant_kv = not paged and cache is not None and cache.k_scale is not None
     for i, lp in enumerate(params["layers"]):
         ck = cv = cks = cvs = None
@@ -588,7 +646,7 @@ def forward(
             continue
         x = _layer(x, lp, cfg, cos, sin, ck, cv, mask, lengths, prefill, bias,
                    prefill_offset, tables, dest, new_lengths, cks, cvs,
-                   group=group)
+                   group=group, pool_owner=owner, pool_base=basep)
     new_cache = None
     if cache is not None:
         new_cache = dataclasses.replace(cache, lengths=new_lengths)

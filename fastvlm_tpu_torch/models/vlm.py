@@ -17,6 +17,14 @@ prefix-cache hits, chunked admissions), ``decode_step`` and
 ``decode_chunk`` take the dense ``KVCache`` or the paged ``PagedKVCache``
 of the serving scheduler (serve/batcher.py) alike.
 
+The JAX scheduler's dense views of the pool: ``decode_chunk_paged`` (the
+chunk view: gather once a chunk, k dense steps, write back),
+``gather_view`` / ``decode_chunk`` on the view / ``sync_pool_from_view`` /
+``update_view_row`` (the persistent view, synced at boundaries) and
+``decode_chunk_view`` (a view step with its write-back). The dense steps
+run ``decode_chunk`` on a ``KVCache``, so on the card kernel K2 runs on the
+view. ``decode_chunk_pool`` attends the whole pool under an ownership mask.
+
 AnyRes: ``encode_tile_grids`` runs the tower and the projector once over a
 [global view + tiles] stack, ``merge_tile_grids`` merges the grids per
 ``mm_patch_merge_type`` (``ops/anyres.py``); the merged tokens reach
@@ -52,7 +60,9 @@ import torch
 
 from fastvlm_tpu_torch.config import FastVLMConfig, resolve_dtype
 from fastvlm_tpu_torch.models import clip_vit, fastvit, projector, qwen2
-from fastvlm_tpu_torch.ops.kv_cache import KVCache, PagedKVCache, init_cache
+from fastvlm_tpu_torch.ops.kv_cache import (
+    KVCache, PagedKVCache, gather_pool_view, init_cache, table_columns,
+    write_tokens_paged_rows)
 from fastvlm_tpu_torch.ops.sampling import (
     RowSampling, SamplingParams, sample, sample_rows)
 from fastvlm_tpu_torch.ops.speculative import (
@@ -318,6 +328,152 @@ def decode_chunk(
     tok = last_tok
     for _ in range(k):
         logits, cache = decode_step(params, cfg, tok, cache, group)
+        if row_sampling is not None:
+            new = sample_rows(generator, logits, row_sampling)
+        else:
+            new = sample(generator, logits, sampling)
+        new = torch.where(done, torch.zeros_like(new), new)
+        done = done | torch.isin(new, eos)
+        toks.append(new)
+        tok = new
+    return torch.stack(toks, dim=1), done, tok, cache
+
+
+# ---------------------------------------------------------------------------
+# dense views of the page pool (the JAX scheduler's chunk view and
+# persistent view)
+# ---------------------------------------------------------------------------
+
+
+def _write_back(pool: PagedKVCache, view: KVCache, starts: torch.Tensor,
+                w: int, at: Optional[torch.Tensor] = None) -> None:
+    """Copy each row's view columns [starts[b], starts[b] + w) to its pool
+    positions [at[b], at[b] + w) (``at`` defaults to ``starts``), every
+    layer in one copy a plane; unmapped positions land in the sink."""
+    dev = starts.device
+    idx = (starts.long()[:, None]
+           + torch.arange(w, device=dev)[None, :])          # (B, w)
+    rows = torch.arange(idx.shape[0], device=dev)[:, None]
+    ext_k, ext_v = view.k[:, rows, idx], view.v[:, rows, idx]
+    write_tokens_paged_rows(pool.k_pages, pool.v_pages, ext_k, ext_v,
+                            pool.block_tables, starts if at is None else at)
+
+
+def gather_view(cache: PagedKVCache, s_bucket: int) -> KVCache:
+    """The dense working view of the pool as a ``KVCache`` of width
+    ``s_bucket``: the persistent view's (re)gather, made when its rows'
+    identity or its width changes, not each chunk. Its planes are new
+    tensors (on a tensor-parallel engine, rank-local: ``Engine.call``
+    registers them)."""
+    k, v = gather_pool_view(cache, s_bucket)
+    return KVCache(k=k, v=v, lengths=cache.lengths.clone(),
+                   pool_view=True)
+
+
+def sync_pool_from_view(view: KVCache, pool: PagedKVCache,
+                        synced_lens: torch.Tensor, w: int) -> PagedKVCache:
+    """Write the view's columns [start[b], start[b] + w) back to the pool,
+    in place, with ``start = clip(synced_lens, 0, view width - w)``: the
+    persistent view's deferred sync, made before anything reads the pool.
+    A window wider than the new columns is safe: the start clamp rewrites
+    earlier columns with their own values, positions past a row's mapped
+    pages land in the sink, and mapped future positions are written again
+    before any length unmasks them. Returns the pool with the view's
+    lengths."""
+    start = synced_lens.clamp(0, view.max_len - w)
+    _write_back(pool, view, start, w)
+    return dataclasses.replace(pool, lengths=view.lengths)
+
+
+def update_view_row(view: KVCache, pool: PagedKVCache,
+                    row: int) -> KVCache:
+    """Refresh one row of a persistent view from the pool, in place: a slot
+    rebound to a new request (an admission) makes that row stale, while
+    every other row's columns stay ahead of the pool. Copies the row's
+    pages over the view's width and its pool length."""
+    npages = view.max_len // pool.page_size
+    tbl = table_columns(pool.block_tables[row:row + 1], npages)
+    idx = tbl.clamp(min=0).reshape(-1).long()
+    for dst, pages in ((view.k, pool.k_pages), (view.v, pool.v_pages)):
+        dst[:, row] = pages.index_select(1, idx).reshape(dst[:, row].shape)
+    lengths = view.lengths.clone()
+    lengths[row] = pool.lengths[row]
+    return dataclasses.replace(view, lengths=lengths)
+
+
+def decode_chunk_view(params: Params, cfg: FastVLMConfig,
+                      last_tok: torch.Tensor, done: torch.Tensor,
+                      view: KVCache, pool: PagedKVCache,
+                      generator: Optional[torch.Generator], *, k: int = 8,
+                      eos_ids: Tuple[int, ...] = (151645,),
+                      sampling: SamplingParams = SamplingParams(),
+                      row_sampling: Optional[RowSampling] = None,
+                      group=None):
+    """k decode steps on a persistent dense view (kernel K2 on the card),
+    then the k new columns of each row written back to the pool. Returns
+    (tokens (B, k), done, last_tok, view, pool)."""
+    start = view.lengths
+    toks, done, tok, view = decode_chunk(
+        params, cfg, last_tok, done, view, generator, k=k, eos_ids=eos_ids,
+        sampling=sampling, row_sampling=row_sampling, group=group)
+    _write_back(pool, view, start.clamp(0, view.max_len - k), k, at=start)
+    return (toks, done, tok, view,
+            dataclasses.replace(pool, lengths=view.lengths))
+
+
+def decode_chunk_paged(params: Params, cfg: FastVLMConfig,
+                       last_tok: torch.Tensor, done: torch.Tensor,
+                       cache: PagedKVCache,
+                       generator: Optional[torch.Generator], *, k: int = 8,
+                       s_bucket: int = 512,
+                       eos_ids: Tuple[int, ...] = (151645,),
+                       sampling: SamplingParams = SamplingParams(),
+                       row_sampling: Optional[RowSampling] = None,
+                       group=None):
+    """The chunk view: gather the pool's first ``s_bucket`` positions of
+    each row once (``s_bucket`` >= the longest live row + k, a multiple of
+    the page size), run the chunk's k steps on that dense view (kernel K2
+    on the card), and write each row's k new columns back to its pages.
+    Returns (tokens (B, k), done, last_tok, cache)."""
+    start = cache.lengths
+    view_k, view_v = gather_pool_view(cache, s_bucket)
+    dense = KVCache(k=view_k, v=view_v, lengths=start, pool_view=True)
+    toks, done, tok, dense = decode_chunk(
+        params, cfg, last_tok, done, dense, generator, k=k, eos_ids=eos_ids,
+        sampling=sampling, row_sampling=row_sampling, group=group)
+    _write_back(cache, dense, start.clamp(0, s_bucket - k), k, at=start)
+    return toks, done, tok, dataclasses.replace(cache, lengths=dense.lengths)
+
+
+def decode_chunk_pool(params: Params, cfg: FastVLMConfig,
+                      last_tok: torch.Tensor, done: torch.Tensor,
+                      cache: PagedKVCache,
+                      generator: Optional[torch.Generator], *, k: int = 8,
+                      eos_ids: Tuple[int, ...] = (151645,),
+                      sampling: SamplingParams = SamplingParams(),
+                      row_sampling: Optional[RowSampling] = None,
+                      p_bucket: Optional[int] = None, group=None):
+    """k decode steps that attend the whole pool in place under an
+    ownership mask (``qwen2._attend_pool``; plain torch, as JAX computes it
+    in XLA), or its first ``p_bucket`` pages when every mapped page lies
+    below that. No gather, no view, no write-back. Returns (tokens (B, k),
+    done, last_tok, cache)."""
+    eos = torch.tensor(eos_ids, dtype=torch.int32, device=last_tok.device)
+    cd = resolve_dtype(cfg.decoder.compute_dtype)
+    toks = []
+    tok = last_tok
+    for _ in range(k):
+        embeds = qwen2.embed(params["decoder"], tok[:, None], cfg.decoder,
+                             group).to(cd)
+        hidden, cache = qwen2.forward(
+            params["decoder"], cfg.decoder, embeds, cache.lengths[:, None],
+            cache=cache, mask=torch.ones((tok.shape[0], 1, 1),
+                                         dtype=torch.bool,
+                                         device=tok.device),
+            prefill=False, group=group, pool_inplace=True,
+            pool_bucket=p_bucket)
+        logits = qwen2.logits_from_hidden(params["decoder"], hidden,
+                                          cfg.decoder, group)[:, 0]
         if row_sampling is not None:
             new = sample_rows(generator, logits, row_sampling)
         else:

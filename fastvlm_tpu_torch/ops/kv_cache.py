@@ -30,6 +30,13 @@ a boolean mask syncs the host. So the port's pool carries one extra page
 past the P that ``serve/batcher.PagePool`` hands out, the *sink*: dropped
 writes land there, and no block table ever maps it. ``k_pages`` is
 ``(L, P + 1, page, H_kv, D)``; ``PagedKVCache.num_pages`` is P.
+
+Dense views of the pool (the JAX scheduler's chunk view and persistent
+view): ``gather_pool_view`` copies each row's first ``s_bucket`` positions
+into a dense (L, B, s_bucket, H_kv, D) pair, and ``write_tokens_paged_rows``
+scatters each row's window back to its pages, through the sink where a
+position is unmapped. ``pool_ownership`` inverts the tables for the
+whole-pool decode (``vlm.decode_chunk_pool``).
 """
 
 from __future__ import annotations
@@ -48,6 +55,11 @@ class KVCache:
     # int8 layout only: per-token-per-head scales, (L, B, S_max, H_kv) f32
     k_scale: Optional[torch.Tensor] = None
     v_scale: Optional[torch.Tensor] = None
+    # a dense view of the page pool (``models/vlm.gather_view``): its
+    # finished rows run on past its width, and a decode write past S_max
+    # lands at S_max - T, as JAX's ``dynamic_update_slice`` clamps it; on
+    # any other cache such a write raises
+    pool_view: bool = False
 
     @property
     def max_len(self) -> int:
@@ -113,8 +125,9 @@ def write_token(layer_k, layer_v, new_k, new_v, lengths, layer_ks=None,
     verify pass); an int8 cache quantizes them and writes their scales at
     the same indices. Indices stay on the device (no host sync). JAX's
     ``dynamic_update_slice`` clamps a window that runs past S_max to end at
-    S_max; here it raises, so callers size the cache to hold every write
-    (``vlm.spec_cache_len``)."""
+    S_max; here an index past S_max raises, and ``qwen2.forward`` clamps
+    ``lengths`` the same way before it calls this on a pool view only
+    (``KVCache.pool_view``: its finished rows run on past its width)."""
     t = new_k.shape[1]
     rows = torch.arange(layer_k.shape[0], device=layer_k.device)[:, None]
     idx = lengths.long()[:, None] + torch.arange(t, device=layer_k.device)
@@ -241,6 +254,46 @@ def write_token_paged(layer_k, layer_v, new_k, new_v, block_tables, lengths):
     return write_paged(layer_k, layer_v, new_k, new_v, dest)
 
 
+def write_tokens_paged_rows(layer_k, layer_v, new_k, new_v, block_tables,
+                            row_offsets):
+    """Scatter, in place, row b's (T, H, D) window to virtual positions
+    [row_offsets[b], row_offsets[b] + T): the views' write-back to the pool
+    (``models/vlm.py``). layer_k/v: (P + 1, page, H, D) pool slices of one
+    layer with new_k/v (B, T, H, D), as in JAX; or the whole pool (L, P + 1,
+    page, H, D) with (L, B, T, H, D), every layer in one copy. A position
+    past the row's mapped pages lands in the sink, never on page 0 or on
+    another row's page."""
+    *lead, page, h, d = layer_k.shape
+    dest = token_dest(block_tables, row_offsets, page, lead[-1] - 1,
+                      new_k.shape[-3])
+    for pages, new in ((layer_k, new_k), (layer_v, new_v)):
+        flat = pages.view(*lead[:-1], -1, h, d)
+        flat.index_copy_(len(lead) - 1, dest, new.to(pages.dtype).reshape(
+            *lead[:-1], -1, h, d))
+    return layer_k, layer_v
+
+
+def pool_ownership(block_tables, num_pages, page_size):
+    """Invert the block tables: (owner (P,) int32, the row that maps each
+    pool page or -1; base (P,) int32, the virtual position of the page's
+    slot 0 in its owner's sequence): the whole state the in-place pool
+    attention (``models/qwen2._attend_pool``) needs, as in JAX. A page that
+    two rows map belongs to one of them."""
+    b, n = block_tables.shape
+    dev = block_tables.device
+    pages = block_tables.reshape(-1).long()
+    rows = torch.arange(b, dtype=torch.int32, device=dev).repeat_interleave(n)
+    base = (torch.arange(n, dtype=torch.int32, device=dev)
+            * page_size).repeat(b)
+    # unmapped entries go to one slot past the pool, dropped after
+    idx = torch.where(pages < 0, torch.full_like(pages, num_pages), pages)
+    owner = torch.full((num_pages + 1,), -1, dtype=torch.int32, device=dev)
+    basep = torch.zeros((num_pages + 1,), dtype=torch.int32, device=dev)
+    owner[idx] = rows
+    basep[idx] = base
+    return owner[:num_pages], basep[:num_pages]
+
+
 def gather_pages(layer_pages, block_tables):
     """Dense (B, pages_per_seq * page, H, D) copy of one layer's pool in
     each row's virtual order: the plain attention path's keys (kernel K3
@@ -250,3 +303,30 @@ def gather_pages(layer_pages, block_tables):
     _, page, h, d = layer_pages.shape
     idx = block_tables.clamp(min=0).reshape(-1).long()
     return layer_pages.index_select(0, idx).reshape(b, n * page, h, d)
+
+
+def table_columns(block_tables, n):
+    """The first ``n`` columns of the tables, -1 past their width (the
+    scheduler cuts its device tables to the page watermark; JAX's span the
+    pool, unmapped past it)."""
+    b, w = block_tables.shape
+    if w >= n:
+        return block_tables[:, :n]
+    pad = torch.full((b, n - w), -1, dtype=block_tables.dtype,
+                     device=block_tables.device)
+    return torch.cat([block_tables, pad], dim=1)
+
+
+def gather_pool_view(cache: PagedKVCache, s_bucket: int):
+    """Dense (L, B, s_bucket, H, D) k / v copies of each row's first
+    ``s_bucket`` virtual positions: the working set of the chunk view and
+    the persistent view (``models/vlm.py``). ``s_bucket`` is a multiple of
+    the page size. An unmapped page reads page 0, as JAX's ``gather_pages``
+    clamps -1; callers mask by length."""
+    page = cache.page_size
+    tables = table_columns(cache.block_tables, s_bucket // page)
+    idx = tables.clamp(min=0).reshape(-1).long()
+    b = tables.shape[0]
+    n_layers, _, _, h, d = cache.k_pages.shape
+    return tuple(p.index_select(1, idx).reshape(n_layers, b, s_bucket, h, d)
+                 for p in (cache.k_pages, cache.v_pages))

@@ -17,7 +17,8 @@ constructors. A follower that receives a name outside it raises.
 What crosses, and how:
   * a tensor held by one rank only: a KV cache's planes, whose kv heads
     differ from rank to rank. A call made with ``local=True`` (a cache
-    constructor) registers every tensor of its result under a number; each
+    constructor, or a dense view gathered from the pool) registers every
+    tensor of its result under a number; each
     rank keeps its own tensor under that number, and a later message names
     the number. Once rank 0's tensor is freed, the next message tells the
     followers to drop theirs. A view of such a tensor cannot cross

@@ -43,15 +43,34 @@ scheduler), off below.
     it is rebuilt from the host's prompts and texts when spec is next
     wanted.
 
-Decode: every chunk is one ``vlm.decode_chunk`` over the ``PagedKVCache``,
-whose T=1 steps run kernel K3 (``ops/cuda/paged_decode_attention.py``) on
-the pool in place: one launch a layer a step. This is how the JAX
-scheduler serves with ``paged=True, chunk_view=False, persist_view=False``
-and ``attn_backend="pallas"``. Its dense working views (chunk view,
-persistent view, with ``flush_view`` and the stale-row set) exist because
-XLA cannot fuse the page gather into attention; a hand-written paged
-kernel reads the pages where they lie, and a suffix prefill reads the pool
-in place too.
+Decode of a pool batch, in one of the JAX scheduler's modes:
+
+  * in place (the port's default; JAX's ``chunk_view=False,
+    persist_view=False``): every chunk is one ``vlm.decode_chunk`` over the
+    ``PagedKVCache``, whose T=1 steps run kernel K3
+    (``ops/cuda/paged_decode_attention.py``) on the pool: one launch a
+    layer a step;
+  * ``chunk_view=True``: ``vlm.decode_chunk_paged`` gathers each row's
+    first s_bucket positions (the longest row + k, in 512-token buckets)
+    into a dense view, runs the chunk's steps on it (kernel K2) and writes
+    each row's k new columns back;
+  * ``persist_view=True``: a dense view (``vlm.gather_view``) is carried
+    across chunks and decoded on (K2); the pool catches up only at a
+    boundary that reads it (``flush_view``: ``vlm.sync_pool_from_view``
+    before an admission, a chunked admission's activation, a resize, a
+    spec chunk, a regather), an admitted row is spliced in alone
+    (``vlm.update_view_row``), and the view is regathered when it is too
+    narrow or its batch changed. ``pipeline_depth`` > 1 dispatches that
+    many chunks back to back, the host read once, while no request waits,
+    no spec chunk or prefill is live and no row is within a chunk of its
+    cap. Counters "view_gathers", "view_row_updates", "view_syncs",
+    "pipelined_groups", "view_dropped_stale"; tuner shape keys ("persist",
+    b, view width, k) and ("plain", b, s_bucket, k), ("plain", b, k) in
+    place.
+
+The JAX scheduler defaults to the persistent view, pipelined 2 deep: its
+views exist because XLA cannot fuse the page gather into attention. The
+port reads the pages where they lie (K3), and keeps that as its default.
 
   * requests that cannot join a batch (an anyres PIL image or several
     images: their token counts are ragged) are served one at a time
@@ -68,21 +87,16 @@ in place too.
     gathered batch runs to its end with no admission; later requests wait
     for the next gather.
 
-The dense per-batch path (``paged=False``, and any engine whose KV cache
-is int8: the pool has no int8 layout, as in JAX): a gathered batch prefills
-into a dense cache of its own (``engine.new_cache``, in the engine's
-``_kv_dtype``) and decodes k-token chunks to its end, as the JAX scheduler
-does with ``tables is None``: no admission, shrink, prefix cache, chunked
-admission or speculative chunks; ``warmup()`` does nothing there.
-
-Held back (constructor knobs; setting one on raises NotImplementedError):
-``chunk_view`` / ``persist_view`` / ``pipeline_depth``. ``warmup()`` runs
-one dummy dispatch of each kind (its docstring), where the JAX one
-compiles every (batch, view width) program.
-Left out: the JAX scheduler's fallback to a dense batch when the pool
-cannot hold a gathered batch's prompts. Here the requests that do not fit
-wait for the next admission, and a prompt larger than the whole pool fails
-alone.
+The dense per-batch path (``paged=False``, any engine whose KV cache is
+int8: the pool has no int8 layout, as in JAX; and, as in JAX, a gathered
+batch whose prompts the pool cannot hold, with a warning and the counter
+"dense_fallbacks"): the batch prefills into a dense cache of its own
+(``engine.new_cache``, in the engine's ``_kv_dtype``) and decodes k-token
+chunks (kernel K2) to its end, as the JAX scheduler does with ``tables is
+None``: no admission, shrink, prefix cache, chunked admission or
+speculative chunks; ``warmup()`` does nothing with ``paged=False``.
+``warmup()`` runs one dummy dispatch of each kind (its docstring), where
+the JAX one compiles every (batch, view width) program.
 
 Where the port differs without changing an output:
   * the device sees the block tables cut to the page watermark (the widest
@@ -94,20 +108,22 @@ Where the port differs without changing an output:
     compile them all; eager torch compiles nothing);
   * a request whose ``prepare`` fails, or whose serial stream raises, is
     failed alone, where the JAX scheduler fails the gathered batch;
-  * speculative chunks verify on the pool in place: each pass writes its
-    k+1 keys at each row's own offset through the block tables and attends
-    the pages gathered into row order, with the rows' pages mapped through
-    ``cur_len + m*(k+1)`` first, so committed keys never fall in the sink
-    (rejected drafts past that bound may). The JAX ``spec_chunk_paged``
-    gathers a dense view (``s_bucket``) once a chunk and writes it back.
-    The tuner's shape keys drop that bucket; the spec state marks free
-    slots done, so a row the host closed commits nothing on the device;
+  * speculative chunks verify on the pool in place, in every mode (the
+    persistent view is synced and dropped first, as in JAX): each pass
+    writes its k+1 keys at each row's own offset through the block tables
+    and attends the pages gathered into row order, with the rows' pages
+    mapped through ``cur_len + m*(k+1)`` first, so committed keys never
+    fall in the sink (rejected drafts past that bound may). The JAX
+    ``spec_chunk_paged`` gathers a dense view (``s_bucket``) once a chunk
+    and writes it back, and runs only with ``chunk_view``. The tuner's
+    shape keys drop that bucket; the spec state marks free slots done, so
+    a row the host closed commits nothing on the device;
   * ``counters`` add "prefills" (prefill dispatches, each admission chunk
     one), "image_prefills" (those that encode images), "chunks" and
-    "decode_steps" (k a chunk; plain chunks only); ``trace`` "disp" events
-    carry (batch, live rows, k, ms from dispatch to the host read, rows
-    mid-prefill), "spec" events (batch, live rows, passes, ms, tokens
-    committed); update
+    "decode_steps" (k a chunk; plain chunks only), "dense_fallbacks";
+    ``trace`` "disp" events carry (batch, live rows, steps dispatched, ms
+    from dispatch to the host read, rows mid-prefill), "spec" events
+    (batch, live rows, passes, ms, tokens committed); update
     stats add "cached_tokens" (prefix tokens the request reused) and
     "prefill_chunks" (its admission chunks, 0 when single-shot).
 
@@ -118,8 +134,10 @@ tokens back once per chunk.
 Over a tensor-parallel engine (``Engine(mesh=)``) the scheduler runs on
 rank 0 alone: its pool, tables and page accounting are host state there,
 and every device call (the pool's and a dense batch's constructors, the
-prefills, decode and spec chunks, ``warmup``'s) goes through
-``engine.call``, which the other ranks follow with their own kv heads.
+prefills, decode and spec chunks, the views' gathers, syncs and row
+updates, ``warmup``'s) goes through ``engine.call``, which the other ranks
+follow with their own kv heads (a gathered view's planes are rank-local:
+they cross by handle).
 """
 
 from __future__ import annotations
@@ -185,6 +203,13 @@ def _round_batch(n: int, caps=(1, 2, 4, 8)) -> int:
         if n <= c:
             return c
     return caps[-1]
+
+
+def _round_bucket(n: int, page: int, step: int = 512) -> int:
+    """A view's width: ``n`` rounded up to the 512-token bucket step and to
+    whole pages (the JAX scheduler's view buckets)."""
+    b = -(-n // step) * step
+    return -(-b // page) * page
 
 
 def _prefill_chunk_bounds(lo: int, hi: int, w: int,
@@ -356,7 +381,7 @@ class BatchScheduler:
                  spec: bool = False, spec_draft_k: int = 8,
                  spec_ngram_n: int = 3, spec_max_rows: int = 1,
                  spec_min_accept: float = 0.1, continuous: bool = True,
-                 fairness_s: float = 2.0, chunk_view: bool = False,
+                 fairness_s: float = 2.0, chunk_view: Optional[bool] = None,
                  persist_view: bool = False, pipeline_depth: int = 1):
         """``prefix_cache`` / ``prefill_chunk``: None picks the JAX
         scheduler's scale-aware default, on (256-token chunks) from 1e9
@@ -370,13 +395,24 @@ class BatchScheduler:
         batch. ``fairness_s``: how long the oldest deferred request may wait
         before admission stops and the batch drains (module docstring).
         ``paged=False``, or an int8-KV engine: the dense per-batch path
-        (module docstring)."""
-        held = {"chunk_view": chunk_view, "persist_view": persist_view,
-                "pipeline_depth": pipeline_depth > 1}
-        for name, on in held.items():
-            if on:
-                raise NotImplementedError(
-                    f"BatchScheduler {name} is not yet ported, see ROADMAP.md")
+        (module docstring).
+
+        The decode of a pool batch, with JAX's meanings (module docstring):
+        ``chunk_view`` gathers a dense view of the pool each chunk;
+        ``persist_view`` keeps one across chunks and syncs the pool at
+        boundaries (JAX's persist_view needs chunk_view, its default;
+        here ``chunk_view=None`` follows ``persist_view``, and an explicit
+        ``chunk_view=False`` turns the persistent view off, as in JAX);
+        ``pipeline_depth``: under the persistent view, up to that many
+        chunks dispatched back to back, the host read once, while nothing
+        waits. The JAX scheduler defaults to chunk view, persistent view
+        and depth 2. The port defaults to neither view and depth 1: the
+        pool in place with kernel K3, the path its measurements stand on.
+        No workload measured on the H100 so far favours a view (chip_smoke's
+        phase serve-view: each mode's served rate within the runs' spread,
+        and more device time a step with a view). Switching the default,
+        and dropping the modes that lose, is a performance decision, to be
+        made on a benchmark cell."""
         if paged and getattr(engine, "_kv_dtype", None) == torch.int8:
             # the pool has no int8 layout: the dense int8 cache serves
             logger.info("kv_cache_dtype=int8: paged pool disabled (dense "
@@ -388,6 +424,12 @@ class BatchScheduler:
                              f"sizes kernel K3 takes")
         self.engine = engine
         self.paged = paged
+        if chunk_view is None:
+            chunk_view = persist_view
+        self.chunk_view = chunk_view
+        self.persist_view = persist_view and chunk_view
+        self.pipeline_depth = (max(1, pipeline_depth) if self.persist_view
+                               else 1)
         self.max_batch = max_batch
         self.window_s = window_ms / 1000.0
         self.continuous = continuous
@@ -445,11 +487,14 @@ class BatchScheduler:
         the serial path's step), cuBLAS's set-up and the allocator's growth.
         Call it before the first ``submit``.
 
-        * a decode chunk at each batch bucket {1, 2, 4, 8} up to
-          ``max_batch``, and a speculative chunk at each bucket up to
-          ``spec_max_rows`` when ``spec`` is on and ``sampling`` is greedy
-          (the JAX warmup's decode dispatches at one view bucket: the port
-          has no view buckets);
+        * at each batch bucket {1, 2, 4, 8} up to ``max_batch``: the decode
+          dispatch of the scheduler's mode, in place one chunk; with a view,
+          one at each of JAX's view buckets (512-token steps from the
+          prompt bucket + k to prompt + cap): the chunk view's
+          ``decode_chunk_paged``, or the persistent view's set (a gather, a
+          chunk on the view, a sync, a row update); and a speculative chunk
+          at each bucket up to ``spec_max_rows`` when ``spec`` is on and
+          ``sampling`` is greedy;
         * ``admission_prefill``: a 1-row text prefill at the prompt bucket
           into the pool, with ``images`` an image prefill too when the
           bucket holds the image's tokens, and one decode step of the
@@ -479,6 +524,13 @@ class BatchScheduler:
         hw = self._hist_width(pad_to + max_new_tokens + spec_slack)
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
+        # JAX's view buckets (in place: one dispatch a batch bucket)
+        page, cap = self.page_size, self.pool.num_pages * self.page_size
+        buckets = [0]
+        if self.chunk_view:
+            lo = _round_bucket(pad_to + k, page)
+            hi = _round_bucket(pad_to + max_new_tokens + spec_slack, page)
+            buckets = sorted({min(cap, x) for x in range(lo, hi + 512, 512)})
 
         def blank(nb, width):
             return PagedKVCache(
@@ -493,12 +545,36 @@ class BatchScheduler:
         n = 0
         with torch.inference_mode():
             for nb in (c for c in (1, 2, 4, 8) if c <= self.max_batch):
-                engine.call(
-                    "decode_chunk", zeros(nb), zeros(nb, dtype=torch.bool),
-                    blank(nb, pps), gen, k=k, eos_ids=engine.eos_ids,
-                    row_sampling=RowSampling.build([sampling] * nb, nb, dev))
-                self._warm_shapes.add(("plain", nb, k))
-                n += 1
+                rs = RowSampling.build([sampling] * nb, nb, dev)
+                tok, done = zeros(nb), zeros(nb, dtype=torch.bool)
+                for sb in buckets:
+                    if self.persist_view:
+                        vb = min(cap, _round_bucket(sb + k, page))
+                        if ("persist", nb, vb, k) in self._warm_shapes:
+                            continue  # two buckets capped at the pool
+                        view = engine.call("gather_view",
+                                           blank(nb, vb // page), vb)
+                        _, _, _, view = engine.call(
+                            "decode_chunk", tok, done, view, gen, k=k,
+                            eos_ids=engine.eos_ids, row_sampling=rs)
+                        cache = engine.call(
+                            "sync_pool_from_view", view,
+                            blank(nb, vb // page), zeros(nb),
+                            w=min(8 * k, vb))
+                        engine.call("update_view_row", view, cache, 0)
+                        self._warm_shapes.add(("persist", nb, vb, k))
+                    elif self.chunk_view:
+                        engine.call(
+                            "decode_chunk_paged", tok, done,
+                            blank(nb, sb // page), gen, k=k, s_bucket=sb,
+                            eos_ids=engine.eos_ids, row_sampling=rs)
+                        self._warm_shapes.add(("plain", nb, sb, k))
+                    else:
+                        engine.call(
+                            "decode_chunk", tok, done, blank(nb, pps), gen,
+                            k=k, eos_ids=engine.eos_ids, row_sampling=rs)
+                        self._warm_shapes.add(("plain", nb, k))
+                    n += 1
                 if spec_on and nb <= _round_batch(self.spec_max_rows):
                     carry = vlm.SpecCarry(
                         last_tok=zeros(nb), done=zeros(nb, dtype=torch.bool),
@@ -562,7 +638,7 @@ class BatchScheduler:
         dispatch. The first dispatch at a shape only marks it seen (its
         library set-up on the card). A plain chunk's ``committed`` is its
         k x rows capacity: spec must beat what plain could deliver."""
-        mode = shape_key[0]
+        mode = "spec" if shape_key[0] == "spec" else "plain"
         self.counters[f"disp_{mode}@{act_n}"] += 1
         self.counters[f"ms_{mode}@{act_n}"] += int(dt * 1000)
         if shape_key not in self._warm_shapes:
@@ -701,32 +777,23 @@ class BatchScheduler:
         return torch.from_numpy(np.ascontiguousarray(tables[:, :w])).to(
             self.engine.device)
 
-    def _map_prompts(self, ready):
-        """Map each prompt's pages, in arrival order. Returns (placed,
-        row_pages): the (request, prepared) pairs that got pages, and their
-        pages. From the first request the pool cannot hold now, the rest
-        wait for the next admission; a prompt larger than the whole pool
-        fails alone."""
-        placed, row_pages, waiting = [], [], []
-        for r, p in ready:
-            need = -(-int(p["prompt_tokens"]) // self.page_size)
-            if need > self.pool.num_pages:
-                r.out.put({"error": (
-                    f"prompt of {p['prompt_tokens']} tokens exceeds the page "
-                    f"pool ({self.pool.num_pages} pages of {self.page_size})")})
-                r.out.put(_SENTINEL)
-                continue
-            got = None if waiting else self._alloc_pages(need)
+    def _map_prompts(self, ready) -> Optional[List[List[int]]]:
+        """Map every prompt's pages, in arrival order: their pages, or None
+        when the pool cannot hold them all (whatever was mapped goes back),
+        and the batch then runs on a dense cache of its own, as in JAX."""
+        row_pages = []
+        for _, p in ready:
+            got = self._alloc_pages(-(-int(p["prompt_tokens"])
+                                      // self.page_size))
             if got is None:
-                waiting.append(r)
-                continue
-            placed.append((r, p))
+                for pgs in row_pages:
+                    self.pool.release(pgs)
+                logger.warning("page pool (%d pages) can't hold batch "
+                               "prompts; dense fallback", self.pool.num_pages)
+                self.counters["dense_fallbacks"] += 1
+                return None
             row_pages.append(got)
-        if waiting:
-            self._deferred[:0] = waiting
-            if self.trace is not None:
-                self.trace.append((time.perf_counter(), "defer", "pool"))
-        return placed, row_pages
+        return row_pages
 
     def _batch_cache(self, b, row_pages):
         """(cache, tables) of a new batch over the shared pool: row i maps
@@ -892,23 +959,25 @@ class BatchScheduler:
                 logger.exception("prepare failed")
                 r.out.put({"error": str(e)})
                 r.out.put(_SENTINEL)
-        if self.paged:
-            placed, row_pages = self._map_prompts(ready)
-        else:
-            placed, row_pages = ready, [[] for _ in ready]
         # in place: requests admitted later join this list, so the failure
         # envelopes of _loop reach them too
-        batch[:] = [r for r, _ in placed]
+        batch[:] = [r for r, _ in ready]
         if not batch:
             return
+        # a pool batch maps its prompts' pages; the dense path (paged=False,
+        # an int8-KV engine) and a batch whose prompts the pool cannot hold
+        # run on a dense cache of their own
+        row_pages = self._map_prompts(ready) if self.paged else None
+        pool_batch = row_pages is not None
         n_real = len(batch)
         b = _round_batch(n_real)
-        row_pages += [[] for _ in range(b - n_real)]
+        row_pages = (row_pages or [[] for _ in range(n_real)]) + [
+            [] for _ in range(b - n_real)]
         try:
-            pad_to = max(int(p["ids"].shape[1]) for _, p in placed)
+            pad_to = max(int(p["ids"].shape[1]) for _, p in ready)
             s = cfg.vision.image_size
             rows, starts_l, imgs = [], [], []
-            for _, p in placed:
+            for _, p in ready:
                 rows.append(p["ids"][0, :p["prompt_tokens"]].cpu().numpy())
                 starts_l.append(int(p["starts"][0]))
                 imgs.append(None if p["images"] is None else p["images"][0])
@@ -928,7 +997,7 @@ class BatchScheduler:
             k = engine.chunk
             batch_cached = 0
             tables = None
-            if self.paged:
+            if pool_batch:
                 cache, tables = self._batch_cache(b, row_pages)
                 batch_cached = self._reuse_batch_prefix(
                     rows, starts_l, n_real, row_pages, tables)
@@ -938,8 +1007,8 @@ class BatchScheduler:
                         block_tables=self._device_tables(tables, row_pages))
             else:
                 # the dense path: a row may decode one chunk past its cap
-                # before the host closes it, and a dense write past S_max
-                # raises (JAX clamps it)
+                # before the host closes it (JAX sizes the cache to the cap
+                # and clamps those writes)
                 max_new = max(r.max_new_tokens for r in batch)
                 cache = engine.new_cache(b, pad_to + (max_new // k + 1) * k)
         except BaseException:
@@ -954,7 +1023,7 @@ class BatchScheduler:
         # length and a chunk commits up to spec_width tokens, so the page
         # budgets and the admission guard carry that slack. Armed when the
         # gathered batch is all greedy; a sampled admission turns it off
-        spec_on = self.spec and self.paged and all(
+        spec_on = self.spec and pool_batch and all(
             r.sampling.temperature <= 0.0 for r in batch)
         spec_k = self.spec_draft_k
         spec_m = max(1, -(-k // (spec_k + 1)))
@@ -993,6 +1062,52 @@ class BatchScheduler:
         # decode writes of the row (a free slot's, done on the device) drop
         # into the sink
         pending: Dict[int, dict] = {}
+        # the persistent view (persist_view): a dense KVCache of the pool
+        # carried across chunks, ahead of the pool by pview_chunks chunks
+        # past pview_base (the rows' pool lengths when it was last synced;
+        # host-tracked). pview_stale: rows rebound by an admission since,
+        # refreshed one by one (update_view_row) at the next dispatch
+        pview = None
+        pview_chunks = 0
+        pview_base = None
+        pview_stale: set = set()
+
+        def flush_view(cache, keep=False):
+            """Sync the pool from the persistent view, before anything that
+            reads the pool's KV or a row's identity: an admission (its
+            prefill reads the pool; what it publishes to the prefix cache
+            lies there), a chunked admission's activation, a resize, a spec
+            chunk, a regather. One wide sync a step of w = min(8k, view
+            width) columns, ceil(total / w) of them. ``keep=False`` drops
+            the view (the rows' layout is about to change); ``keep=True``
+            keeps it, as every row whose slot is not rebound is still
+            current, and an admission then refreshes its own row only."""
+            nonlocal pview, pview_chunks, pview_base
+            if pview is None:
+                return cache
+            total = pview_chunks * k
+            # a stale row holds another request's columns: the view is
+            # synced before any admission rebinds a row, and a stale row is
+            # refreshed before the next dispatch adds chunks
+            assert not pview_stale or total == 0, (pview_stale, total)
+            w = min(8 * k, pview.max_len)
+            off = 0
+            while off < total:
+                cache = engine.call(
+                    "sync_pool_from_view", pview, cache,
+                    torch.from_numpy((pview_base + off).astype(np.int32))
+                    .to(dev), w=w)
+                self.counters["view_syncs"] += 1
+                off += w
+            if keep:
+                pview_base = pview_base + total
+                pview_chunks = 0
+            else:
+                pview = None
+                pview_chunks = 0
+                pview_base = None
+                pview_stale.clear()
+            return cache
 
         # per-row sampling knobs, rebuilt only when the slots' mix changes
         _rs_cache = {"sig": None, "rs": None}
@@ -1064,6 +1179,10 @@ class BatchScheduler:
             nonlocal b, tables, tables_dirty, slots, texts, finished, \
                 reasons, caps, emitted, ttfts, queue_ms, cur_len, row_pages, \
                 budget_tok, prompt_ids, spec_live
+            # the view is row-indexed against the current tables: sync it
+            # while the rows still match, and drop it (the next chunk
+            # regathers at the new batch)
+            cache = flush_view(cache)
             mapping = [i for i in range(b) if slots[i] is not None]
             # the spec state is row-indexed: rebuilt at the new b if wanted
             spec_live = False
@@ -1159,6 +1278,9 @@ class BatchScheduler:
                         self.trace.append((time.perf_counter(), "defer",
                                            "shape"))
                     continue
+                # the admission reads the pool: sync the view, and keep it
+                # (only the rebound row goes stale)
+                cache = flush_view(cache, keep=True)
                 if n_active() >= b:
                     new_b = _round_batch(n_active() + 1)
                     if b >= self.max_batch or new_b > self.max_batch:
@@ -1316,6 +1438,8 @@ class BatchScheduler:
                                        ttfts[i]))
                 ht[i] = t_new
                 hd[i] = finished[i] or slots[i] is None
+                if pview is not None and not hd[i]:
+                    pview_stale.add(i)
                 # the new row's history is not in the spec state
                 spec_live = False
             if ht is not None:
@@ -1367,11 +1491,14 @@ class BatchScheduler:
                                        * 1000))
                 if c1 < st["plen"]:
                     continue
-                # the last chunk: activate the row
+                # the last chunk: activate the row. Sync the live rows' view
+                # while the row's table is still -1 (its view columns drop),
+                # then expose its pages; the view stays, this row stale
                 plen = st["plen"]
                 if ht is None:
                     ht = tok.cpu().numpy().copy()
                     hd = done.cpu().numpy().copy()
+                cache = flush_view(cache, keep=True)
                 lengths = cache.lengths.cpu().numpy().copy()
                 lengths[i] = plen
                 tables[i, :] = -1
@@ -1395,6 +1522,8 @@ class BatchScheduler:
                                        plen, ttfts[i]))
                 ht[i] = t_new
                 hd[i] = finished[i] or slots[i] is None
+                if pview is not None and not hd[i]:
+                    pview_stale.add(i)
                 spec_live = False
             if ht is not None:
                 tok = torch.from_numpy(ht).to(dev)
@@ -1498,10 +1627,10 @@ class BatchScheduler:
                 [finished[i] or slots[i] is None for i in range(b)],
                 device=dev)
             under_occ = 0  # consecutive under-occupied boundaries
-            # window batching (continuous=False) and the dense path never
+            # window batching (continuous=False) and a dense batch never
             # admit; a fairness drain stops admission for the rest of the
             # batch
-            admitting = self.continuous and self.paged
+            admitting = self.continuous and pool_batch
 
             while n_active() > 0 or (admitting and not self._stop
                                      and not self.queue.empty()):
@@ -1528,12 +1657,26 @@ class BatchScheduler:
                     spec_live = True
                 elif not want_spec:
                     spec_live = False
+                # pipelining (persistent view only): dispatch `depth` chunks
+                # back to back and read the host once, while nothing needs a
+                # boundary: no request waits, no spec chunk or prefill is
+                # live, and no live row is within one chunk of its cap
+                depth = 1
+                if (self.pipeline_depth > 1 and not spec_live and not pending
+                        and pool_batch and self.persist_view
+                        and self.queue.empty() and not self._deferred):
+                    live_rem = [caps[i] - emitted[i] for i in range(b)
+                                if slots[i] is not None]
+                    if live_rem and min(live_rem) > k:
+                        depth = self.pipeline_depth
+                        self.counters["pipelined_groups"] += 1
+                disp_k = k * depth
                 # pages through cur_len + spec_width before a spec chunk
                 # (spec_stream_chunk's caller contract)
-                if self.paged:
+                if pool_batch:
                     cache = self._grow_pages(
                         cache, tables, row_pages, cur_len, finished, slots,
-                        spec_width if spec_live else k, reasons,
+                        spec_width if spec_live else disp_k, reasons,
                         force=tables_dirty, budget=budget_tok,
                         pending=pending)
                 tables_dirty = False
@@ -1550,7 +1693,13 @@ class BatchScheduler:
                 act_n = n_active() - len(pending)  # rows that decode
                 t_disp = time.perf_counter()
                 counts_host = None
+                cap = tables.shape[1] * self.page_size if pool_batch else 0
+                # the longest row of the slots (the view's width follows it)
+                longest = max(cur_len[i] for i in range(b)
+                              if slots[i] is not None)
                 if spec_live:
+                    # the verify passes run on the pool in place
+                    cache = flush_view(cache)
                     # the pool's table capacity is the device budget; the
                     # host's caps end each row
                     carry = vlm.SpecCarry(last_tok=tok, done=done, num=num,
@@ -1573,13 +1722,74 @@ class BatchScheduler:
                     committed = int(counts_host.sum())
                     shape_key = ("spec", b, spec_m, int(hist.shape[1]))
                 else:
-                    toks, done, tok, cache = engine.call(
-                        "decode_chunk", tok, done, cache, self._gen, k=k,
-                        eos_ids=engine.eos_ids, row_sampling=row_samp())
+                    if pool_batch and self.persist_view:
+                        # decode on the carried view (K2); gather it when
+                        # there is none or it is too narrow for the chunk
+                        s_bucket = min(cap, _round_bucket(
+                            longest + disp_k, self.page_size))
+                        if pview is not None and pview.lengths.shape[0] != b:
+                            # resize() flushes before it compacts the rows,
+                            # so this is a backstop: a view of other rows
+                            # cannot be synced, drop it unsynced
+                            logger.error("stale persistent view (batch %d != "
+                                         "%d) dropped unsynced",
+                                         pview.lengths.shape[0], b)
+                            self.counters["view_dropped_stale"] += 1
+                            pview, pview_chunks, pview_base = None, 0, None
+                            pview_stale.clear()
+                        # a view of the pool's width holds every position a
+                        # row can write: the need is capped there
+                        if pview is None or pview.max_len < min(
+                                cap, s_bucket + k):
+                            cache = flush_view(cache)
+                            # one page bucket of headroom
+                            vb = min(cap, _round_bucket(s_bucket + k,
+                                                        self.page_size))
+                            pview = engine.call("gather_view", cache, vb)
+                            pview_base = np.asarray(
+                                [cur_len[i] if slots[i] is not None else 0
+                                 for i in range(b)], np.int32)
+                            pview_chunks = 0
+                            pview_stale.clear()  # every row is fresh
+                            self.counters["view_gathers"] += 1
+                        elif pview_stale:
+                            for i in sorted(pview_stale):
+                                if slots[i] is None or finished[i]:
+                                    continue  # closed before the dispatch
+                                pview = engine.call("update_view_row", pview,
+                                                    cache, i)
+                                pview_base[i] = cur_len[i]
+                                self.counters["view_row_updates"] += 1
+                            pview_stale.clear()
+                        shape_key = ("persist", b, pview.max_len, k)
+                        group = []
+                        for _ in range(depth):
+                            toks, done, tok, pview = engine.call(
+                                "decode_chunk", tok, done, pview, self._gen,
+                                k=k, eos_ids=engine.eos_ids,
+                                row_sampling=row_samp())
+                            group.append(toks)
+                            pview_chunks += 1
+                        if depth > 1:
+                            toks = torch.cat(group, dim=1)
+                    elif pool_batch and self.chunk_view:
+                        # a dense view of each row's first s_bucket
+                        # positions, gathered for this chunk only
+                        s_bucket = min(cap, _round_bucket(
+                            longest + k, self.page_size))
+                        shape_key = ("plain", b, s_bucket, k)
+                        toks, done, tok, cache = engine.call(
+                            "decode_chunk_paged", tok, done, cache,
+                            self._gen, k=k, s_bucket=s_bucket,
+                            eos_ids=engine.eos_ids, row_sampling=row_samp())
+                    else:  # the pool in place (K3), or a dense batch (K2)
+                        shape_key = ("plain", b, k)
+                        toks, done, tok, cache = engine.call(
+                            "decode_chunk", tok, done, cache, self._gen, k=k,
+                            eos_ids=engine.eos_ids, row_sampling=row_samp())
                     host = toks.cpu().numpy()  # the host read = the sync
                     host_done = done.cpu().numpy()
-                    committed = k * act_n
-                    shape_key = ("plain", b, k)
+                    committed = disp_k * act_n
                 dt = time.perf_counter() - t_disp
                 self._note_rate(shape_key, act_n, committed, dt)
                 if spec_live:
@@ -1588,11 +1798,12 @@ class BatchScheduler:
                                            act_n, spec_m, dt * 1000,
                                            committed))
                 else:
-                    self.counters["chunks"] += 1
-                    self.counters["decode_steps"] += k
+                    self.counters["chunks"] += depth
+                    self.counters["decode_steps"] += disp_k
                     if self.trace is not None:
                         self.trace.append((time.perf_counter(), "disp", b,
-                                           act_n, k, dt * 1000, len(pending)))
+                                           act_n, disp_k, dt * 1000,
+                                           len(pending)))
                 for i in range(b):
                     if slots[i] is None or i in pending:
                         # a pending row is a free slot on the device: its
@@ -1615,7 +1826,7 @@ class BatchScheduler:
                     if host_done[i] and not finished[i]:
                         finished[i] = True
                         reasons[i] = reasons[i] or "stop"
-                    cur_len[i] += (k if counts_host is None
+                    cur_len[i] += (disp_k if counts_host is None
                                    else int(counts_host[i]))
                     emit(i)
                 if counts_host is not None:
@@ -1630,7 +1841,7 @@ class BatchScheduler:
                         spec_banned = True
                         spec_live = False
                         self.counters["spec_banned_low_accept"] += 1
-                if self.paged and n_active() > 0:
+                if pool_batch and n_active() > 0:
                     nb = _round_batch(n_active())
                     if nb < b:
                         # long-tail shrink, with hysteresis: only after 2
@@ -1653,7 +1864,7 @@ class BatchScheduler:
                 if pgs:
                     self.pool.release(pgs)
             row_pages = [[] for _ in range(b)]
-            if not batch_ok:
+            if pool_batch and not batch_ok:
                 # a failed dispatch may have left the pool mid-write (or the
                 # device in a bad state): reallocate for the next batch; the
                 # cached prefixes' KV lived in that pool, so they go too

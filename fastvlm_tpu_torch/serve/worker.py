@@ -24,9 +24,12 @@ With ``continuous_batching`` the requests share the port's
 take its dense path, and ``status()`` then reports no pool, as the JAX
 worker's); otherwise each streams alone through ``Engine.stream`` (dense
 cache, K2). The scheduler is built with
-the page size, pool size, speculative chunks and the admission chunk. The
-JAX worker's ``persist_view`` keyword is not accepted: the port's scheduler
-reads the pool in place and has no views (serve/batcher.py).
+the page size, pool size, speculative chunks, the admission chunk and
+``persist_view``, as the JAX worker builds it. ``persist_view`` defaults to
+False here, where JAX's defaults to True: the port's scheduler serves from
+the pool in place (kernel K3) unless asked for the persistent view
+(serve/batcher.py), and which one a deployment should run is for a
+benchmark cell to decide.
 
 ``--tp N`` serves a tensor-parallel engine (``Engine(mesh=)``) from N
 processes started by ``torchrun --nproc-per-node N -m
@@ -81,12 +84,15 @@ class ModelWorker:
         spec_decode: bool = False,
         spec_draft_k: int = 8,
         warmup_tokens: int = 0,
+        persist_view: bool = False,
         prefill_chunk: Optional[int] = None,
     ):
         """``spec_decode``: greedy requests default to speculative
         streaming (serial path) or the scheduler's speculative chunks
         (continuous batching). ``warmup_tokens`` > 0 runs
-        ``BatchScheduler.warmup(prompt_len=warmup_tokens)`` at start-up."""
+        ``BatchScheduler.warmup(prompt_len=warmup_tokens)`` at start-up.
+        ``persist_view``: the scheduler decodes on a persistent dense view
+        of the pool (module docstring)."""
         self.engine = engine
         self.model_name = model_name
         # the serial path's default; the scheduler runs its own spec chunks
@@ -112,7 +118,7 @@ class ModelWorker:
             self.scheduler = BatchScheduler(
                 engine, page_size=page_size, pool_tokens=pool_tokens,
                 spec=spec_decode, spec_draft_k=spec_draft_k,
-                prefill_chunk=prefill_chunk)
+                persist_view=persist_view, prefill_chunk=prefill_chunk)
             if warmup_tokens > 0:
                 n = self.scheduler.warmup(prompt_len=warmup_tokens)
                 logger.info("scheduler warmup: %d dummy dispatches", n)

@@ -8,8 +8,11 @@ greedy ids, switch off when a second row joins and are banned at low
 acceptance; anyres and multi-image requests take the serial path, the
 fairness drain serves a deferred one under a steady stream, and window
 batching (``continuous=False``) admits nothing and gives the JAX
-scheduler's ids; the held-back knobs raise; per-row sampling masks agree
-with the JAX package's.
+scheduler's ids; the view knobs give the JAX scheduler's ids with the
+same knobs (tests/test_torch_batcher_views.py has the views' own cases);
+a batch whose prompts the pool cannot hold runs on a dense cache of its
+own, as in the JAX scheduler; per-row sampling masks agree with the JAX
+package's.
 
 Tiny f32 engines built from the same numpy-drawn weights (utils/convert.py),
 a tokenizer whose text is the token ids, and 128 px images (4 image
@@ -476,51 +479,71 @@ def _prompt_pages(eng, prompts, page):
               // page) for i, p in enumerate(prompts)]
 
 
-def test_batch_prompts_past_pool_wait_for_admission(eng_noeos):
+def _jax_engine(weights, eos):
+    tok = IdTokenizer()
+    return jengine.Engine(weights[0], jax.tree.map(jnp.asarray, weights[1]),
+                          tok, eos_ids=(tok.eos_token_id,) if eos else (-1,))
+
+
+def _served_by_both(weights, eng, eos, jobs, pool_tokens, page, **knobs):
+    """``jobs`` ((prompt, image seed, cap), gathered together) through the
+    port's scheduler and the JAX scheduler, each over a pool of
+    ``pool_tokens`` with ``knobs``: {"port" / "jax": (texts, counters)},
+    every page back."""
+    je = _jax_engine(weights, eos)
+    out = {}
+    for name, e, make in (("port", eng, BatchScheduler),
+                          ("jax", je, jbatcher.BatchScheduler)):
+        sched = make(e, window_ms=300, paged=True, page_size=page,
+                     pool_tokens=pool_tokens, **knobs)
+        try:
+            clients = [Client(sched, e, *job) for job in jobs]
+            texts = [c.result()["text"] for c in clients]
+            assert _pool_clean(sched)
+        finally:
+            sched.shutdown()
+        out[name] = (texts, dict(sched.counters))
+    return out
+
+
+def test_batch_prompts_past_pool_wait_for_admission(weights, eng_noeos):
     """Two requests gathered together whose prompts the pool cannot hold at
-    once: the first prefills, the second waits (deferred) until pages
-    return, then runs; both give the serial ids and every page returns."""
+    once: as in the JAX scheduler, the whole batch runs on a dense cache of
+    its own (one batched prefill, no page mapped; the name is kept from
+    when the second one waited for pages). Both give the serial ids and
+    the JAX scheduler's."""
     page = 8
     prompts = ["tell me everything", "and more"]
     pages = _prompt_pages(eng_noeos, prompts, page)
-    sched = BatchScheduler(eng_noeos, window_ms=300, page_size=page,
-                           pool_tokens=(sum(pages) - 1) * page)
-    sched.trace = []
-    try:
-        want = [eng_noeos.chat(p, _image(i), max_new_tokens=4)[0]
-                for i, p in enumerate(prompts)]
-        clients = [Client(sched, eng_noeos, p, i, 4)
-                   for i, p in enumerate(prompts)]
-        assert [c.result()["text"] for c in clients] == want
-        assert sched.counters["prefills"] == 2
-        assert (sched.trace[0][1], sched.trace[1][1:]) == (
-            "batch_start", ("defer", "pool"))
-        assert _pool_clean(sched)
-    finally:
-        sched.shutdown()
+    out = _served_by_both(weights, eng_noeos, False,
+                          [(p, i, 4) for i, p in enumerate(prompts)],
+                          (sum(pages) - 1) * page, page)
+    texts, counters = out["port"]
+    assert texts == [eng_noeos.chat(p, _image(i), max_new_tokens=4)[0]
+                     for i, p in enumerate(prompts)]
+    assert texts == out["jax"][0]
+    assert counters["dense_fallbacks"] == 1 and counters["prefills"] == 1
+    assert counters["chunks"] >= 1 and not counters.get("admitted")
 
 
-def test_prompt_larger_than_pool_fails_alone(eng):
-    """A prompt with more pages than the whole pool fails with an error; a
-    request gathered with it is served as if alone."""
+def test_prompt_larger_than_pool_fails_alone(weights, eng):
+    """A prompt with more pages than the whole pool, gathered with a small
+    one: the JAX scheduler serves both through a dense cache of their own,
+    and so does the port (the name is kept from when the port failed the
+    large one alone). Both get the serial ids and JAX's texts."""
     page = 8
     prompts = ["hi", "describe every single detail of this picture at length"]
     pages = _prompt_pages(eng, prompts, page)
     pool_pages = pages[0] + 1
     assert pages[1] > pool_pages
-    sched = BatchScheduler(eng, window_ms=300, page_size=page,
-                           pool_tokens=pool_pages * page)
-    try:
-        want = eng.chat(prompts[0], _image(0), max_new_tokens=4)[0]
-        ok, big = [Client(sched, eng, p, i, 4) for i, p in enumerate(prompts)]
-        assert ok.result()["text"] == want
-        big.thread.join(timeout=JOIN_S)
-        assert len(big.updates) == 1
-        assert "exceeds the page pool" in big.updates[0]["error"]
-        assert sched.counters["prefills"] == 1
-        assert _pool_clean(sched)
-    finally:
-        sched.shutdown()
+    out = _served_by_both(weights, eng, True,
+                          [(p, i, 4) for i, p in enumerate(prompts)],
+                          pool_pages * page, page)
+    texts, counters = out["port"]
+    assert texts == [eng.chat(p, _image(i), max_new_tokens=4)[0]
+                     for i, p in enumerate(prompts)]
+    assert texts == out["jax"][0]
+    assert counters["dense_fallbacks"] == 1 and counters["prefills"] == 1
 
 
 @pytest.mark.parametrize("fixture", ["eng", "eng_noeos"])
@@ -725,14 +748,47 @@ def test_window_batching_matches_jax_scheduler(weights, eng_noeos):
 
 
 @pytest.mark.parametrize("knob", [
-    # the prefix cache, chunked admission and spec chunks are ported
-    # (tests/test_torch_prefix_cache.py, the spec tests above); what the
-    # JAX scheduler's dense views come with still raises
     {"prefill_chunk": 256, "persist_view": True},
     {"chunk_view": True}, {"persist_view": True}, {"pipeline_depth": 2}])
-def test_unported_knobs_raise(eng, knob):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        BatchScheduler(eng, **knob)
+def test_unported_knobs_raise(weights, eng_noeos, knob):
+    """The knobs that raised before the dense views were ported (the name
+    is kept for its history): each builds, resolves as the JAX scheduler's
+    (persist_view needs chunk_view, which follows it unless given;
+    pipeline_depth needs persist_view), and two gathered requests and one
+    admitted give the JAX scheduler's ids with the same resolved knobs,
+    with the views' counters where a view runs."""
+    sched = BatchScheduler(eng_noeos, **knob)
+    sched.shutdown()
+    resolved = {"chunk_view": sched.chunk_view,
+                "persist_view": sched.persist_view,
+                "pipeline_depth": sched.pipeline_depth}
+    persist = knob.get("persist_view", False)
+    assert resolved == {"chunk_view": persist or "chunk_view" in knob,
+                        "persist_view": persist, "pipeline_depth": 1}
+    knobs = {**resolved, "prefill_chunk": knob.get("prefill_chunk", 0)}
+    je = _jax_engine(weights, eos=False)
+    out = {}
+    for name, e, make in (("port", eng_noeos, BatchScheduler),
+                          ("jax", je, jbatcher.BatchScheduler)):
+        sched = make(e, window_ms=300, paged=True, page_size=16,
+                     pool_tokens=4096, **knobs)
+        try:
+            first = [Client(sched, e, p, i, 40)
+                     for i, p in enumerate(["alpha", "beta gamma"])]
+            assert first[0].decoding.wait(JOIN_S)
+            late = Client(sched, e, "quick question", 9, 6)
+            texts = [c.result()["text"] for c in first + [late]]
+            assert _pool_clean(sched)
+        finally:
+            sched.shutdown()
+        out[name] = (texts, dict(sched.counters))
+    texts, counters = out["port"]
+    assert texts == out["jax"][0]
+    assert counters["admitted"] == 1
+    if resolved["persist_view"]:
+        assert counters["view_gathers"] >= 1 and counters["view_syncs"] >= 1
+    elif not resolved["chunk_view"]:
+        assert not counters.get("view_gathers")
 
 
 def test_warmup_is_not_ported(eng):

@@ -639,20 +639,26 @@ def test_proxy_worker_cancel_closes_backend_stream():
 
 
 def test_continuous_batching_builds_scheduler_without_view_flags(engines):
-    """The port's scheduler refuses the JAX view flags; the worker builds
-    it from the page size, pool, spec, draft k and admission chunk only,
-    and takes no ``persist_view``."""
+    """The worker builds its scheduler from the page size, pool, spec,
+    draft k, admission chunk and ``persist_view``, as the JAX worker does
+    (the name is kept from when the port's worker took no view flag):
+    ``persist_view=True`` reaches the scheduler as the persistent view, and
+    the port's default leaves the pool in place, where the JAX worker's
+    default is the view."""
     _, te = engines
-    with pytest.raises(NotImplementedError):
-        BatchScheduler(te, persist_view=True).shutdown()
-    with pytest.raises(TypeError):
-        ModelWorker(te, "tiny", continuous_batching=True, persist_view=True)
+    w = ModelWorker(te, "tiny", continuous_batching=True, persist_view=True)
+    try:
+        s = w.scheduler
+        assert s.persist_view and s.chunk_view and s.pipeline_depth == 1
+    finally:
+        s.shutdown()
     w = ModelWorker(te, "tiny", continuous_batching=True, page_size=16,
                     pool_tokens=1024, spec_decode=True, spec_draft_k=4,
                     prefill_chunk=0)
     try:
         s = w.scheduler
         assert isinstance(s, BatchScheduler)
+        assert not s.persist_view and not s.chunk_view
         assert (s.page_size, s.pool.num_pages) == (16, 64)
         assert s.spec and s.spec_draft_k == 4 and s.prefill_chunk == 0
         assert not w.spec_decode  # the scheduler runs the spec chunks

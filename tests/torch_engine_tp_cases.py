@@ -6,7 +6,8 @@ world a file), held against
 
   * the JAX engine of ``build_engine(random_tiny=True)``, single-device and
     on a (1, TP) mesh of the 8 virtual CPU devices, with tests/
-    test_engine_tp.py's requests (greedy ids equal);
+    test_engine_tp.py's requests (greedy ids equal), the batch also through
+    the persistent view pipelined 2 deep, the JAX scheduler's defaults;
   * the port's single-rank engine over the same weights: prefill logits
     within 1e-5 of the largest |logit| (f32), and equal ids for an image
     chat, beam search W = 2, VideoQA (in turn, pipelined, speculative),
@@ -39,9 +40,10 @@ import torch_tiny as tt
 LOGITS_REL = 1e-5
 
 
-def _requests(e, batcher):
-    """tests/test_engine_tp.py's four requests through engine ``e`` and a
-    ``batcher`` scheduler over it."""
+def _batch(e, batcher, max_new_tokens):
+    """tests/test_engine_tp.py's batch through a ``batcher`` scheduler over
+    engine ``e`` at its defaults (the JAX scheduler's: the persistent view,
+    pipelined 2 deep)."""
     p = tw.TP_PROMPTS
     sched = batcher(e, window_ms=100, paged=True, page_size=16,
                     pool_tokens=8192)
@@ -50,7 +52,7 @@ def _requests(e, batcher):
     def run(i):
         last = None
         for last in sched.submit(e.build_prompt(p["batch"][i]),
-                                 max_new_tokens=5):
+                                 max_new_tokens=max_new_tokens):
             pass
         results[i] = last.get("error", last["text"])
 
@@ -63,12 +65,21 @@ def _requests(e, batcher):
             t.join(timeout=180)
     finally:
         sched.shutdown()
+    return results
+
+
+def _requests(e, batcher):
+    """tests/test_engine_tp.py's four requests through engine ``e`` and a
+    ``batcher`` scheduler over it, and the batch again at the persistent
+    view's length."""
+    p = tw.TP_PROMPTS
     return {"chat": e.chat(p["chat"], max_new_tokens=12)[0],
             "stream": [u["text"] for u in e.stream(
                 e.build_prompt(p["stream"]), max_new_tokens=10)],
             "spec": e.generate_spec(e.build_prompt(p["spec"]),
                                     max_new_tokens=16)[0],
-            "batch": results}
+            "batch": _batch(e, batcher, 5),
+            "batch_persist": _batch(e, batcher, tw.TP_PERSIST_TOKENS)}
 
 
 @pytest.fixture(scope="module")
@@ -175,14 +186,28 @@ def test_tp_pieces_really_split(world, request):
                                    else (258, 64))
 
 
-@pytest.mark.parametrize("what", ["chat", "stream", "spec", "batch"])
+@pytest.mark.parametrize("what", ["chat", "stream", "spec", "batch",
+                                  "batch_persist"])
 def test_tp_matches_jax_engines(world, jax_answers, what):
     """tests/test_engine_tp.py's requests: the port's TP engine gives the
-    JAX single-device engine's and the JAX TP engine's greedy ids."""
+    JAX single-device engine's and the JAX TP engine's greedy ids; its
+    scheduler also with the JAX scheduler's defaults (``batch_persist``:
+    persistent view, pipelined 2 deep)."""
     got = _rank0(world, "tp_engine")[what]
     assert jax_answers["single"][what] == jax_answers["mesh"][what]
     assert got == jax_answers["single"][what], (got,
                                                 jax_answers["single"][what])
+
+
+def test_tp_persistent_view_ran(world):
+    """The persistent-view batch gathered views, synced the pool and
+    dispatched pipelined groups on rank 0, the followers making each call
+    on their own kv heads (their outputs held to rank 0's in
+    test_every_rank_computes_rank0s_outputs)."""
+    c = _rank0(world, "tp_engine")["persist_counters"]
+    assert c["view_gathers"] >= 1 and c["pipelined_groups"] >= 1, c
+    names = {n for n, _ in world["tp_engine"][1]["log"]}
+    assert {"gather_view", "decode_chunk"} <= names, names
 
 
 def test_tp_worker_streams_the_serial_answer(world, port_answers):

@@ -295,6 +295,8 @@ def sc_pp_checkpoint(ctx):
 TP_PROMPTS = {"chat": "hello mesh", "stream": "stream across the mesh",
               "spec": "repeat after me " * 3,
               "batch": ["alpha mesh", "beta mesh"]}
+# new tokens of the persistent-view batch: two 2-chunk groups at chunk 16
+TP_PERSIST_TOKENS = 64
 
 
 def lively_config(kv_cache_dtype=None):
@@ -379,13 +381,14 @@ def tp_pieces(engine):
                                  engine.rank)}
 
 
-def tp_batch(engine, prompts, max_new_tokens=5):
+def tp_batch(engine, prompts, max_new_tokens=5, counters=None, **knobs):
     """``prompts`` through a BatchScheduler over ``engine``, one thread
-    each (tests/test_engine_tp.py's scheduler settings)."""
+    each (tests/test_engine_tp.py's scheduler settings, and ``knobs``);
+    ``counters``, a dict, receives the scheduler's."""
     from fastvlm_tpu_torch.serve.batcher import BatchScheduler
 
     sched = BatchScheduler(engine, window_ms=100, paged=True, page_size=16,
-                           pool_tokens=8192)
+                           pool_tokens=8192, **knobs)
     results = [None] * len(prompts)
 
     def run(i):
@@ -404,6 +407,8 @@ def tp_batch(engine, prompts, max_new_tokens=5):
             t.join(timeout=120)
     finally:
         sched.shutdown()
+    if counters is not None:
+        counters.update(sched.counters)
     return results
 
 
@@ -483,6 +488,7 @@ def sc_tp_engine(ctx):
     def drive(e):
         p = TP_PROMPTS
         stream_prompt = e.build_prompt(p["stream"])
+        persist_counters = {}
         worker = ModelWorker(e, "fastvlm-tiny")
         msgs = list(iter_chunks(worker.generate_stream({
             "prompt": e.build_prompt(p["chat"]), "max_new_tokens": 8,
@@ -494,6 +500,12 @@ def sc_tp_engine(ctx):
             "spec": e.generate_spec(e.build_prompt(p["spec"]),
                                     max_new_tokens=16)[0],
             "batch": tp_batch(e, p["batch"]),
+            # the JAX scheduler's defaults: the persistent view (its planes
+            # cross the lockstep channel by handle), pipelined 2 deep
+            "batch_persist": tp_batch(
+                e, p["batch"], TP_PERSIST_TOKENS, persist_counters,
+                persist_view=True, pipeline_depth=2),
+            "persist_counters": persist_counters,
             "sampled": e.chat(p["chat"], max_new_tokens=12, seed=7,
                               sampling=SamplingParams(temperature=0.7))[0],
             "worker": msgs}
