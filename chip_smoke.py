@@ -12,10 +12,16 @@ non-zero):
   2. build    nvcc builds kernels K1, K2 and K3 from fastvlm_tpu_torch/csrc/,
               one process per source, all started together
   3. K1       fused_ffn vs ffn_reference at the five FastViTHD stage shapes
-              of a 1024 px image (bf16, with ls and with ls=None), ragged
-              row counts on both routes, and one f32 shape; per stage the
-              kernel's time, TFLOP/s and share of its bound, the plain
-              version's and the bf16 cuBLAS chain's (context)
+              of a 1024 px image (bf16, with ls and with ls=None) and ragged
+              row counts on both routes; per stage the kernel's time,
+              TFLOP/s and share of its bound, the plain version's and the
+              bf16 cuBLAS chain's (context). The library's route for each
+              (C, Ch) against ops/cuda/ffn.py's kernel_route. Then the f32
+              route (3xTF32) the same way in f32, with ragged rows on both
+              tensor-core routes and C = 48 (the general route): per stage
+              and per image the kernel's time beside the 3xTF32 bound, the
+              CUDA-core f32 figure, the plain version and an f32 cuBLAS
+              chain
   4. K2       decode_attention vs decode_attention_reference at the 0.5B,
               1.5B and 7B head geometries and LLaVA-1.5-7B's 32/32/128
               (one query row a KV head), bf16 and f32, lengths at the
@@ -242,11 +248,22 @@ non-zero):
               on an int8 base for 6 steps; K1 through FusedFFNFunction at
               the five widths and a batch's rows against ffn_reference
               (forward and gradients), then the tower unfrozen for 3 steps
-              (every tower leaf's gradient non-zero); a tiny f32 model
-              trained 3 steps with its tower unfrozen on the card and on
-              the CPU (losses and params within TRAIN_SMALL_TOL)
+              (every tower leaf's gradient non-zero); FastVLM-0.5B in
+              float32 (train_sft's default) for 3 steps, tower frozen:
+              first K1's f32 route against ffn_reference at the five widths
+              and a batch's rows (ls and ls=None, K1_TOL[float32]), beside
+              the ratio a TF32 plain version reads as a control; then K1
+              44 a step on its f32 tensor-core routes, step ms, K1's kernel
+              time and share of a step's kernels, peak memory, the losses
+              against the same steps through ffn_reference (TRAIN_F32_REL);
+              a tiny f32 model trained 3 steps with its tower unfrozen on
+              the card and on the CPU (losses and params within
+              TRAIN_SMALL_TOL)
  19. parallel parallel training at world size 1 over NCCL (one card: NCCL
-              takes one rank a device): parallel/distributed.initialize
+              takes one rank a device): first the multi-process
+              launcher's probe (tools/train_multihost --probe, its default
+              device: the card) in a one-process torchrun world, which must
+              print MULTIHOST_OK 0/1; then parallel/distributed.initialize
               with a one-rank env and a file:// store, make_mesh(1, 1) on
               cuda; each differentiable collective checked exact at size
               1; then phase train's FastVLM-0.5B weights and records
@@ -300,7 +317,13 @@ per-call times are medians of CUDA events around each call (the wrapper's
 host time included). Kernel time alone (kernel_ms) comes from
 torch.profiler. Bounds (bound_ms) are computed from this run's shapes: the
 larger of the bytes each kernel must move over 3.35 TB/s and its FLOPs
-over 989 TFLOP/s (bf16 tensor cores; 67 TFLOP/s for f32).
+over 989 TFLOP/s (bf16 tensor cores; 67 TFLOP/s for K2 / K3 in f32). K1's
+f32 bound is 3xTF32's: three TF32 products a product at 494.7 TFLOP/s,
+with the CUDA cores' 66.9 TFLOP/s beside it as context.
+
+Other modes: --k1-only (phases device, build, K1); --k1-ab PARENT
+(phase K1, bf16 and f32, against the kernel of the checkout at PARENT and
+of this one, in turns); --tp-only; --serve-view-only.
 
 The line before last is a JSON object {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -333,6 +356,8 @@ K1_TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-4, 1e-4)}
 K2_TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (2e-5, 2e-5)}
 HBM_BPS = 3.35e12      # H100 SXM device memory, bytes/s
 BF16_FLOPS = 989e12    # H100 SXM dense bf16 tensor-core peak
+TF32_FLOPS = 494.7e12  # H100 SXM dense TF32 tensor-core peak
+F32_FLOPS = 66.9e12    # H100 SXM f32 peak of the CUDA cores (no tensor cores)
 K3_TOL = K2_TOL  # the same formula, the same summation order per split
 # (Hq, Hkv, D) of the decoders K2 and K3 serve: Qwen2-0.5B, Qwen2-1.5B,
 # Qwen2-7B, and LLaVA-1.5-7B's Vicuna-7B (MHA: one query row a KV head)
@@ -417,6 +442,19 @@ def ffn_bound_ms(n, c):
     return max(f_ms, b_ms), ("operations" if f_ms >= b_ms else "bytes")
 
 
+def ffn_f32_bound_ms(n, c):
+    """K1's f32 bound: f32-accurate products on the tensor cores are three
+    TF32 products (3xTF32), so 3 x 16 N C^2 FLOPs at the TF32 peak, or the
+    f32 t, residual, out, W1, W2 and biases once each over device memory,
+    the larger; with the CUDA cores' time for 16 N C^2 f32 FLOPs (context:
+    the rate without the tensor cores)."""
+    flops = 16 * n * c * c
+    nbytes = 4 * (3 * n * c + 8 * c * c + 4 * c + 2 * c)
+    f_ms, b_ms = 3 * flops / TF32_FLOPS * 1e3, nbytes / HBM_BPS * 1e3
+    return (max(f_ms, b_ms), "operations" if f_ms >= b_ms else "bytes",
+            flops / F32_FLOPS * 1e3)
+
+
 def attn_bound_ms(q, lengths, hkv, elem):
     """K2's / K3's bound: the valid keys and values, q and the output once
     each over device memory (the ~4 FLOPs a byte are far below the ridge)."""
@@ -483,8 +521,9 @@ def _ffn_inputs(n, c, dtype, gen):
 
 
 def _ffn_chain(t, res, w1, b1, w2, b2, ls):
-    """The same function as a bf16 cuBLAS chain (context for K1, not its
-    yardstick: no single PyTorch call computes it)."""
+    """The same function as a cuBLAS chain in t's dtype (context for K1,
+    not its yardstick: no single PyTorch call computes it); in f32 with
+    TF32 off."""
     o = torch.addmm(b2, torch.nn.functional.gelu(torch.addmm(b1, t, w1)), w2)
     return res + (o if ls is None else ls * o)
 
@@ -495,8 +534,7 @@ def phase_k1(gen):
     cases = [(n, c, torch.bfloat16, use_ls, blocks)
              for n, c, blocks in K1_STAGES for use_ls in (True, False)]
     cases += [(1000, 192, torch.bfloat16, True, 0),   # ragged rows, fused
-              (1000, 768, torch.bfloat16, True, 0),   # ragged rows, two passes
-              (4096, 384, torch.float32, True, 0)]
+              (1000, 768, torch.bfloat16, True, 0)]   # ragged rows, two passes
     max_abs = 0.0
     img = dict.fromkeys(("ms", "kernel_ms", "plain_ms", "chain_ms", "bound_ms"), 0.0)
     for n, c, dtype, use_ls, blocks in cases:
@@ -512,11 +550,6 @@ def phase_k1(gen):
         what = (f"N={n} C={c} {str(dtype)[6:]} "
                 f"ls={'yes' if use_ls else 'None'}: max_abs_err {err:.3e} "
                 f"(tol ratio {ratio:.3f} <= 1)")
-        if dtype == torch.float32:
-            k_ms = time_batch_ms(lambda: fused_ffn(*args))
-            p_ms = time_batch_ms(lambda: ffn_reference(*args))
-            log("K1", f"{what}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
-            continue
         if use_ls or not blocks:  # the folded main path is timed below
             log("K1", what)
             continue
@@ -539,6 +572,87 @@ def phase_k1(gen):
               f"reached), plain {img['plain_ms']:.3f} ms, bf16 cuBLAS chain "
               f"{img['chain_ms']:.3f} ms")
     return max_abs, img
+
+
+# f32 shapes beyond the stages: ragged rows on both tensor-core routes, and
+# widths only the general route takes (C = 48: not FastViTHD's)
+K1_F32_EXTRA = ((1000, 192, True), (1000, 768, True), (4096, 48, True),
+                (1000, 48, False))
+
+
+def phase_k1_f32(gen):
+    """K1's f32 route (train_sft's default dtype) against ffn_reference
+    within K1_TOL[float32] at the five stage shapes (ls and ls=None), ragged
+    rows and general-route widths; per stage (with ls, as training calls
+    it) the kernel's time, TFLOP/s, share of its 3xTF32 bound, the plain
+    version's and an f32 cuBLAS chain's; and the per-image sums (44 calls).
+    Uses only fused_ffn and ffn_reference, so it also times another
+    checkout's kernel (--k1-ab)."""
+    from fastvlm_tpu_torch.ops.cuda.ffn import ffn_reference, fused_ffn
+
+    cases = [(n, c, use_ls, blocks) for n, c, blocks in K1_STAGES
+             for use_ls in (True, False)]
+    cases += [(n, c, use_ls, 0) for n, c, use_ls in K1_F32_EXTRA]
+    max_abs = 0.0
+    img = dict.fromkeys(("ms", "kernel_ms", "plain_ms", "chain_ms",
+                         "bound_ms", "cuda_core_ms"), 0.0)
+    stages = {}
+    for n, c, use_ls, blocks in cases:
+        t, res, w1, b1, w2, b2, ls = _ffn_inputs(n, c, torch.float32, gen)
+        args = (t, res, w1, b1, w2, b2, ls if use_ls else None)
+        got = fused_ffn(*args)
+        want = ffn_reference(*args)
+        torch.cuda.synchronize()
+        err, ratio = compare(got, want, K1_TOL[torch.float32],
+                             f"K1 f32 N={n} C={c} ls={use_ls}")
+        max_abs = max(max_abs, err)
+        what = (f"N={n} C={c} float32 ls={'yes' if use_ls else 'None'}: "
+                f"max_abs_err {err:.3e} (tol ratio {ratio:.3f} <= 1)")
+        if not (use_ls and blocks):  # the training call (ls) is timed
+            log("K1", what)
+            continue
+        k_ms = time_batch_ms(lambda: fused_ffn(*args))
+        prof_ms = kernel_time_ms(lambda: fused_ffn(*args))
+        p_ms = time_batch_ms(lambda: ffn_reference(*args))
+        c_ms = time_batch_ms(lambda: _ffn_chain(*args))
+        bound, bound_by, cc_ms = ffn_f32_bound_ms(n, c)
+        row = {"ms": k_ms, "kernel_ms": prof_ms, "plain_ms": p_ms,
+               "chain_ms": c_ms, "bound_ms": bound, "cuda_core_ms": cc_ms}
+        stages[f"{n}x{c}"] = {**row, "bound_by": bound_by, "blocks": blocks}
+        for key, v in row.items():
+            img[key] = None if v is None or img[key] is None else img[key] + blocks * v
+        tflops = 16 * n * c * c / (k_ms * 1e-3) / 1e12
+        log("K1", f"{what}; kernel {k_ms:.4f} ms ({tflops:.1f} TFLOP/s, "
+                  f"{bound / k_ms:.3f} of its {bound * 1e3:.2f} us 3xTF32 "
+                  f"bound, {bound_by}; CUDA-core f32 figure "
+                  f"{cc_ms * 1e3:.2f} us), kernel time {fmt_ms(prof_ms)} "
+                  f"(profiler); plain {p_ms:.4f} ms; f32 cuBLAS chain "
+                  f"{c_ms:.4f} ms")
+    log("K1", f"per 1024 px image (44 calls, f32, with ls): kernel "
+              f"{img['ms']:.3f} ms ({fmt_ms(img['kernel_ms'])} kernel time), "
+              f"3xTF32 bound {img['bound_ms']:.3f} ms "
+              f"({img['bound_ms'] / img['ms']:.3f} reached; CUDA-core f32 "
+              f"figure {img['cuda_core_ms']:.3f} ms), plain "
+              f"{img['plain_ms']:.3f} ms, f32 cuBLAS chain "
+              f"{img['chain_ms']:.3f} ms")
+    return {"max_abs": max_abs, "image": img, "stages": stages}
+
+
+def k1_route_checks():
+    """The library's route for each shape equals ops/cuda/ffn.py's mirror
+    (kernel_route), which the CPU tests pin."""
+    from fastvlm_tpu_torch.ops.cuda import ffn
+
+    lib = ffn._load()
+    shapes = [(c, 4 * c) for c in (8, 16, 32, 48, 64, 96, 128, 192, 256,
+                                   384, 512, 768, 1536)]
+    shapes += [(96, 256), (192, 512), (384, 1024), (100, 400)]
+    got = {s: ffn.ROUTES[lib.fvlm_ffn_route(*s)] for s in shapes}
+    bad = {s: r for s, r in got.items() if r != ffn.kernel_route(*s)}
+    if bad:
+        raise AssertionError(f"K1 routes differ from kernel_route: {bad}")
+    log("K1", f"routes by (C, Ch) as kernel_route mirrors them: {got}")
+    return got
 
 
 def _k2_point(gen, b, hq, hkv, d, s_max, length):
@@ -3818,12 +3932,13 @@ def _q7_decoder_cfg():
                       compute_dtype="bfloat16")
 
 
-def _fastvithd_cfg(decoder):
-    """FastViTHD @1024 and mlp2x_gelu 3072 -> the decoder's width, bf16."""
+def _fastvithd_cfg(decoder, dtype="bfloat16"):
+    """FastViTHD @1024 and mlp2x_gelu 3072 -> the decoder's width, in
+    ``dtype`` (bf16 unless asked)."""
     from fastvlm_tpu_torch import config as C
 
-    vision = C.FastViTConfig(image_size=1024, param_dtype="bfloat16",
-                             compute_dtype="bfloat16")
+    vision = C.FastViTConfig(image_size=1024, param_dtype=dtype,
+                             compute_dtype=dtype)
     return C.FastVLMConfig(
         vision=vision, decoder=decoder,
         projector=C.ProjectorConfig(mm_hidden_size=vision.out_channels,
@@ -4632,10 +4747,12 @@ def _k1_function_checks(gen):
 
 
 def _idle_share(trainer, cfg, steps=2):
-    """(wall ms, kernel ms, top kernels) of ``steps`` train_steps on
-    pre-collated batches (no data work), kernel time by torch.profiler
-    (CUDA activity only; None where the session shows no device time); the
-    top kernels as (name, ms a step, launches a step)."""
+    """(wall ms, kernel ms, top kernels, K1's kernels) of ``steps``
+    train_steps on pre-collated batches (no data work), kernel time by
+    torch.profiler (CUDA activity only; None where the session shows no
+    device time); the top kernels as (name, ms a step, launches a step),
+    K1's (csrc/ffn.cu's, named ffn_*) as {name: (ms a step, launches a
+    step)}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -4659,7 +4776,9 @@ def _idle_share(trainer, cfg, steps=2):
     us = sum(e.self_device_time_total for e in rows)
     top = [(e.key[:60], round(e.self_device_time_total / 1e3 / steps, 3),
             e.count // steps) for e in rows[:10]]
-    return wall, (us / 1e3 if us > 0 else None), top
+    k1 = {e.key: (e.self_device_time_total / 1e3 / steps, e.count / steps)
+          for e in rows if "::ffn_" in e.key}
+    return wall, (us / 1e3 if us > 0 else None), top, k1
 
 
 def phase_train(card, gen):
@@ -4761,7 +4880,7 @@ def phase_train(card, gen):
                      f"({gib:.2f} GiB: params + opt_state) restored in "
                      f"{t_restore:.1f} s, params and moments bitwise equal; "
                      f"one more step ran (loss {more['losses'][0]:.4f})")
-        wall, kern, top = _idle_share(tr2, cfg)
+        wall, kern, top, _ = _idle_share(tr2, cfg)
         idle = None if kern is None else 1 - kern / wall
         res["train"].update(idle_wall_ms=wall, idle_kernel_ms=kern,
                             idle=idle, resume_gib=gib)
@@ -4873,12 +4992,15 @@ def phase_train(card, gen):
                      f"{run['median_ms']:.2f} ms; peak "
                      f"{run['peak_gib']:.2f} GiB; K1 {run['k1']} through "
                      f"FusedFFNFunction")
-        del tr, batch
+        del tr, batch, params, tower, proj
         gc.collect()
         torch.cuda.empty_cache()
+
+        # 4. f32, train_sft's default dtype: K1 on its f32 route
+        res["f32"] = _train_f32(card, data_path, work)
+        res["k1"]["train-f32"] = res["f32"]["k1"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    del params, tower, proj
     gc.collect()
     torch.cuda.empty_cache()
     res["small"] = _train_small()
@@ -4931,6 +5053,31 @@ def _collectives_at_one_rank(mesh):
     return sorted(ops)
 
 
+PROBE_TIMEOUT_S = 300
+
+
+def _multihost_probe():
+    """tools/train_multihost --probe with no --device (the card, NCCL) in
+    a one-process torchrun world of its own: its all-reduce and its
+    data-parallel AdamW step against the one-process step; returns the
+    probe's MULTIHOST_OK line."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT")}
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node=1", "-m",
+           "fastvlm_tpu_torch.tools.train_multihost", "--probe"]
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=PROBE_TIMEOUT_S)
+    oks = [line for line in proc.stdout.splitlines() if "MULTIHOST_OK" in line]
+    if proc.returncode != 0 or len(oks) != 1 or "0/1" not in oks[0]:
+        raise AssertionError(f"parallel: train_multihost --probe exited "
+                             f"{proc.returncode}: {proc.stdout[-2000:]}"
+                             f"{proc.stderr[-2000:]}")
+    return oks[0].strip()
+
+
 def phase_parallel(card, train_res):
     """Parallel training on the card at world size 1 (NCCL); see the
     module docstring."""
@@ -4948,9 +5095,12 @@ def phase_parallel(card, train_res):
     from fastvlm_tpu_torch.train.trainer import Trainer, TrainingArguments
 
     t_phase = time.perf_counter()
+    probe = _multihost_probe()
+    log("parallel", f"tools/train_multihost --probe (default device) in a "
+                    f"one-process torchrun world: {probe}")
     work = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
     os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
-    res = {"k1": {}, "modes": {}}
+    res = {"k1": {}, "modes": {}, "probe": probe}
     try:
         distributed.initialize(f"file://{work}/store", device="cuda")
         if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
@@ -5521,6 +5671,183 @@ def phase_tp(card, main_engine, prompts, answers, gen):
     return res
 
 
+TRAIN_F32_STEPS = 3
+# the f32 steps with the tower's FFN through the kernel and through
+# ffn_reference: the losses within this relative difference (3xTF32 sums
+# differ from cuBLAS's f32 ones by ~1e-6 of the FFN's output; the decoder
+# and the optimizer run the same ops in both)
+TRAIN_F32_REL = 1e-5
+
+
+def _plain_ffn_block(t_grid, residual_grid, ffn_params, ls=None):
+    """fastvit's ffn_block_apply with ffn_reference in place of the kernel
+    (the tower frozen: no grad through it)."""
+    from fastvlm_tpu_torch.ops.cuda.ffn import ffn_reference
+
+    b, h, w, c = t_grid.shape
+    dt = t_grid.dtype
+    fc1, fc2 = ffn_params["fc1"], ffn_params["fc2"]
+    out = ffn_reference(t_grid.reshape(-1, c), residual_grid.reshape(-1, c),
+                        fc1["w"].to(dt), fc1["b"].to(dt), fc2["w"].to(dt),
+                        fc2["b"].to(dt), None if ls is None else ls.to(dt))
+    return out.reshape(b, h, w, c)
+
+
+def _k1_f32_train_checks():
+    """K1's f32 route at the rows train-f32 gives it (TRAIN_BATCH images at
+    1024 px, each FastViTHD width, with ls and ls=None) against
+    ffn_reference on the same inputs within K1_TOL[float32]: at C = 768 /
+    1536 these rows split pass 2's depth (ffn_reduce_kernel) or run the
+    unsplit epilogue at grids phase K1's one-image rows do not reach. Beside
+    each, as a control, the tolerance ratio that the plain version with
+    TF32 products reads against the same f32 reference. Returns the max abs
+    error and the readings by shape."""
+    from fastvlm_tpu_torch.ops.cuda.ffn import ffn_reference, fused_ffn
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(63)  # its own: later phases' inputs stay as they were
+    atol, rtol = K1_TOL[torch.float32]
+    max_abs, rows = 0.0, {}
+    for n_img, c, _ in K1_STAGES:
+        n = TRAIN_BATCH * n_img
+        t, res, w1, b1, w2, b2, ls = _ffn_inputs(n, c, torch.float32, gen)
+        for use_ls in (True, False):
+            args = (t, res, w1, b1, w2, b2, ls if use_ls else None)
+            want = ffn_reference(*args)
+            got = fused_ffn(*args)
+            torch.cuda.synchronize()
+            err, ratio = compare(got, want, K1_TOL[torch.float32],
+                                 f"K1 f32 at train-f32's N={n} C={c} "
+                                 f"ls={use_ls}")
+            del got
+            keep = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                tf32 = ffn_reference(*args)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = keep
+            tf32_ratio = float(((tf32 - want).abs()
+                                / (atol + rtol * want.abs())).max())
+            del tf32, want
+            max_abs = max(max_abs, err)
+            rows[f"{n}x{c}{'' if use_ls else ' ls=None'}"] = {
+                "max_abs_err": err, "ratio": ratio, "tf32_ratio": tf32_ratio}
+            log("train", f"K1 f32 at train-f32's rows N={n} C={c} ls="
+                         f"{'yes' if use_ls else 'None'}: max_abs_err "
+                         f"{err:.3e} (tol ratio {ratio:.3f} <= 1); control: "
+                         f"the plain version with TF32 products reads ratio "
+                         f"{tf32_ratio:.2f}")
+        del t, res, w1, b1, w2, b2, ls
+    torch.cuda.empty_cache()
+    return max_abs, rows
+
+
+def _train_f32(card, data_path, work):
+    """FastVLM-0.5B at full width in float32 (train_sft's default), tower
+    frozen, TRAIN_F32_STEPS steps: first K1's f32 route against
+    ffn_reference at the steps' rows (_k1_f32_train_checks); then K1 44 a
+    step, every call's (C, Ch) on a tensor-core route (the library's
+    fvlm_ffn_route) and no general-route kernel in the profile; the step's wall ms, K1's kernel time a step and its share of
+    the step's kernels (profiler, 2 more steps), peak memory; then the same
+    steps from the same weights with the tower's FFN through ffn_reference
+    on the card: losses within TRAIN_F32_REL."""
+    import shutil
+
+    from fastvlm_tpu_torch import config as C
+    from fastvlm_tpu_torch.data.preprocessing import (
+        ByteTokenizer, ImageProcessor)
+    from fastvlm_tpu_torch.data.sft import DataArguments, SupervisedDataset
+    from fastvlm_tpu_torch.models import fastvit, qwen2
+    from fastvlm_tpu_torch.ops.cuda import ffn
+    from fastvlm_tpu_torch.train.trainer import Trainer, TrainingArguments
+
+    k1_max_abs, k1_rows = _k1_f32_train_checks()
+    cfg = _fastvithd_cfg(C.qwen2_0_5b(param_dtype="float32",
+                                      compute_dtype="float32"), "float32")
+    v = cfg.vision
+    lib = ffn._load()
+    routes = {ffn.ROUTES[lib.fvlm_ffn_route(c, c * r)]
+              for c, r in zip(v.embed_dims, v.mlp_ratios)}
+    if "general" in routes:
+        raise AssertionError(f"train-f32: a FastViTHD width takes K1's "
+                             f"general route: {routes}")
+    tower, proj = _live_encoder(cfg, 61)
+    dgen = torch.Generator(device="cuda")
+    dgen.manual_seed(62)
+    params = {"vision": tower, "projector": proj,
+              "decoder": qwen2.init(dgen, cfg.decoder, "cuda")}
+
+    def trainer(out):  # train() ends with a checkpoint, removed after
+        ds = SupervisedDataset(
+            DataArguments(data_path=data_path, image_folder=work),
+            ByteTokenizer(), ImageProcessor(v.image_size))
+        args = TrainingArguments(
+            output_dir=os.path.join(work, out), batch_size=TRAIN_BATCH,
+            max_steps=TRAIN_F32_STEPS, save_steps=0, log_steps=1,
+            warmup_ratio=0.0, seed=0, learning_rate=3e-4)
+        return Trainer(cfg, params, ds, args, device="cuda")
+
+    tr = trainer("f32")
+    run = _train_run(tr, TRAIN_F32_STEPS, "train-f32")
+    shutil.rmtree(os.path.join(work, "f32"), ignore_errors=True)
+    wall, kern, top, k1_rows = _idle_share(tr, cfg)  # 2 steps
+    general = [k for k in k1_rows if "ffn_f32_kernel" in k]
+    if general:
+        raise AssertionError(f"train-f32: the general f32 kernel ran: {general}")
+    k1_ms = sum(ms for ms, _ in k1_rows.values())
+    kern = None if kern is None else kern / 2
+    share = None if kern is None else k1_ms / kern
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    keep = fastvit.ffn_block_apply
+    fastvit.ffn_block_apply = _plain_ffn_block
+    try:
+        ref = trainer("f32-plain")
+        _zero_launches()
+        ref.train()
+        ref_k1 = int(_launches()[0])
+    finally:
+        fastvit.ffn_block_apply = keep
+        shutil.rmtree(os.path.join(work, "f32-plain"), ignore_errors=True)
+    ref_losses = [h["loss"] for h in ref.history]
+    del ref, params, tower, proj
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], ref_losses))
+    if ref_k1 or len(ref_losses) != TRAIN_F32_STEPS or rel > TRAIN_F32_REL:
+        raise AssertionError(f"train-f32: kernel losses {run['losses']} vs "
+                             f"ffn_reference's {ref_losses} (rel {rel:.2e}, "
+                             f"tol {TRAIN_F32_REL}); K1 {ref_k1} in the plain "
+                             f"run")
+    by_kernel = {k.split("::", 1)[-1].split("(")[0]: (round(ms, 4), n)
+                 for k, (ms, n) in k1_rows.items()}
+    log("train", f"FastVLM-0.5B SFT in float32 (train_sft's default), batch "
+                 f"{TRAIN_BATCH}, {TRAIN_F32_STEPS} steps (tower frozen): "
+                 f"losses {[round(x, 6) for x in run['losses']]}; through "
+                 f"ffn_reference {[round(x, 6) for x in ref_losses]} (max "
+                 f"rel diff {rel:.2e}, tol {TRAIN_F32_REL}); step 1 "
+                 f"{run['step_ms'][0]:.1f} ms, then median "
+                 f"{run['median_ms']:.2f} ms a step (wall, data included); "
+                 f"peak {run['peak_gib']:.2f} GiB; K1 {run['k1']} = "
+                 f"{sum(v.layers)} x {TRAIN_F32_STEPS}, routes {sorted(routes)}; "
+                 f"2 more steps on pre-collated batches: {wall / 2:.1f} ms "
+                 f"wall a step, {fmt_ms(kern)} of kernels, K1 {k1_ms:.3f} ms "
+                 f"(share {'not measured' if share is None else f'{share:.3f}'}"
+                 f"), K1's kernels (ms, launches a step): {by_kernel}; top "
+                 f"kernels (name, ms a step, launches a step): {top[:6]}; on "
+                 f"{card}")
+    return {"losses": run["losses"], "plain_losses": ref_losses,
+            "loss_rel_diff": rel, "step_ms": run["step_ms"],
+            "median_ms": run["median_ms"], "peak_gib": run["peak_gib"],
+            "k1": run["k1"], "k1_max_abs": k1_max_abs, "k1_checks": k1_rows,
+            "profile_wall_ms": wall / 2,
+            "profile_kernel_ms": kern,
+            "k1_kernel_ms": k1_ms, "k1_share": share, "k1_kernels": by_kernel,
+            "top_kernels": top}
+
+
 def iter_batches(trainer, cfg):
     """The trainer's batches, on the card."""
     from fastvlm_tpu_torch.train.trainer import batches
@@ -5596,6 +5923,50 @@ def _train_small():
     return {"loss_rel_err": loss_err, "param_rel_err": worst, "k1": k1}
 
 
+AB_RUN = """
+import importlib.util, json, sys, torch
+sys.path.insert(0, {tree!r})
+spec = importlib.util.spec_from_file_location("chip_smoke_ab", {script!r})
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+from fastvlm_tpu_torch.ops.cuda import _build, ffn
+assert ffn.__file__.startswith({tree!r}), ffn.__file__
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+gen = torch.Generator(device="cuda")
+gen.manual_seed(0)
+_build.load("ffn")
+bf16 = cs.phase_k1(gen)[1]
+print("AB " + json.dumps({{**cs.phase_k1_f32(gen), "bf16": bf16}}), flush=True)
+"""
+
+
+def k1_ab(parent):
+    """This script's phase_k1 (bf16) and phase_k1_f32 run against the
+    kernel of the checkout at ``parent`` and of this one, in turns (parent,
+    change, change, parent), each in a fresh process that builds that
+    checkout's csrc/ffn.cu: the same inputs (seed 0) and timings on one
+    card. Prints each run's K1 lines and one JSON line a run, {"tree": ...,
+    "max_abs": ..., "image": ..., "stages": ..., "bf16": {...}} (f32 keys
+    but "bf16"); returns non-zero if a run fails."""
+    trees = {"parent": os.path.abspath(parent), "change": ROOT}
+    script = os.path.abspath(__file__)
+    for tag in ("parent", "change", "change", "parent"):
+        code = AB_RUN.format(tree=trees[tag], script=script)
+        proc = subprocess.run([sys.executable, "-c", code], cwd=trees[tag],
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n")
+            return 1
+        for line in proc.stdout.splitlines():
+            if line.startswith("[K1]"):
+                print(f"[{tag}] {line}", flush=True)
+            elif line.startswith("AB "):
+                print(json.dumps({"tree": tag, **json.loads(line[3:])}),
+                      flush=True)
+    return 0
+
+
 def main(argv) -> int:
     if argv[:1] == ["--tp-rank"]:  # one rank of phase tp's gloo world
         sys.path.insert(0, ROOT)
@@ -5608,12 +5979,23 @@ def main(argv) -> int:
     import fastvlm_tpu_torch  # noqa: F401
 
     name, card = phase_device()
+    if argv[:1] == ["--k1-ab"]:  # phase K1 on two checkouts' kernels in turns
+        return k1_ab(argv[1])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
 
     phase_build()
+    if argv == ["--k1-only"]:  # phase K1 alone
+        k1 = phase_k1(gen)[1]
+        routes = k1_route_checks()
+        k1_f32 = phase_k1_f32(gen)
+        print(json.dumps({"k1": k1, "k1_f32": k1_f32,
+                          "routes": {f"{c}x{ch}": r
+                                     for (c, ch), r in routes.items()}}),
+              flush=True)
+        return 0
     if argv == ["--tp-only"]:  # phase tp alone, after the engine it needs
         main_res = phase_main(card)
         tp_res = phase_tp(card, main_res["engine"], main_res["prompts"],
@@ -5625,6 +6007,8 @@ def main(argv) -> int:
         print(json.dumps({"serve-view": view_res}, default=str), flush=True)
         return 0
     k1_err, k1 = phase_k1(gen)
+    k1_route_checks()
+    k1_f32 = phase_k1_f32(gen)
     k2_err, k2 = phase_k2(gen)
     k3_err, k3 = phase_k3(gen)
     main_res = phase_main(card)
@@ -5716,7 +6100,30 @@ def main(argv) -> int:
                      "batch",
          "backward": "plain torch (autograd through ffn_reference), as "
                      "JAX trains through XLA's FFN",
-         "backward_max_abs_err": train_res["k1_grad_err"]},
+         "backward_max_abs_err": train_res["k1_grad_err"],
+         "f32_ms": k1_f32["image"]["ms"],
+         "f32_kernel_ms": k1_f32["image"]["kernel_ms"],
+         "f32_plain_ms": k1_f32["image"]["plain_ms"],
+         "f32_bound_ms": k1_f32["image"]["bound_ms"],
+         "f32_bound_by": "operations",
+         "f32_cuda_core_ms": k1_f32["image"]["cuda_core_ms"],
+         "f32_library_chain_ms": k1_f32["image"]["chain_ms"],
+         "f32_max_abs_err": max(k1_f32["max_abs"],
+                                train_res["f32"]["k1_max_abs"]),
+         "f32_timed_as": "44 calls of one 1024 px image, float32, with ls "
+                         "(as training calls it); bound: 3xTF32, three "
+                         "TF32 products a product at 494.7 TFLOP/s, or the "
+                         "bytes; cuda_core_ms: the f32 FLOPs at the CUDA "
+                         "cores' 66.9 TFLOP/s (context); library_chain_ms: "
+                         "addmm-gelu-addmm-add in f32 cuBLAS with TF32 off, "
+                         "context only; max_abs_err also over the "
+                         "training batch's five widths (N = 4 images' "
+                         "rows, ls and ls=None); train-f32: 44 a step of a "
+                         "full-width float32 SFT (tower frozen)",
+         "f32_stages": k1_f32["stages"],
+         "f32_train": {k: train_res["f32"][k] for k in (
+             "median_ms", "profile_wall_ms", "profile_kernel_ms",
+             "k1_kernel_ms", "k1_share", "peak_gib", "loss_rel_diff")}},
         {"name": "decode_attention", "route": "cuda",
          "source": "fastvlm_tpu_torch/csrc/decode_attention.cu",
          "replaces": "fastvlm_tpu/ops/pallas/decode_attention.py:167",

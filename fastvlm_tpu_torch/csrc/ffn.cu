@@ -61,10 +61,43 @@
 //    dynamic shared-memory attribute is set once per kernel instantiation;
 //    the workspace of the two-pass route is the caller's (ops/cuda/ffn.py
 //    keeps one per stream).
-//  * f32 inputs take a plain FMA tile kernel (no TF32), kept simple: it is
-//    not on the bf16 main path.
 //  The fused route stays on cp.async: fed by TMA from a producer
 //  warpgroup it measured slower.
+//
+// Design (f32; train_sft's default dtype, so every training step of the
+// frozen tower runs it 44 times over the batch's rows):
+//  * Numerics as the Pallas kernel's in f32: products to f32 accuracy, the
+//    hidden gelu_erf(t @ W1 + b1) kept in f32, the epilogue in f32. The
+//    bound is the tensor cores' in f32 accuracy: 3 x 16*N*C^2 TF32 FLOPs
+//    at the H100 SXM's 494.7 TFLOP/s (58.6 us at 4096 x 384), or the
+//    bytes, the larger; at its CUDA cores' f32 rate (66.9 TFLOP/s) the
+//    FLOPs alone would take 2.3x as long.
+//  * 3xTF32: each operand is split into a TF32 high part and a low part
+//    (split_tf32) and each product accumulates lo*hi + hi*lo + hi*hi in
+//    f32, which errs by ~2^-21 relative where plain TF32 errs by 2^-11
+//    (a different result, and past the 1e-4 tolerance at C = 1536). The
+//    tensor cores' f32 accumulation truncates; the two-pass GEMM adds
+//    each k-tile's products into its f32 sum in registers.
+//  * The products issue as mma.sync m16n8k8 TF32, not wgmma: wgmma takes
+//    TF32 operands K-major only, and W1 (C, 4C) and W2 (4C, C) are stored
+//    N-major, so wgmma would need a transposed, split copy of both weights
+//    every call (4C^2 floats each, 38 MB at C = 1536). mma.sync reads B
+//    from shared memory in any layout and splits in registers: A fragments
+//    by ldmatrix (an 8 x 8 b16 matrix is an 8 x 4 f32 one), B fragments by
+//    single loads, split once a k8 step and reused across a warp's tiles.
+//  * Fused route, C = 96 / 192 (ffn_f32_fused_kernel): fc1 computed once a
+//    128-row tile, as the TPU kernel keeps its hidden in VMEM scratch. The
+//    t rows stay in shared memory, W1 / W2 stream in BH-wide hidden chunks
+//    (2-stage cp.async ring), each chunk's f32 hidden passes through a
+//    shared tile, and the 128 x C fc2 accumulator stays in registers.
+//  * Two-pass route, C % 128 == 0 (ffn_f32_gemm_kernel twice): pass 1
+//    writes the f32 hidden to the caller's workspace (N x 4C x 4 bytes:
+//    101 MB at stage 2 of a batch of 4, past L2), pass 2 reads it once with
+//    the b2 / ls / residual epilogue; depth splits and ffn_reduce_kernel
+//    where the grid would not fill the card, as in bf16.
+//  * Any other (C, Ch), e.g. the small widths of test and tiny models:
+//    ffn_f32_kernel, plain f32 FMA tiles. The route is fixed by (C, Ch)
+//    alone (ffn_route), the same rule as bf16's; there is no fallback.
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -77,6 +110,9 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ void store(bf16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
 
 __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.70710678118654752440f));
@@ -672,11 +708,13 @@ ffn_gelu_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
-// out = residual + ls * (sum over splits, in split order, + b2)
+// out = residual + ls * (sum over splits, in split order, + b2), in T
+// (bf16, or f32 for the f32 route)
+template <typename T>
 __global__ void __launch_bounds__(256)
 ffn_reduce_kernel(const float* __restrict__ partial, int splits,
-                  const bf16* __restrict__ res, const bf16* __restrict__ b2,
-                  const bf16* __restrict__ ls, bf16* __restrict__ out, int n, int c) {
+                  const T* __restrict__ res, const T* __restrict__ b2,
+                  const T* __restrict__ ls, T* __restrict__ out, int n, int c) {
   const size_t total = (size_t)n * c;
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total;
        i += (size_t)gridDim.x * blockDim.x) {
@@ -685,7 +723,7 @@ ffn_reduce_kernel(const float* __restrict__ partial, int splits,
     const int col = (int)(i % c);
     o += to_f(b2[col]);
     if (ls != nullptr) o *= to_f(ls[col]);
-    out[i] = __float2bfloat16(to_f(res[i]) + o);
+    store(out + i, to_f(res[i]) + o);
   }
 }
 
@@ -709,24 +747,29 @@ int sm_count() {
 bool fused_width(int c) { return c == 96 || c == 192; }
 bool two_pass_width(int c) { return c % 128 == 0; }
 
-// Depth splits of pass 2: double while the doubled grid still fits in one
-// wave and each split keeps a whole number of 64-deep tiles.
-int pass2_splits(int n, int c) {
+// Depth splits of pass 2 (128 x 128 output tiles in either dtype): double
+// while the doubled grid still fits in one wave and each split keeps a
+// whole number of bk-deep tiles (64 in bf16, 32 in f32).
+int pass2_splits(int n, int c, int bk) {
   const int blocks = ((n + G_BM - 1) / G_BM) * (c / G_BN);
   const int ch = 4 * c;
   int splits = 1;
-  while (blocks * splits * 2 <= sm_count() && (ch / (splits * 2)) % G_BK == 0 &&
+  while (blocks * splits * 2 <= sm_count() && (ch / (splits * 2)) % bk == 0 &&
          splits < 8)
     splits *= 2;
   return splits;
 }
 
-// bytes of workspace the two-pass route needs: the bf16 hidden, then the
-// f32 partials of a split pass 2
-size_t two_pass_workspace(int n, int c) {
-  const size_t hidden = ((size_t)n * 4 * c * 2 + 255) / 256 * 256;
-  const int splits = pass2_splits(n, c);
-  return hidden + (splits > 1 ? (size_t)splits * n * c * 4 : 0);
+// bytes of the two-pass route's hidden, elem bytes an element
+size_t hidden_bytes(int n, int c, int elem) {
+  return ((size_t)n * 4 * c * elem + 255) / 256 * 256;
+}
+
+// bytes of workspace the two-pass route needs: the hidden (bf16, or f32 for
+// the f32 route), then the f32 partials of a split pass 2
+size_t two_pass_workspace(int n, int c, int elem, int bk) {
+  const int splits = pass2_splits(n, c, bk);
+  return hidden_bytes(n, c, elem) + (splits > 1 ? (size_t)splits * n * c * 4 : 0);
 }
 
 template <int C, int WGS>
@@ -815,7 +858,7 @@ cudaError_t launch_pass1(const void* a, const void* bm, int m, int n, int k,
 cudaError_t launch_pass2(const void* hidden, const void* res, const void* w2,
                          const void* b2, const void* ls, void* out, float* partial, int n,
                          int c, cudaStream_t stream) {
-  const int splits = pass2_splits(n, c);
+  const int splits = pass2_splits(n, c, G_BK);
   if (splits == 1)
     return launch_gemm<EPI_OUT>(hidden, w2, n, c, 4 * c, 1, b2, ls, res, out, nullptr,
                                 stream);
@@ -824,7 +867,7 @@ cudaError_t launch_pass2(const void* hidden, const void* res, const void* w2,
   if (err != cudaSuccess) return err;
   const size_t total = (size_t)n * c;
   const size_t want = (total + 255) / 256, cap = (size_t)sm_count() * 8;
-  ffn_reduce_kernel<<<(int)(want < cap ? want : cap), 256, 0, stream>>>(
+  ffn_reduce_kernel<bf16><<<(int)(want < cap ? want : cap), 256, 0, stream>>>(
       partial, splits, (const bf16*)res, (const bf16*)b2, (const bf16*)ls, (bf16*)out, n, c);
   return cudaGetLastError();
 }
@@ -835,7 +878,7 @@ cudaError_t two_pass(const void* t, const void* res, const void* w1, const void*
   if (workspace == nullptr) return cudaErrorInvalidValue;
   bf16* hidden = static_cast<bf16*>(workspace);
   float* partial = reinterpret_cast<float*>(
-      static_cast<char*>(workspace) + ((size_t)n * 4 * c * 2 + 255) / 256 * 256);
+      static_cast<char*>(workspace) + hidden_bytes(n, c, 2));
   const cudaError_t err = launch_pass1(t, w1, n, 4 * c, c, b1, hidden, stream);
   if (err != cudaSuccess) return err;
   return launch_pass2(hidden, res, w2, b2, ls, out, partial, n, c, stream);
@@ -852,9 +895,346 @@ cudaError_t fused(const void* t, const void* res, const void* w1, const void* b1
 }
 
 // ---------------------------------------------------------------------------
-// f32 route: plain FMA tiles (full f32, no TF32), any C and Ch
+// f32 route on the tensor cores: 3xTF32 on mma.sync (FastViTHD's widths)
 // ---------------------------------------------------------------------------
 
+// x = hi + lo for the tensor cores' TF32 (10 explicit mantissa bits): hi
+// is x rounded to 10 bits (half an ulp added to the bits, then the low 13
+// cleared), lo = x - hi, exact in f32 and passed as it is: the tensor
+// cores read a TF32 operand's top 19 bits, so lo enters truncated to 10
+// bits. hi*hi + hi*lo + lo*hi misses x*y by lo*lo and lo's truncation,
+// about 2^-21 of |x*y|: f32 accuracy, where one TF32 product errs by
+// 2^-11. (cvt.rna.tf32.f32 compiles to a longer sequence, with NaN / Inf
+// checks: the whole f32 route measured 14% slower with it and lo rounded
+// too, at the same errors, on an NVIDIA H100 80GB HBM3 at 700 W.)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a @ b, m16n8k8, TF32 operands, f32 accumulator
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8 x 8 b16 matrices, i.e. four 8 x 4 f32 ones: register q of lane l
+// holds float (l % 4) of row l / 4 of matrix q, whose rows lanes 8q..8q+7
+// address
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// 16-byte cp.async; ok = false fills the 16 bytes with zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 16 : 0));
+}
+
+// A warp's tile product in 3xTF32: acc[i][j] (the 16 x 8 output tile i, j)
+// += A (16 MI rows, K contiguous, lda floats a row, shared address a) @ B
+// (K x 8 NJ, N contiguous, ldb floats a row, at b) over KS k8 steps. Each
+// product is lo*hi, then hi*lo, then hi*hi into the one accumulator.
+//  A fragments come by ldmatrix: lanes 0-15 address rows 0-15 at k 0-3,
+//  lanes 16-31 rows 0-15 at k 4-7, which lands as a0..a3 of m16n8k8's A
+//  (row g = lane / 4, k t = lane % 4; row g + 8; k t + 4). lda = 4 mod 32
+//  puts the 8 rows of a matrix on distinct 16-byte bank groups.
+//  B fragments (b0: k t, column g; b1: k t + 4) are single loads;
+//  ldb = 8 mod 32 puts a warp's 32 loads on 32 banks.
+// Each fragment is split once a k8 step and used by NJ (A) or MI (B)
+// products.
+template <int MI, int NJ, int KS>
+__device__ __forceinline__ void mma_3xtf32(float (&acc)[MI][NJ][4], uint32_t a, int lda,
+                                           const float* b, int ldb) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const uint32_t a_lane = a + ((lane % 16) * lda + (lane / 16) * 4) * 4;
+  const float* b_lane = b + t * ldb + g;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    uint32_t ah[MI][4], al[MI][4], bh[NJ][2], bl[NJ][2];
+#pragma unroll
+    for (int i = 0; i < MI; ++i) ldsm_x4(ah[i], a_lane + (i * 16 * lda + ks * 8) * 4);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      split_tf32(b_lane[ks * 8 * ldb + 8 * j], bh[j][0], bl[j][0]);
+      split_tf32(b_lane[(ks * 8 + 4) * ldb + 8 * j], bh[j][1], bl[j][1]);
+    }
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) split_tf32(__uint_as_float(ah[i][q]), ah[i][q], al[i][q]);
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        mma_tf32(acc[i][j], al[i], bh[j][0], bh[j][1]);
+        mma_tf32(acc[i][j], ah[i], bl[j][0], bl[j][1]);
+        mma_tf32(acc[i][j], ah[i], bh[j][0], bh[j][1]);
+      }
+  }
+}
+
+// Fused f32 route, C = 96 / 192: a block of 256 threads owns BM = 128 rows
+// for the whole call. Its t rows stay in shared memory; W1 / W2 stream in
+// BH-wide hidden chunks through a 2-stage cp.async ring, the next chunk
+// copied while this one computes. A chunk is two products:
+//  fc1: the 128 x BH hidden chunk = t @ W1[:, chunk], 8 warps of 32 x BH/2,
+//       + b1 and erff GELU in f32 into a shared tile (no rounding);
+//  fc2: acc (128 x C, f32 registers across all chunks) += hidden chunk @
+//       W2[chunk, :], 8 warps of 64 x C/4.
+// The hidden goes through shared memory, not registers: fc2's warps then
+// take 64 rows each, so a W2 fragment serves 4 row tiles. BH = 64 at
+// C = 96; 32 at C = 192, where the t rows take 100,352 bytes and the
+// whole 231,424 of the 232,448 a block may use.
+template <int C, int BH>
+struct F32Fused {
+  static constexpr int BM = 128, THREADS = 256, STAGES = 2;
+  static constexpr int LDT = C + 4, LDW1 = BH + 8, LDW2 = C + 8, LDH = BH + 4;
+  static constexpr int T_F = BM * LDT, W1_F = C * LDW1, W2_F = BH * LDW2, H_F = BM * LDH;
+  static constexpr int STAGE_F = W1_F + W2_F;
+  static constexpr int SMEM = (T_F + H_F + STAGES * STAGE_F) * 4;
+  static constexpr int NJ1 = BH / 16, NJ2 = C / 32;  // 8-column tiles of a warp
+  static_assert(C % 32 == 0 && BH % 16 == 0 && (4 * C) % BH == 0, "tile shapes");
+  static_assert(SMEM <= 232448, "tiles exceed shared memory");
+};
+
+template <int C, int BH>
+__global__ void __launch_bounds__(256, 1)
+ffn_f32_fused_kernel(const float* __restrict__ t, const float* __restrict__ res,
+                     const float* __restrict__ w1, const float* __restrict__ b1,
+                     const float* __restrict__ w2, const float* __restrict__ b2,
+                     const float* __restrict__ ls, float* __restrict__ out, int n) {
+  using F = F32Fused<C, BH>;
+  constexpr int CH = 4 * C, NCHUNK = CH / BH;
+  extern __shared__ __align__(16) float fsm[];
+  float* ts = fsm;
+  float* hs = fsm + F::T_F;
+  float* ring = hs + F::H_F;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int m0 = blockIdx.x * F::BM;
+
+  // hidden chunk i: W1[:, i*BH : +BH] (C rows) and W2[i*BH : +BH, :] (BH rows)
+  auto load_chunk = [&](int i) {
+    float* w1s = ring + (i % F::STAGES) * F::STAGE_F;
+    float* w2s = w1s + F::W1_F;
+#pragma unroll 4
+    for (int q = tid; q < C * BH / 4; q += F::THREADS) {
+      const int r = q / (BH / 4), c = q % (BH / 4);
+      cp_async16(smem_u32(w1s + r * F::LDW1 + 4 * c), w1 + (size_t)r * CH + i * BH + 4 * c, true);
+    }
+#pragma unroll 4
+    for (int q = tid; q < BH * C / 4; q += F::THREADS) {
+      const int r = q / (C / 4), c = q % (C / 4);
+      cp_async16(smem_u32(w2s + r * F::LDW2 + 4 * c), w2 + (size_t)(i * BH + r) * C + 4 * c,
+                 true);
+    }
+  };
+#pragma unroll 4
+  for (int q = tid; q < F::BM * C / 4; q += F::THREADS) {
+    const int r = q / (C / 4), c = q % (C / 4), row = m0 + r;
+    cp_async16(smem_u32(ts + r * F::LDT + 4 * c), t + (size_t)min(row, n - 1) * C + 4 * c,
+               row < n);  // rows past n are zeros and are not written
+  }
+  load_chunk(0);
+  cp_async_commit();
+
+  float acc[4][F::NJ2][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < F::NJ2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  const int am = (warp % 4) * 32, an = (warp / 4) * (BH / 2);  // fc1 warp tile
+  const int bm = (warp % 2) * 64, bn = (warp / 2) * (C / 4);   // fc2 warp tile
+
+#pragma unroll 1
+  for (int i = 0; i < NCHUNK; ++i) {
+    cp_async_wait<0>();
+    __syncthreads();  // chunk i has landed; every warp is past fc2 of chunk i - 1
+    if (i + 1 < NCHUNK) load_chunk(i + 1);  // into the stage chunk i - 1 used
+    cp_async_commit();
+    const float* w1s = ring + (i % F::STAGES) * F::STAGE_F;
+    const float* w2s = w1s + F::W1_F;
+    {
+      float h[2][F::NJ1][4];
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int j = 0; j < F::NJ1; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) h[a][j][e] = 0.f;
+      mma_3xtf32<2, F::NJ1, C / 8>(h, smem_u32(ts + am * F::LDT), F::LDT, w1s + an, F::LDW1);
+#pragma unroll
+      for (int j = 0; j < F::NJ1; ++j) {
+        const int col = an + 8 * j + 2 * tq;
+        const float2 bb = *reinterpret_cast<const float2*>(b1 + i * BH + col);
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+#pragma unroll
+          for (int half = 0; half < 2; ++half)
+            *reinterpret_cast<float2*>(hs + (am + 16 * a + g + 8 * half) * F::LDH + col) =
+                make_float2(gelu_erf(h[a][j][2 * half] + bb.x),
+                            gelu_erf(h[a][j][2 * half + 1] + bb.y));
+      }
+    }
+    __syncthreads();  // the hidden chunk is whole
+    mma_3xtf32<4, F::NJ2, BH / 8>(acc, smem_u32(hs + bm * F::LDH), F::LDH, w2s + bn, F::LDW2);
+  }
+
+  // epilogue: out = residual + ls * (acc + b2), f32
+#pragma unroll
+  for (int j = 0; j < F::NJ2; ++j) {
+    const int col = bn + 8 * j + 2 * tq;
+    const float2 bb = *reinterpret_cast<const float2*>(b2 + col);
+    const float2 s = ls != nullptr ? *reinterpret_cast<const float2*>(ls + col)
+                                   : make_float2(1.f, 1.f);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = m0 + bm + 16 * a + g + 8 * half;
+        if (row < n) {
+          const size_t at = (size_t)row * C + col;
+          const float2 r = *reinterpret_cast<const float2*>(res + at);
+          *reinterpret_cast<float2*>(out + at) =
+              make_float2(r.x + (acc[a][j][2 * half] + bb.x) * s.x,
+                          r.y + (acc[a][j][2 * half + 1] + bb.y) * s.y);
+        }
+      }
+  }
+}
+
+// Two-pass f32 route, C % 128 == 0: pass 1 writes the f32 hidden
+// gelu(t @ W1 + b1) to the workspace (N x 4C: 101 MB at C = 384 and a
+// batch of 4 images, past the 50 MB L2, so in f32 to keep f32 numerics),
+// pass 2 computes residual + ls * (H @ W2 + b2). Both run this GEMM: 128 x
+// 128 tiles, 32 deep a stage, a 3-stage cp.async ring, 8 warps of 64 x 32.
+// Each 32-deep tile's 12 mma steps accumulate in a zeroed register tile,
+// then added to the f32 sum (round to nearest): the tensor cores' f32
+// accumulation truncates, so its error grows with the steps summed into
+// one accumulator (1.5 C of them in pass 2 without this: at C = 1536 the
+// route's largest error against ffn_reference was 2.5x as large, for 3%
+// less time, NVIDIA H100 80GB HBM3 at 700 W). The fused route sums at
+// most 288 steps (fc2 at C = 192) and has no registers to spare for it.
+//  F32_GELU:    out = gelu(A @ B + bias)
+//  F32_OUT:     out = res + ls * (A @ B + bias)   (ls may be null)
+//  F32_PARTIAL: out[z] = A @ B over depth slice z (ffn_reduce_kernel<float>
+//               adds them in split order and applies F32_OUT's epilogue)
+// A is (m x k) row-major, B (k x n) row-major; grid (ceil(m / 128), n / 128,
+// splits), each split kps = k / splits deep. Rows past m load zeros.
+enum EpiF32 { F32_GELU = 0, F32_OUT = 1, F32_PARTIAL = 2 };
+constexpr int X_BM = 128, X_BN = 128, X_BK = 32, X_THREADS = 256, X_STAGES = 3;
+constexpr int X_LDA = X_BK + 4, X_LDB = X_BN + 8;
+constexpr int X_A_F = X_BM * X_LDA, X_STAGE_F = X_A_F + X_BK * X_LDB;
+constexpr int X_SMEM = X_STAGES * X_STAGE_F * 4;
+
+template <int EPI>
+__global__ void __launch_bounds__(X_THREADS, 1)
+ffn_f32_gemm_kernel(const float* __restrict__ a, const float* __restrict__ b, int m, int n,
+                    int k, int kps, const float* __restrict__ bias,
+                    const float* __restrict__ ls, const float* __restrict__ res,
+                    float* __restrict__ out) {
+  extern __shared__ __align__(16) float fsm[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int m0 = blockIdx.x * X_BM, n0 = blockIdx.y * X_BN, kb = blockIdx.z * kps;
+  const int ktiles = kps / X_BK;
+  auto load = [&](int s, int kt) {
+    float* as = fsm + s * X_STAGE_F;
+    float* bs = as + X_A_F;
+    const int k0 = kb + kt * X_BK;
+#pragma unroll
+    for (int q = tid; q < X_BM * X_BK / 4; q += X_THREADS) {
+      const int r = q / (X_BK / 4), c = q % (X_BK / 4), row = m0 + r;
+      cp_async16(smem_u32(as + r * X_LDA + 4 * c), a + (size_t)min(row, m - 1) * k + k0 + 4 * c,
+                 row < m);
+    }
+#pragma unroll
+    for (int q = tid; q < X_BK * X_BN / 4; q += X_THREADS) {
+      const int r = q / (X_BN / 4), c = q % (X_BN / 4);
+      cp_async16(smem_u32(bs + r * X_LDB + 4 * c), b + (size_t)(k0 + r) * n + n0 + 4 * c, true);
+    }
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  const int wm = (warp % 2) * 64, wn = (warp / 2) * 32;
+#pragma unroll
+  for (int s = 0; s < X_STAGES - 1; ++s) {
+    if (s < ktiles) load(s, s);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<X_STAGES - 2>();
+    __syncthreads();  // tile kt has landed; every warp is done with tile kt - 1
+    if (kt + X_STAGES - 1 < ktiles) load((kt + X_STAGES - 1) % X_STAGES, kt + X_STAGES - 1);
+    cp_async_commit();
+    const float* as = fsm + (kt % X_STAGES) * X_STAGE_F;
+    float part[4][4][4];  // this k-tile's products, added to acc in f32
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
+    mma_3xtf32<4, 4, X_BK / 8>(part, smem_u32(as + wm * X_LDA), X_LDA, as + X_A_F + wn, X_LDB);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+  }
+
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int col = n0 + wn + 8 * j + 2 * tq;
+    float2 bb = make_float2(0.f, 0.f), s = make_float2(1.f, 1.f);
+    if (EPI != F32_PARTIAL) bb = *reinterpret_cast<const float2*>(bias + col);
+    if (EPI == F32_OUT && ls != nullptr) s = *reinterpret_cast<const float2*>(ls + col);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = m0 + wm + 16 * i + g + 8 * half;
+        if (row >= m) continue;
+        const size_t at = (size_t)row * n + col;
+        const float v0 = acc[i][j][2 * half], v1 = acc[i][j][2 * half + 1];
+        if (EPI == F32_GELU) {
+          *reinterpret_cast<float2*>(out + at) =
+              make_float2(gelu_erf(v0 + bb.x), gelu_erf(v1 + bb.y));
+        } else if (EPI == F32_OUT) {
+          const float2 r = *reinterpret_cast<const float2*>(res + at);
+          *reinterpret_cast<float2*>(out + at) =
+              make_float2(r.x + (v0 + bb.x) * s.x, r.y + (v1 + bb.y) * s.y);
+        } else {
+          *reinterpret_cast<float2*>(out + (size_t)blockIdx.z * m * n + at) =
+              make_float2(v0, v1);
+        }
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32 route, general shapes: plain FMA tiles (full f32), any C and Ch
+// ---------------------------------------------------------------------------
+
+// Every (32-row, 64-column) block computes fc1 of its 32 rows in full, so
+// fc1 runs once a row tile where C <= 64 (the port's small test and
+// training widths) and ceil(C / 64) times above.
 constexpr int F_BM = 32, F_BN = 64, F_BH = 32, F_BK = 32;
 
 __global__ void __launch_bounds__(256)
@@ -932,6 +1312,94 @@ ffn_f32_kernel(const float* __restrict__ t, const float* __restrict__ res,
     }
 }
 
+// ---------------------------------------------------------------------------
+// host side of the f32 route
+// ---------------------------------------------------------------------------
+
+// The route of a shape, for either dtype, fixed by (C, Ch) alone:
+// ROUTE_FUSED and ROUTE_TWO_PASS are the bf16 route's widths; every other
+// shape is ROUTE_GENERAL, which only f32 has. ops/cuda/ffn.py::kernel_route
+// mirrors this rule.
+enum Route { ROUTE_GENERAL = 0, ROUTE_FUSED = 1, ROUTE_TWO_PASS = 2 };
+int ffn_route(int c, int ch) {
+  if (ch != 4 * c) return ROUTE_GENERAL;
+  if (fused_width(c)) return ROUTE_FUSED;
+  if (two_pass_width(c)) return ROUTE_TWO_PASS;
+  return ROUTE_GENERAL;
+}
+
+static_assert(X_BM == G_BM && X_BN == G_BN, "pass2_splits counts 128 x 128 tiles");
+
+template <int C, int BH>
+cudaError_t launch_f32_fused(const void* t, const void* res, const void* w1, const void* b1,
+                             const void* w2, const void* b2, const void* ls, void* out, int n,
+                             cudaStream_t stream) {
+  using F = F32Fused<C, BH>;
+  static cudaError_t attr = cudaFuncSetAttribute(
+      ffn_f32_fused_kernel<C, BH>, cudaFuncAttributeMaxDynamicSharedMemorySize, F::SMEM);
+  if (attr != cudaSuccess) return attr;
+  ffn_f32_fused_kernel<C, BH><<<(n + F::BM - 1) / F::BM, F::THREADS, F::SMEM, stream>>>(
+      (const float*)t, (const float*)res, (const float*)w1, (const float*)b1, (const float*)w2,
+      (const float*)b2, (const float*)ls, (float*)out, n);
+  return cudaGetLastError();
+}
+
+template <int EPI>
+cudaError_t launch_f32_gemm(const float* a, const float* b, int m, int n, int k, int splits,
+                            const float* bias, const float* ls, const float* res, float* out,
+                            cudaStream_t stream) {
+  static cudaError_t attr = cudaFuncSetAttribute(
+      ffn_f32_gemm_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, X_SMEM);
+  if (attr != cudaSuccess) return attr;
+  dim3 grid((m + X_BM - 1) / X_BM, n / X_BN, splits);
+  ffn_f32_gemm_kernel<EPI><<<grid, X_THREADS, X_SMEM, stream>>>(a, b, m, n, k, k / splits, bias,
+                                                                ls, res, out);
+  return cudaGetLastError();
+}
+
+cudaError_t f32_fused(const void* t, const void* res, const void* w1, const void* b1,
+                      const void* w2, const void* b2, const void* ls, void* out, int n, int c,
+                      cudaStream_t stream) {
+  switch (c) {
+    case 96: return launch_f32_fused<96, 64>(t, res, w1, b1, w2, b2, ls, out, n, stream);
+    case 192: return launch_f32_fused<192, 32>(t, res, w1, b1, w2, b2, ls, out, n, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t f32_two_pass(const float* t, const float* res, const float* w1, const float* b1,
+                         const float* w2, const float* b2, const float* ls, float* out,
+                         void* workspace, int n, int c, cudaStream_t stream) {
+  if (workspace == nullptr) return cudaErrorInvalidValue;
+  float* hidden = static_cast<float*>(workspace);
+  float* partial =
+      reinterpret_cast<float*>(static_cast<char*>(workspace) + hidden_bytes(n, c, 4));
+  cudaError_t err = launch_f32_gemm<F32_GELU>(t, w1, n, 4 * c, c, 1, b1, nullptr, nullptr,
+                                              hidden, stream);
+  if (err != cudaSuccess) return err;
+  const int splits = pass2_splits(n, c, X_BK);
+  if (splits == 1)
+    return launch_f32_gemm<F32_OUT>(hidden, w2, n, c, 4 * c, 1, b2, ls, res, out, stream);
+  err = launch_f32_gemm<F32_PARTIAL>(hidden, w2, n, c, 4 * c, splits, nullptr, nullptr, nullptr,
+                                     partial, stream);
+  if (err != cudaSuccess) return err;
+  const size_t total = (size_t)n * c;
+  const size_t want = (total + 255) / 256, cap = (size_t)sm_count() * 8;
+  ffn_reduce_kernel<float><<<(int)(want < cap ? want : cap), 256, 0, stream>>>(
+      partial, splits, res, b2, ls, out, n, c);
+  return cudaGetLastError();
+}
+
+cudaError_t f32_general(const void* t, const void* res, const void* w1, const void* b1,
+                        const void* w2, const void* b2, const void* ls, void* out, int n,
+                        int c, int ch, cudaStream_t stream) {
+  dim3 grid((n + F_BM - 1) / F_BM, (c + F_BN - 1) / F_BN);
+  ffn_f32_kernel<<<grid, 256, 0, stream>>>(
+      (const float*)t, (const float*)res, (const float*)w1, (const float*)b1, (const float*)w2,
+      (const float*)b2, (const float*)ls, (float*)out, n, c, ch);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -940,12 +1408,18 @@ const char* fvlm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// The route fvlm_fused_ffn takes for (c, ch): 0 general (f32 only), 1 fused,
+// 2 two passes.
+int fvlm_ffn_route(int c, int ch) { return ffn_route(c, ch); }
+
 // Bytes of workspace fvlm_fused_ffn needs for this shape (0: none; -1: the
 // bf16 kernel does not take this shape).
 long long fvlm_ffn_workspace(int n, int c, int ch, int dtype) {
-  if (dtype == 0) return 0;
-  if (ch != 4 * c || !(fused_width(c) || two_pass_width(c))) return -1;
-  return two_pass_width(c) ? (long long)two_pass_workspace(n, c) : 0;
+  const int route = ffn_route(c, ch);
+  if (dtype == 0)
+    return route == ROUTE_TWO_PASS ? (long long)two_pass_workspace(n, c, 4, X_BK) : 0;
+  if (route == ROUTE_GENERAL) return -1;
+  return route == ROUTE_TWO_PASS ? (long long)two_pass_workspace(n, c, 2, G_BK) : 0;
 }
 
 // t, res, out: (n, c); w1: (c, ch); w2: (ch, c); b1: (ch,); b2, ls: (c,),
@@ -958,11 +1432,15 @@ int fvlm_fused_ffn(const void* t, const void* res, const void* w1, const void* b
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    dim3 grid((n + F_BM - 1) / F_BM, (c + F_BN - 1) / F_BN);
-    ffn_f32_kernel<<<grid, 256, 0, s>>>(
-        (const float*)t, (const float*)res, (const float*)w1, (const float*)b1,
-        (const float*)w2, (const float*)b2, (const float*)ls, (float*)out, n, c, ch);
-    err = cudaGetLastError();
+    switch (ffn_route(c, ch)) {
+      case ROUTE_FUSED: err = f32_fused(t, res, w1, b1, w2, b2, ls, out, n, c, s); break;
+      case ROUTE_TWO_PASS:
+        err = f32_two_pass((const float*)t, (const float*)res, (const float*)w1,
+                           (const float*)b1, (const float*)w2, (const float*)b2,
+                           (const float*)ls, (float*)out, workspace, n, c, s);
+        break;
+      default: err = f32_general(t, res, w1, b1, w2, b2, ls, out, n, c, ch, s);
+    }
   } else if (dtype == 1 && ch == 4 * c) {
     if (fused_width(c))
       err = fused(t, res, w1, b1, w2, b2, ls, out, n, c, s);

@@ -1,16 +1,19 @@
 """Kernel K1: fused ConvFFN pointwise half, out = residual + ls * (gelu(t@W1+b1)@W2+b2).
 
 The port of ``fastvlm_tpu/ops/pallas/ffn.py``. The kernel is hand-written
-CUDA C++ for sm_90a (``csrc/ffn.cu``: wgmma for bf16, fc1 -> GELU -> fc2 in
-registers up to C = 192 and two passes through an L2-resident bf16 hidden
-above; plain f32 FMA tiles for f32), built at first use by ``_build.py`` and
-called through ctypes. ``ffn_reference`` is the same formula in plain
+CUDA C++ for sm_90a (``csrc/ffn.cu``), built at first use by ``_build.py``
+and called through ctypes. ``ffn_reference`` is the same formula in plain
 PyTorch: the CPU path and the oracle the kernel is held against on the
 card.
 
-Routing is by device only: a CPU tensor takes ``ffn_reference``; a CUDA
-tensor launches the kernel or raises. ``fused_ffn.launches`` counts kernel
-launches.
+Routing: a CPU tensor takes ``ffn_reference``; a CUDA tensor launches the
+kernel or raises. ``fused_ffn.launches`` counts kernel launches. The kernel
+picks its route by (C, Ch) alone, as ``kernel_route`` mirrors: "fused" (C =
+96 / 192, Ch = 4C: fc1 -> GELU -> fc2 without the hidden leaving the chip),
+"two-pass" (C % 128 == 0, Ch = 4C: the hidden through the workspace), or
+"general" (any other shape; f32 only, bf16 refuses it). bf16 runs on wgmma;
+f32 on the tensor cores in 3xTF32 (f32 accuracy) on the fused and two-pass
+routes and in plain f32 FMA tiles on the general one.
 
 Training: the ctypes launch writes a fresh tensor that autograd cannot see,
 so ``fused_ffn`` raises on a CUDA input that requires grad (with grad
@@ -42,6 +45,18 @@ from fastvlm_tpu_torch.ops.cuda import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 BF16_WIDTHS = (96, 192, 384, 768, 1536)  # FastViTHD's stage widths
+ROUTES = ("general", "fused", "two-pass")  # csrc/ffn.cu's Route codes
+
+
+def kernel_route(c: int, ch: int) -> str:
+    """The route the kernel takes for width C and hidden width Ch, in
+    either dtype (``csrc/ffn.cu::ffn_route``; ``fvlm_ffn_route`` answers
+    the same on the card)."""
+    if ch == 4 * c and c in (96, 192):
+        return "fused"
+    if ch == 4 * c and c % 128 == 0:
+        return "two-pass"
+    return "general"
 
 
 def _gelu_erf(x: torch.Tensor) -> torch.Tensor:
@@ -91,8 +106,9 @@ def fused_ffn(t: torch.Tensor, residual: torch.Tensor, w1: torch.Tensor,
 
     Returns residual + ls * fc2(gelu(fc1(t))) as (N, C) in t's dtype; any N.
     On a CUDA device the kernel runs on the current stream, unsynchronised.
-    The two-pass route's workspace is kept per (device, stream): calls on
-    one stream run in order and share it, calls on two streams never do."""
+    The two-pass route's workspace (the hidden: bf16, or f32 for f32 inputs)
+    is kept per (device, stream): calls on one stream run in order and
+    share it, calls on two streams never do."""
     if t.device.type == "cpu":
         return ffn_reference(t, residual, w1, b1, w2, b2, ls)
     if torch.is_grad_enabled() and any(
@@ -110,14 +126,8 @@ def fused_ffn(t: torch.Tensor, residual: torch.Tensor, w1: torch.Tensor,
         return out
     lib = _load()
     ch, dtype = w1.shape[1], _DTYPE_CODES[t.dtype]
-    key = (n, c, ch, dtype)
-    ws_bytes = _WS_BYTES.get(key)
-    if ws_bytes is None:
-        ws_bytes = _WS_BYTES[key] = lib.fvlm_ffn_workspace(*key)
-    if ws_bytes < 0:
-        raise ValueError(f"fused_ffn: no bf16 kernel for C={c}, Ch={ch}")
     stream = torch.cuda.current_stream(t.device).cuda_stream
-    ws = _workspace(t.device, stream, ws_bytes) if ws_bytes else None
+    ws = _kernel_workspace(lib, n, c, ch, dtype, t.device, stream)
     err = lib.fvlm_fused_ffn(
         t.data_ptr(), residual.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), None if ls is None else ls.data_ptr(),
@@ -133,9 +143,22 @@ _WORKSPACES: dict = {}  # (device, stream) -> uint8 buffer
 _WS_BYTES: dict = {}  # (n, c, ch, dtype) -> the library's answer
 
 
+def _kernel_workspace(lib, n, c, ch, dtype, device, stream):
+    """The workspace address for one call (None where the route needs
+    none), its size as the library gives it for the shape."""
+    key = (n, c, ch, dtype)
+    ws_bytes = _WS_BYTES.get(key)
+    if ws_bytes is None:
+        ws_bytes = _WS_BYTES[key] = lib.fvlm_ffn_workspace(*key)
+    if ws_bytes < 0:
+        raise ValueError(f"fused_ffn: no bf16 kernel for C={c}, Ch={ch}")
+    return _workspace(device, stream, ws_bytes) if ws_bytes else None
+
+
 def _workspace(device: torch.device, stream: int, nbytes: int) -> int:
     """Address of a device buffer of at least ``nbytes`` for calls on this
-    stream, grown on demand: the two-pass route's hidden and partial sums."""
+    stream, grown on demand: the two-pass route's hidden and partial sums
+    (one buffer for both dtypes)."""
     buf = _WORKSPACES.get((device, stream))
     if buf is None or buf.numel() < nbytes:
         buf = torch.empty(nbytes, dtype=torch.uint8, device=device)
@@ -151,6 +174,8 @@ def _load():
     lib.fvlm_fused_ffn.restype = ctypes.c_int
     lib.fvlm_ffn_workspace.argtypes = [ctypes.c_int] * 4
     lib.fvlm_ffn_workspace.restype = ctypes.c_longlong
+    lib.fvlm_ffn_route.argtypes = [ctypes.c_int] * 2
+    lib.fvlm_ffn_route.restype = ctypes.c_int
     return lib
 
 

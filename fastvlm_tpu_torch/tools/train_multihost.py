@@ -11,13 +11,19 @@ rendezvous is that address instead.
 
     python -m fastvlm_tpu_torch.tools.train_multihost --simulate N
 
-is the plumbing check without a cluster: N local gloo processes through
-``torch.distributed.run --standalone``, each running the probe (``--probe``):
-one all-reduce of the ranks, and one data-parallel AdamW step of a small
-linear layer whose result every rank must hold, equal to the one-process
-step over the whole batch. Each prints ``MULTIHOST_OK <rank>/<N>``, or
-``MULTIHOST_FAIL``, on a line torchrun prefixes with ``[default<rank>]:``;
-the run fails if any process does.
+is the plumbing check without a cluster: N local gloo processes on the
+CPU through ``torch.distributed.run --standalone``, each running the probe
+(``--probe --device cpu``): one all-reduce of the ranks, and one
+data-parallel AdamW step of a small linear layer whose result every rank
+must hold, equal to the one-process step over the whole batch. Each prints
+``MULTIHOST_OK <rank>/<N>``, or ``MULTIHOST_FAIL``, on a line torchrun
+prefixes with ``[default<rank>]:``; the run fails if any process does.
+
+    python -m fastvlm_tpu_torch.tools.train_multihost --probe
+
+runs the probe in this process, on the card (NCCL) unless ``--device cpu``
+asks for the CPU, as the JAX probe runs on the default backend; start it
+on every process with torchrun.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ import sys
 import tempfile
 
 
-def probe(device: str = "cpu") -> int:
+def probe(device: str = "cuda") -> int:
     import torch
     import torch.distributed as dist
 
@@ -93,13 +99,13 @@ def simulate(n: int, device: str = "cpu", timeout: float = 600) -> int:
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    device = "cpu"
+    device = None
     if "--device" in argv:
         device = argv[argv.index("--device") + 1]
-    if argv[:1] == ["--simulate"]:
-        return simulate(int(argv[1]) if len(argv) > 1 else 2, device)
-    if argv[:1] == ["--probe"]:
-        return probe(device)
+    if argv[:1] == ["--simulate"]:  # gloo on the CPU unless asked
+        return simulate(int(argv[1]) if len(argv) > 1 else 2, device or "cpu")
+    if argv[:1] == ["--probe"]:  # the card unless asked
+        return probe(device or "cuda")
     from fastvlm_tpu_torch.train import train_sft
 
     extra = ["--multihost"]

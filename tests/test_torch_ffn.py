@@ -14,6 +14,7 @@ from fastvlm_tpu.ops.pallas import ffn as jax_ffn
 from fastvlm_tpu_torch.ops.cuda import ffn
 
 RTOL = ATOL = 1e-5
+ORDER = ("t", "residual", "w1", "b1", "w2", "b2", "ls")  # fused_ffn's
 
 
 def _inputs(n, c, seed=0):
@@ -46,6 +47,18 @@ def test_reference_matches_pallas_fused_ffn(n, c, block_rows, use_ls):
     ta = _torch(a)
     got = ffn.ffn_reference(ta["t"], ta["residual"], ta["w1"], ta["b1"],
                             ta["w2"], ta["b2"], ta["ls"] if use_ls else None)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("c", [96, 192, 384, 768, 1536])
+def test_reference_matches_pallas_at_fastvithd_widths(c):
+    """FastViTHD's five stage widths (Ch = 4C), 64 rows, f32: the widths
+    the kernel's f32 tensor-core routes take."""
+    a = _inputs(64, c, seed=c)
+    want = np.asarray(jax_ffn.fused_ffn(
+        *(jnp.asarray(a[k]) for k in ORDER), block_rows=64, interpret=True))
+    ta = _torch(a)
+    got = ffn.ffn_reference(*(ta[k] for k in ORDER))
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
@@ -151,13 +164,41 @@ def test_bf16_kernel_refuses_unsupported_widths():
     ffn._check_cuda_args(*(a[k] for k in order))
 
 
+ROUTE_CASES = [  # (C, Ch, route): csrc/ffn.cu's ffn_route
+    (96, 384, "fused"), (192, 768, "fused"),
+    (128, 512, "two-pass"), (384, 1536, "two-pass"), (768, 3072, "two-pass"),
+    (1536, 6144, "two-pass"),
+    (8, 32, "general"), (16, 64, "general"), (48, 192, "general"),
+    (64, 256, "general"), (100, 400, "general"), (288, 1152, "general"),
+    (96, 256, "general"), (192, 512, "general"), (384, 1024, "general"),
+]
+
+
+@pytest.mark.parametrize("c,ch,route", ROUTE_CASES)
+def test_kernel_route_by_shape(c, ch, route):
+    """The route the kernel takes, by (C, Ch) alone: FastViTHD's widths
+    (Ch = 4C) on the tensor-core routes, every other shape on the general
+    f32 route (which bf16 refuses). chip_smoke.py holds the library's
+    fvlm_ffn_route to this mirror on the card."""
+    assert ffn.kernel_route(c, ch) == route
+    assert route in ffn.ROUTES
+
+
+def test_fastvithd_widths_take_tensor_core_routes():
+    from fastvlm_tpu_torch.config import FastViTConfig
+
+    v = FastViTConfig()
+    routes = [ffn.kernel_route(c, c * r)
+              for c, r in zip(v.embed_dims, v.mlp_ratios)]
+    assert routes == ["fused", "fused", "two-pass", "two-pass", "two-pass"]
+
+
 def test_bf16_kernel_refuses_a_hidden_width_other_than_4c():
     order = ("t", "residual", "w1", "b1", "w2", "b2", "ls")
     a = _good_args()
     a["w1"], a["b1"], a["w2"] = a["w1"][:, :192], a["b1"][:192], a["w2"][:192]
     with pytest.raises(ValueError, match="Ch == 4C"):
         ffn._check_cuda_args(*(a[k] for k in order))
-
 
 
 def test_workspace_is_kept_per_stream():
@@ -176,12 +217,55 @@ def test_workspace_is_kept_per_stream():
         ffn._WORKSPACES.pop((dev, 102), None)
 
 
+class _StubLib:
+    """fvlm_ffn_workspace as csrc/ffn.cu answers it, with the f32 route's
+    sizes (the f32 hidden N x 4C x 4 bytes on the two-pass route, none on
+    the others) and the bf16 route's (N x 4C x 2 bytes; -1 off its
+    widths), pass 2 unsplit."""
+
+    def __init__(self):
+        self.asked = []
+
+    def fvlm_ffn_workspace(self, n, c, ch, dtype):
+        self.asked.append((n, c, ch, dtype))
+        route = ffn.kernel_route(c, ch)
+        if dtype == 1 and route == "general":
+            return -1
+        return n * ch * (4 if dtype == 0 else 2) if route == "two-pass" else 0
+
+
+def test_f32_workspace_is_kept_per_stream():
+    """The f32 two-pass route's workspace (the f32 hidden) is sized by the
+    library, kept per (device, stream), grown on demand and shared with the
+    bf16 route's on one stream; the fused and general routes take none
+    (CPU buffers, the library stubbed)."""
+    dev = torch.device("cpu")
+    lib = _StubLib()
+    try:
+        a = ffn._kernel_workspace(lib, 1000, 384, 1536, 0, dev, 201)
+        assert ffn._WORKSPACES[(dev, 201)].numel() == 1000 * 1536 * 4
+        assert ffn._kernel_workspace(lib, 1000, 384, 1536, 0, dev, 201) == a
+        assert lib.asked.count((1000, 384, 1536, 0)) == 1  # cached per shape
+        assert ffn._kernel_workspace(lib, 1000, 384, 1536, 0, dev, 202) != a
+        # the bf16 hidden of the same rows fits in the f32 one: reused
+        assert ffn._kernel_workspace(lib, 1000, 384, 1536, 1, dev, 201) == a
+        ffn._kernel_workspace(lib, 4000, 768, 3072, 0, dev, 201)  # grows
+        assert ffn._WORKSPACES[(dev, 201)].numel() == 4000 * 3072 * 4
+        for c in (96, 192, 48):
+            assert ffn._kernel_workspace(lib, 1000, c, 4 * c, 0, dev, 203) is None
+        assert (dev, 203) not in ffn._WORKSPACES
+        with pytest.raises(ValueError, match="no bf16 kernel"):
+            ffn._kernel_workspace(lib, 1000, 48, 192, 1, dev, 203)
+    finally:
+        for s in (201, 202, 203):
+            ffn._WORKSPACES.pop((dev, s), None)
+        for key in lib.asked:
+            ffn._WS_BYTES.pop(key, None)
+
+
 # ---------------------------------------------------------------------------
 # K1 under autograd: FusedFFNFunction (training with the tower unfrozen)
 # ---------------------------------------------------------------------------
-
-ORDER = ("t", "residual", "w1", "b1", "w2", "b2", "ls")
-
 
 def _grads_of(fn, a, g, use_ls):
     leaves = {k: v.clone().requires_grad_() for k, v in a.items()}
