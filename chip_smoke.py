@@ -1254,6 +1254,7 @@ def phase_serve(card, main_engine):
         paged_decode_attention)
     from fastvlm_tpu_torch.ops.sampling import SamplingParams
     from fastvlm_tpu_torch.serve.batcher import BatchScheduler
+    from fastvlm_tpu_torch.timeline import Timeline
 
     cfg = main_engine.cfg
     layers = cfg.decoder.num_layers
@@ -1272,7 +1273,7 @@ def phase_serve(card, main_engine):
         updates, K1/K2/K3 launches)."""
         sched = BatchScheduler(engine, max_batch=8, window_ms=100,
                                page_size=64, pool_tokens=16384)
-        sched.trace = []
+        sched.trace = Timeline(engine.device)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fused_ffn.launches = 0
@@ -1527,6 +1528,7 @@ def phase_serve_view(card, main_engine):
     from fastvlm_tpu_torch.ops.cuda.decode_attention import (
         decode_attention, decode_attention_reference)
     from fastvlm_tpu_torch.serve.batcher import BatchScheduler
+    from fastvlm_tpu_torch.timeline import Timeline
 
     cfg = main_engine.cfg
     layers = cfg.decoder.num_layers
@@ -1545,7 +1547,7 @@ def phase_serve_view(card, main_engine):
         counters, K1/K2/K3 launches, served tok/s, step ms, pool clean)."""
         sched = BatchScheduler(engine, max_batch=8, window_ms=100,
                                page_size=64, pool_tokens=16384, **knobs)
-        sched.trace = []
+        sched.trace = Timeline(engine.device)
         torch.cuda.synchronize()
         _zero_launches()
         try:
@@ -1769,6 +1771,7 @@ def phase_serve_15b(card):
     from fastvlm_tpu_torch.ops.cuda.paged_decode_attention import (
         paged_decode_attention)
     from fastvlm_tpu_torch.serve.batcher import BatchScheduler
+    from fastvlm_tpu_torch.timeline import Timeline
 
     decoder = C.qwen2_1_5b(param_dtype="bfloat16", compute_dtype="bfloat16")
     vision = C.FastViTConfig(image_size=1024, param_dtype="bfloat16",
@@ -1813,7 +1816,7 @@ def phase_serve_15b(card):
                 or sched.max_pending != 2):
             raise AssertionError("BatchScheduler(engine) at 1.5B does not "
                                  "take the JAX scheduler's defaults")
-        sched.trace = []
+        sched.trace = Timeline(engine.device)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fused_ffn.launches = 0
@@ -1911,7 +1914,7 @@ def phase_serve_15b(card):
                       f"decode chunks between) "
                       f"{[round(u['stats']['ttft_ms'], 3) for u in chunked]} "
                       f"ms; on {card}")
-    timing = _live_row_timing(sched.trace)
+    timing = _live_row_timing(sched.trace.events)
     log("serve-1.5b", "live rows, median decode step / token interval "
                       "(chunks), by batch and what the boundary before the "
                       "chunk did: " + "; ".join(
@@ -1956,13 +1959,14 @@ def _admission_ab(engine, images, card):
     Logs each run's late TTFT and the live rows' decode step and token
     interval by what the boundary before the chunk did."""
     from fastvlm_tpu_torch.serve.batcher import BatchScheduler
+    from fastvlm_tpu_torch.timeline import Timeline
 
     prompts = WAVES_15B["A"] + WAVES_15B["B"][:1]
     for mode in ("chunked", "single", "single", "chunked"):
         sched = BatchScheduler(engine, max_batch=8, window_ms=100,
                                page_size=64, pool_tokens=16384,
                                prefill_chunk=256 if mode == "chunked" else 0)
-        sched.trace = []
+        sched.trace = Timeline(engine.device)
         try:
             anchors = [Client(sched, engine, p, images[i], 96,
                               system=SYSTEM_15B)
@@ -1982,7 +1986,7 @@ def _admission_ab(engine, images, card):
             raise AssertionError(f"admission A/B {mode}: the late request "
                                  f"took {st['prefill_chunks']} chunks, "
                                  f"{st['cached_tokens']} cached tokens")
-        timing = _live_row_timing(sched.trace)
+        timing = _live_row_timing(sched.trace.events)
         log("serve-1.5b", f"admission A/B, {mode}: late request (cached "
                           f"{st['cached_tokens']}, {st['prefill_chunks']} "
                           f"chunks) TTFT {st['ttft_ms']:.3f} ms; 5 live rows, "
@@ -2149,6 +2153,7 @@ def phase_spec(card, engine):
     from fastvlm_tpu_torch.ops.cuda.paged_decode_attention import (
         paged_decode_attention)
     from fastvlm_tpu_torch.serve.batcher import BatchScheduler
+    from fastvlm_tpu_torch.timeline import Timeline
     from fastvlm_tpu_torch.video import VideoQA, qa_over_stream
 
     layers = engine.cfg.decoder.num_layers
@@ -2282,7 +2287,7 @@ def phase_spec(card, engine):
     # admitted, after which plain chunks serve both
     sched = BatchScheduler(engine, max_batch=8, window_ms=20, page_size=64,
                            pool_tokens=16384, spec=True)
-    sched.trace = []
+    sched.trace = Timeline(engine.device)
     fused_ffn.launches = 0
     decode_attention.launches = 0
     paged_decode_attention.launches = 0
@@ -2855,6 +2860,7 @@ def phase_anyres(card):
     from fastvlm_tpu_torch.ops.cuda.paged_decode_attention import (
         paged_decode_attention)
     from fastvlm_tpu_torch.serve.batcher import BatchScheduler
+    from fastvlm_tpu_torch.timeline import Timeline
 
     t_phase = time.perf_counter()
     decoder = C.qwen2_0_5b(param_dtype="bfloat16", compute_dtype="bfloat16")
@@ -3072,7 +3078,7 @@ def phase_anyres(card):
     fillers = [rng.randint(0, 256, (s, s, 3), dtype=np.uint8) for _ in range(4)]
     sched = BatchScheduler(engine, max_batch=8, window_ms=20, page_size=64,
                            pool_tokens=16384, fairness_s=0.5)
-    sched.trace = []
+    sched.trace = Timeline(engine.device)
     fused_ffn.launches = 0
     decode_attention.launches = 0
     paged_decode_attention.launches = 0

@@ -45,6 +45,11 @@ params and caches are then this rank's pieces (``parallel/sharding.py``):
 the embedding lookup and the vocab-split logits are reduced and gathered
 over it, so every rank holds the same logits and picks the same tokens.
 
+Inside ``prefill`` and ``prefill_continue``, the tower with the projector
+and the decoder through the logits are the spans "vlm.encode" and
+"vlm.decoder" of the timeline the serving scheduler binds to its thread
+(``timeline.py``); on other threads they record nothing.
+
 int8 KV (``cfg.decoder.kv_cache_dtype == "int8"``): ``generate`` and
 ``generate_spec`` allocate the int8 dense cache (``kv_cache_dtype``); every
 other function takes the cache it is given, and the writes carry its scale
@@ -58,6 +63,7 @@ from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
+from fastvlm_tpu_torch import timeline
 from fastvlm_tpu_torch.config import FastVLMConfig, resolve_dtype
 from fastvlm_tpu_torch.models import clip_vit, fastvit, projector, qwen2
 from fastvlm_tpu_torch.ops.kv_cache import (
@@ -194,6 +200,11 @@ def _spliced_prompt_embeds(params, cfg, images, ids, image_starts,
         text = qwen2.embed(params["decoder"], ids)
     text = text.to(cd)
     if vision_embeds is None and images is not None:
+        tl = timeline.current()
+        span = None if tl is None else tl.open(
+            "vlm.encode", device=True,
+            images=images.shape[0] * (images.shape[1] if images.dim() == 5
+                                      else 1))
         if images.dim() == 5:
             b, m = images.shape[:2]
             vis = encode_images(params, cfg, images.reshape(
@@ -201,6 +212,8 @@ def _spliced_prompt_embeds(params, cfg, images, ids, image_starts,
             vision_embeds = vis.reshape(b, m, vis.shape[1], vis.shape[2])
         else:
             vision_embeds = encode_images(params, cfg, images)
+        if span is not None:
+            tl.close(span)
     if vision_embeds is None:
         return text
     if vision_embeds.dim() == 4:
@@ -228,6 +241,8 @@ def prefill(
         params, cfg, images, ids, image_starts, vision_embeds,
         text=qwen2.embed(params["decoder"], ids, cfg.decoder, group))
     b, t, _ = embeds.shape
+    tl = timeline.current()
+    span = None if tl is None else tl.open("vlm.decoder", device=True)
     positions = torch.arange(t, device=embeds.device)[None, :].expand(b, t)
     mask = qwen2.prefill_mask(seq_lens, t, t, window=cfg.decoder.attn_window)
     hidden, cache = qwen2.forward(params["decoder"], cfg.decoder, embeds,
@@ -238,6 +253,8 @@ def prefill(
     last_hidden = hidden[torch.arange(b, device=hidden.device), last][:, None]
     logits = qwen2.logits_from_hidden(params["decoder"], last_hidden,
                                       cfg.decoder, group)
+    if span is not None:
+        tl.close(span)
     return logits[:, 0], cache
 
 
@@ -264,6 +281,8 @@ def prefill_continue(
         text=qwen2.embed(params["decoder"], suffix_ids, cfg.decoder, group))
     b, t, _ = embeds.shape
     dev = embeds.device
+    tl = timeline.current()
+    span = None if tl is None else tl.open("vlm.decoder", device=True)
     positions = offset + torch.arange(t, device=dev)[None, :].expand(b, t)
     q_pos = offset + torch.arange(t, device=dev)[:, None]
     k_pos = torch.arange(cache.max_len, device=dev)[None, :]
@@ -281,6 +300,8 @@ def prefill_continue(
     last_hidden = hidden[torch.arange(b, device=dev), last][:, None]
     logits = qwen2.logits_from_hidden(params["decoder"], last_hidden,
                                       cfg.decoder, group)
+    if span is not None:
+        tl.close(span)
     return logits[:, 0], cache
 
 

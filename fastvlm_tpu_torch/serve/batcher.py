@@ -121,11 +121,18 @@ Where the port differs without changing an output:
   * ``counters`` add "prefills" (prefill dispatches, each admission chunk
     one), "image_prefills" (those that encode images), "chunks" and
     "decode_steps" (k a chunk; plain chunks only), "dense_fallbacks";
-    ``trace`` "disp" events carry (batch, live rows, steps dispatched, ms
-    from dispatch to the host read, rows mid-prefill), "spec" events
-    (batch, live rows, passes, ms, tokens committed); update
-    stats add "cached_tokens" (prefix tokens the request reused) and
-    "prefill_chunks" (its admission chunks, 0 when single-shot).
+    update stats add "cached_tokens" (prefix tokens the request reused)
+    and "prefill_chunks" (its admission chunks, 0 when single-shot).
+
+``trace`` (a ``timeline.Timeline``; None, the default, is off) is the
+scheduler's one timeline. Its instant events: "batch_start", "batch_end",
+"admit", "padmit", "pchunk", "activate", "grow", "defer", "drain",
+"cancel", "disp" (batch, live rows, steps dispatched, ms from dispatch to
+the host read, rows mid-prefill) and "spec" (batch, live rows, passes, ms,
+tokens committed). Its spans (``timeline.py`` names each): the gather,
+the batch's prepare with each request's, every prefill with the tower's
+and the decoder's parts on the device, and the first tokens. Each request
+carries a sequence id from ``submit``, which its spans list.
 
 Threads: ``submit()`` from any thread; one scheduler thread runs the loop
 under its own ``torch.inference_mode()`` (the mode is per thread) and reads
@@ -144,6 +151,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import logging
 import queue
 import threading
@@ -153,6 +161,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from fastvlm_tpu_torch import timeline
 from fastvlm_tpu_torch.models import vlm
 from fastvlm_tpu_torch.ops.cuda.paged_decode_attention import PAGE_SIZES
 from fastvlm_tpu_torch.ops.kv_cache import PagedKVCache
@@ -181,6 +190,7 @@ class _Request:
     # (0: prefilled in one dispatch); set by the scheduler thread
     cached_tokens: int = 0
     prefill_chunks: int = 0
+    seq: int = 0  # the scheduler's sequence id, in the timeline's spans
 
     @property
     def cancelled(self) -> bool:
@@ -466,8 +476,9 @@ class BatchScheduler:
         # continuous-batching events (admitted / grown / shrunk / truncated
         # / cancelled / prefills / chunks / decode_steps ...)
         self.counters = collections.Counter()
-        # opt-in event timeline (set to a list): (t, event, *detail)
-        self.trace: Optional[list] = None
+        # opt-in timeline of events and spans (module docstring)
+        self.trace: Optional[timeline.Timeline] = None
+        self._seq = itertools.count()
         # requests an admission scan popped but could not place (batch at
         # capacity, pool full): served first by the next admission or
         # _gather. Touched only by the scheduler thread.
@@ -640,7 +651,6 @@ class BatchScheduler:
         k x rows capacity: spec must beat what plain could deliver."""
         mode = "spec" if shape_key[0] == "spec" else "plain"
         self.counters[f"disp_{mode}@{act_n}"] += 1
-        self.counters[f"ms_{mode}@{act_n}"] += int(dt * 1000)
         if shape_key not in self._warm_shapes:
             self._warm_shapes.add(shape_key)
             return
@@ -668,7 +678,8 @@ class BatchScheduler:
         next chunk boundary (finish_reason "cancelled")."""
         req = _Request(prompt, image, max_new_tokens,
                        sampling or SamplingParams(), queue.Queue(),
-                       tuple(stop_strings), cancel=cancel)
+                       tuple(stop_strings), cancel=cancel,
+                       seq=next(self._seq))
         self.queue.put(req)
         while True:
             item = req.out.get()
@@ -683,6 +694,20 @@ class BatchScheduler:
 
     # ------------- scheduler side -------------
 
+    def _timeline(self) -> Optional[timeline.Timeline]:
+        """``trace``, bound for the code below the scheduler on this thread;
+        while ``torch.profiler`` records and ``trace`` is off, a timeline
+        that follows the profiler (``timeline.py``)."""
+        tl = self.trace
+        if tl is None:
+            if timeline.profiler_on():
+                tl = self.trace = timeline.Timeline(self.engine.device,
+                                                    follows_profiler=True)
+        elif tl.follows_profiler and not timeline.profiler_on():
+            tl = self.trace = None
+        timeline.bind(tl)
+        return tl
+
     def _gather(self) -> List[_Request]:
         if self._deferred:
             first = self._deferred.pop(0)
@@ -691,6 +716,8 @@ class BatchScheduler:
                 first = self.queue.get(timeout=0.1)
             except queue.Empty:
                 return []
+        tl = self._timeline()
+        span = None if tl is None else tl.open("sched.gather")
         batch = [first]
         for r in list(self._deferred):
             if len(batch) >= self.max_batch:
@@ -706,6 +733,8 @@ class BatchScheduler:
                 batch.append(self.queue.get(timeout=remaining))
             except queue.Empty:
                 break
+        if span is not None:
+            tl.close(span, requests=[r.seq for r in batch])
         return batch
 
     def _loop(self):
@@ -722,6 +751,8 @@ class BatchScheduler:
                     self._run_batch(batch)
                 except Exception as e:  # surface errors to every waiter
                     logger.exception("batch failed")
+                    if self.trace is not None:
+                        self.trace.unwind()
                     for r in batch:
                         r.out.put({"error": str(e)})
                         r.out.put(_SENTINEL)
@@ -950,19 +981,28 @@ class BatchScheduler:
             for r in live:
                 self._serve_serial(r)
             return
+        # the timeline _gather bound (None: off)
+        tl = timeline.current()
+        prep_span = None if tl is None else tl.open("sched.prepare")
         # a request that cannot be prepared fails alone
         ready = []
         for r in live:
+            span = None if tl is None else tl.open("engine.prepare",
+                                                   requests=(r.seq,))
             try:
                 ready.append((r, engine.prepare(r.prompt, r.image)))
             except Exception as e:
                 logger.exception("prepare failed")
                 r.out.put({"error": str(e)})
                 r.out.put(_SENTINEL)
+            if span is not None:
+                tl.close(span)
         # in place: requests admitted later join this list, so the failure
         # envelopes of _loop reach them too
         batch[:] = [r for r, _ in ready]
         if not batch:
+            if tl is not None:
+                tl.close(prep_span, rows=0, padded=0)
             return
         # a pool batch maps its prompts' pages; the dense path (paged=False,
         # an int8-KV engine) and a batch whose prompts the pool cannot hold
@@ -1376,6 +1416,12 @@ class BatchScheduler:
                 tables[i, :] = -1
                 tables[i, :need] = row_pgs
                 row_pages[i] = row_pgs
+                span = None if tl is None else tl.open(
+                    "sched.prefill", requests=(r.seq,), device=True,
+                    kind="admit", rows=1, padded=1, tokens=plen - cached_len,
+                    cached=cached_len,
+                    images=int(prep["images"] is not None
+                               and start0 >= cached_len))
                 view = PagedKVCache(
                     k_pages=cache.k_pages, v_pages=cache.v_pages,
                     block_tables=torch.tensor([row_pgs], dtype=torch.int32,
@@ -1398,6 +1444,8 @@ class BatchScheduler:
                 except Exception as e:
                     # fail this request alone and keep the batch alive
                     logger.exception("admission prefill failed")
+                    if span is not None:
+                        tl.close(span, failed=True)
                     self.pool.release(row_pages[i])
                     row_pages[i] = []
                     tables[i, :] = -1
@@ -1405,6 +1453,8 @@ class BatchScheduler:
                     r.out.put({"error": str(e)})
                     r.out.put(_SENTINEL)
                     continue
+                if span is not None:
+                    tl.close(span)
                 if ht is None:
                     ht = tok.cpu().numpy().copy()
                     hd = done.cpu().numpy().copy()
@@ -1465,6 +1515,11 @@ class BatchScheduler:
                     lengths=torch.full((1,), c0, dtype=torch.int32,
                                        device=dev))
                 t_ck = time.perf_counter()
+                span = None if tl is None else tl.open(
+                    "sched.prefill", requests=(r.seq,), device=True,
+                    kind="chunk", rows=1, padded=1, tokens=c1 - c0, cached=c0,
+                    images=int(st["images"] is not None
+                               and c0 <= st["start"] < c1))
                 try:
                     logits, _ = self._prefill_suffix(
                         st["images"], st["ids"], st["start"], c0, c1, view)
@@ -1474,6 +1529,8 @@ class BatchScheduler:
                 except Exception as e:
                     # fail this request alone, as a single-shot admission
                     logger.exception("pending prefill chunk failed")
+                    if span is not None:
+                        tl.close(span, failed=True)
                     self.pool.release(row_pages[i])
                     row_pages[i] = []
                     pending.pop(i)
@@ -1482,6 +1539,8 @@ class BatchScheduler:
                     r.out.put({"error": str(e)})
                     r.out.put(_SENTINEL)
                     continue
+                if span is not None:
+                    tl.close(span)
                 st["bi"] += 1
                 r.prefill_chunks += 1
                 self.counters["prefill_chunks"] += 1
@@ -1584,6 +1643,17 @@ class BatchScheduler:
         batch_ok = False
         try:
             t0 = time.perf_counter()
+            if tl is not None:
+                tl.close(prep_span, requests=[r.seq for r in batch],
+                         rows=n_real, padded=b)
+                prefill_span = tl.open(
+                    "sched.prefill", requests=[r.seq for r in batch],
+                    device=True, kind="batch", rows=n_real, padded=b,
+                    tokens=sum(len(rows[i]) - batch_cached
+                               for i in range(n_real)),
+                    cached=batch_cached,
+                    images=sum(imgs[i] is not None and starts_l[i] >= 0
+                               for i in range(n_real)))
             if batch_cached:
                 # every row extends the cached prefix: prefill the suffixes
                 sfx = [rows[i][batch_cached:] for i in range(n_real)]
@@ -1610,6 +1680,10 @@ class BatchScheduler:
             tok = sample_rows(self._gen, logits, row_samp())
             host_tok = tok.cpu().numpy()  # the host read waits for the device
             ttft_ms = (time.perf_counter() - t0) * 1000
+            if tl is not None:
+                tl.close(prefill_span)
+                first_span = tl.open("sched.first_token",
+                                     requests=[r.seq for r in batch])
             if self.prefix is not None:
                 # the rows' prompt pages before their images hold reusable
                 # KV now: publish them for later admissions
@@ -1622,6 +1696,8 @@ class BatchScheduler:
                 ttfts[i] = ttft_ms
                 queue_ms[i] = (t0 - slots[i].t_submit) * 1000
                 first_token(i, int(host_tok[i]))
+            if tl is not None:
+                tl.close(first_span)
 
             done = torch.tensor(
                 [finished[i] or slots[i] is None for i in range(b)],
@@ -1634,9 +1710,6 @@ class BatchScheduler:
 
             while n_active() > 0 or (admitting and not self._stop
                                      and not self.queue.empty()):
-                if self.trace is not None:
-                    self.trace.append((time.perf_counter(), "iter",
-                                       n_active(), b))
                 sweep_cancelled()
                 if admitting:
                     cache, tok, done = try_admit(cache, tok, done)

@@ -40,6 +40,7 @@ from fastvlm_tpu_torch import engine
 from fastvlm_tpu_torch.data import preprocessing
 from fastvlm_tpu_torch.ops import sampling
 from fastvlm_tpu_torch.serve.batcher import BatchScheduler, PagePool
+from fastvlm_tpu_torch.timeline import Timeline
 from fastvlm_tpu_torch.utils.convert import from_jax_params
 
 JOIN_S = 120
@@ -573,7 +574,7 @@ def test_spec_switches_off_when_a_row_joins(eng_noeos, late_sampling):
     plain chunks serve both: no spec chunk runs with two live rows. Both
     give the serial engine's ids, and every page comes back."""
     sched = BatchScheduler(eng_noeos, window_ms=20, page_size=16, spec=True)
-    sched.trace = []
+    sched.trace = Timeline()
     try:
         want_long = eng_noeos.chat("steady stream", _image(17),
                                    max_new_tokens=96)[0]
@@ -633,7 +634,7 @@ def test_anyres_and_multi_image_served_serially(eng_anyres):
     assert eng.prepare(*jobs[0][:2])["prompt_tokens"] > \
         eng.prepare(*jobs[2][:2])["prompt_tokens"]  # the tiles' tokens
     sched = BatchScheduler(eng, window_ms=300, page_size=16)
-    sched.trace = []
+    sched.trace = Timeline()
     try:
         reqs = [Request(sched, *job) for job in jobs]
         assert [r.result()["text"] for r in reqs] == want
@@ -680,7 +681,7 @@ def test_fairness_drain_serves_deferred_request(eng_noeos):
     imgs = [_image(30), _image(31)]
     want = eng.generate(prompt, imgs, max_new_tokens=4)[0]
     sched = BatchScheduler(eng, window_ms=10, page_size=16, fairness_s=0.3)
-    sched.trace = []
+    sched.trace = Timeline()
     stop = threading.Event()
     fillers = []
 

@@ -41,6 +41,7 @@ from fastvlm_tpu_torch.data import preprocessing
 from fastvlm_tpu_torch.serve import batcher
 from fastvlm_tpu_torch.serve.batcher import (
     BatchScheduler, PagePool, PrefixCache, _prefill_chunk_bounds)
+from fastvlm_tpu_torch.timeline import Timeline
 from fastvlm_tpu_torch.utils.convert import from_jax_params
 
 JOIN_S = 180
@@ -319,7 +320,7 @@ def test_chunked_admission_matches_serial(engines):
     late2 = "and what about the weather tomorrow in the mountains?"
     sched = BatchScheduler(te, window_ms=100, page_size=PAGE,
                            prefix_cache=False, prefill_chunk=8, max_pending=2)
-    sched.trace = []
+    sched.trace = Timeline()
     try:
         want1 = _serial(te, long_user, 21, 5)
         want2 = _serial(te, late2, 22, 4)
@@ -349,7 +350,7 @@ def test_chunked_admission_image_prompt(engines):
     user = "what objects are on the table and how are they arranged?"
     sched = BatchScheduler(te, window_ms=100, page_size=PAGE,
                            prefix_cache=False, prefill_chunk=8)
-    sched.trace = []
+    sched.trace = Timeline()
     try:
         want = _serial(te, user, 31, 5)
         anchor = Client(sched, te, "anchor", 30, 256)
@@ -375,7 +376,7 @@ def test_pending_row_survives_batch_resize(engines):
     long_user = "tell me about the picture in as much detail as you can"
     sched = BatchScheduler(te, window_ms=20, page_size=PAGE,
                            prefix_cache=False, prefill_chunk=4)
-    sched.trace = []
+    sched.trace = Timeline()
     try:
         anchor = Client(sched, te, "the anchor row", 40, 512)
         assert anchor.decoding.wait(JOIN_S)
@@ -405,7 +406,7 @@ def test_cancel_mid_prefill_releases_pages(engines):
     _, te = engines
     sched = BatchScheduler(te, window_ms=20, page_size=PAGE,
                            prefix_cache=False, prefill_chunk=4)
-    sched.trace = []
+    sched.trace = Timeline()
     try:
         anchor = Client(sched, te, "the anchor row", 70, 256)
         assert anchor.decoding.wait(JOIN_S)
