@@ -9,7 +9,7 @@ tagged with its name and raising on failure (so the exit code is
 non-zero):
 
   1. device   the card's name; nvidia-smi's name and power limit
-  2. build    nvcc builds kernels K1, K2 and K3 from fastvlm_tpu_torch/csrc/,
+  2. build    nvcc builds kernels K1-K4 from fastvlm_tpu_torch/csrc/,
               one process per source, all started together
   3. K1       fused_ffn vs ffn_reference at the five FastViTHD stage shapes
               of a 1024 px image (bf16, with ls and with ls=None) and ragged
@@ -44,6 +44,15 @@ non-zero):
               call by events, the wrapper's host us, bound and share,
               plain; K2 on a dense cache of the same rows as context;
               both at one and at two 64-key tiles a block (equal bytes)
+  5b. K4     prefill_attention vs a float64 reference and its plain
+              version at the main path's shapes: a burst of 8 (T = 1344,
+              lengths 1300-1344, 3 one-token padding rows), a suffix of 320
+              after 1024 cached keys (S = 1408), 256-token chunks over
+              offsets at B = 1, at 12/2/128, 14/2/64 and 28/4/128, one case
+              in fp16; k and v strided views. Its max error must be within
+              the plain version's plus half an ulp of the output; then per
+              case its kernel time (one kernel a call), by events, bound
+              and share, the plain version's time; SDPA as context
   6. main     an Engine at full width (FastViTHD @1024, mlp2x_gelu
               3072->896, Qwen2-0.5B, bf16, random weights from a seed, byte
               tokenizer) answers 3 greedy requests of 32 new tokens; checks
@@ -108,6 +117,7 @@ non-zero):
               each, greedy, after a warm-up round through a fresh scheduler.
               Checks every finish reason, prefix hits >= 8, chunked
               admissions >= 1, prefill chunks >= 2, K3 = 28 per decode step,
+              K4 = 28 per prefill call (vlm.prefill, prefill_continue),
               no K2, K1 = 44 per prefill dispatch that encodes images, every
               page back but those the prefix registry pins, and a dense
               teacher-forced replay (K2) of a chunked wave-B request and a
@@ -321,7 +331,8 @@ over 989 TFLOP/s (bf16 tensor cores; 67 TFLOP/s for K2 / K3 in f32). K1's
 f32 bound is 3xTF32's: three TF32 products a product at 494.7 TFLOP/s,
 with the CUDA cores' 66.9 TFLOP/s beside it as context.
 
-Other modes: --k1-only (phases device, build, K1); --k1-ab PARENT
+Other modes: --k1-only (phases device, build, K1); --k4-only (phases
+device, build, K4, serve-1.5b); --k1-ab PARENT
 (phase K1, bf16 and f32, against the kernel of the checkout at PARENT and
 of this one, in turns); --tp-only; --serve-view-only.
 
@@ -497,7 +508,8 @@ def phase_device():
 def phase_build():
     from fastvlm_tpu_torch.ops.cuda import _build
 
-    names = ("ffn", "decode_attention", "paged_decode_attention")
+    names = ("ffn", "decode_attention", "paged_decode_attention",
+             "prefill_attention")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(_build.load, names))
@@ -922,6 +934,143 @@ def phase_k3(gen):
               f"kernel time")
     return max_abs, dict(ms=ms, kernel_ms=k_ms, plain_ms=plain_ms, bound_ms=bound,
                          host_us=h_us, dense_k2_kernel_ms=dense_k_ms)
+
+
+# K4's cases: (name, B, T, S, offset, (Hq, Hkv, D), kv lengths or None).
+# The burst: 5 real rows of 1300-1344 tokens and 3 one-token padding rows,
+# as a gathered batch of 8 pads; the suffix: a prefix-cache hit's ~320
+# tokens after 1024 cached; the chunks: a chunked admission's 256-token
+# chunks over offsets (one off the 128-key tiles), B = 1.
+K4_BURST = [1344, 1300, 1321, 1337, 1310, 1, 1, 1]
+K4_CASES = (
+    [(f"burst {h[0]}/{h[1]}/{h[2]}", 8, 1344, 1344, 0, h, K4_BURST)
+     for h in ((12, 2, 128), (14, 2, 64), (28, 4, 128))]
+    + [(f"suffix {h[0]}/{h[1]}/{h[2]}", 8, 320, 1408, 1024, h, None)
+       for h in ((12, 2, 128), (14, 2, 64), (28, 4, 128))]
+    + [(f"chunk @{o} 12/2/128", 1, 256, 1408, o, (12, 2, 128), None)
+       for o in (0, 256, 512, 1100)])
+
+
+def k4_bound_ms(ns, offset, hq, hkv, d):
+    """K4's bound over the rows' real query counts ``ns`` after ``offset``
+    cached keys: 4 D Hq keys-seen FLOPs (causal pairs only) at the bf16
+    peak, or q, out and each row's k and v moved once, the larger."""
+    keys = sum(n * offset + n * (n + 1) // 2 for n in ns)
+    flops = 4 * d * hq * keys
+    nbytes = 2 * sum(2 * n * hq * d + 2 * (offset + n) * hkv * d for n in ns)
+    f_ms, b_ms = flops / BF16_FLOPS * 1e3, nbytes / HBM_BPS * 1e3
+    return max(f_ms, b_ms), ("operations" if f_ms >= b_ms else "bytes")
+
+
+def _k4_exact(q, k, v, offset, lens):
+    """The attention K4 computes, in float64 from the same 16-bit inputs
+    (nothing rounded between), a batch row at a time."""
+    b, t, hq, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    q_pos = offset + torch.arange(t, device=q.device)[:, None]
+    k_pos = torch.arange(s, device=q.device)[None, :]
+    out = []
+    for r in range(b):
+        m = k_pos <= q_pos
+        if lens is not None:
+            m = m & (k_pos < lens[r])
+        qr = q[r].double().reshape(t, hkv, hq // hkv, d)
+        sc = torch.einsum("thgd,shd->hgts", qr, k[r].double()) / math.sqrt(d)
+        sc = sc.masked_fill(~m, float("-inf"))
+        p = torch.softmax(sc, dim=-1)
+        out.append(torch.einsum("hgts,shd->thgd", p, v[r].double()).reshape(t, hq * d))
+        del sc, p
+    return torch.stack(out)
+
+
+def phase_k4(gen):
+    """K4 against its plain version and a float64 reference at the main
+    path's shapes, then timed. The tolerance: both round the probabilities
+    and the output to the 16-bit type, so each errs by about half an ulp of
+    the output; the kernel's max error may exceed the plain version's by at
+    most half an ulp of the largest output (the two may round a value near a
+    midpoint to opposite neighbours), and a fault in the kernel errs by
+    whole units."""
+    import torch.nn.functional as F
+
+    from fastvlm_tpu_torch.ops.cuda.prefill_attention import (
+        prefill_attention, prefill_attention_reference)
+
+    results = {}
+    cases = K4_CASES + [("suffix 12/2/128 fp16", 8, 320, 1408, 1024,
+                         (12, 2, 128), None)]
+    for name, b, t, s, offset, (hq, hkv, d), lens in cases:
+        dtype = torch.float16 if "fp16" in name else torch.bfloat16
+        q = (1.5 * torch.randn((b, t, hq, d), generator=gen, device="cuda")).to(dtype)
+        # k and v as the fused qkv projection leaves them: views into one
+        # (B, S, 2 Hkv D) tensor, strided rows
+        kv = torch.randn((b, s, 2 * hkv * d), generator=gen, device="cuda").to(dtype)
+        k = kv[..., :hkv * d].reshape(b, s, hkv, d)
+        v = kv[..., hkv * d:].reshape(b, s, hkv, d)
+        kv_lens = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                         device="cuda")
+        before = prefill_attention.launches
+        got = prefill_attention(q, k, v, offset, kv_lens)
+        torch.cuda.synchronize()
+        if prefill_attention.launches != before + 1:
+            raise AssertionError(f"K4 {name}: {prefill_attention.launches - before} "
+                                 f"launches for one call")
+        plain = prefill_attention_reference(q, k, v, offset, kv_lens)
+        exact = _k4_exact(q, k, v, offset, lens)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"K4 {name}: non-finite output")
+        k_err = float((got.double() - exact).abs().max())
+        p_err = float((plain.double() - exact).abs().max())
+        k_mean = float((got.double() - exact).abs().mean())
+        p_mean = float((plain.double() - exact).abs().mean())
+        top = float(exact.abs().max())
+        half_ulp = 2.0 ** (math.floor(math.log2(top)) - (7 if dtype == torch.bfloat16
+                                                         else 10)) / 2
+        if k_err > p_err + half_ulp:
+            raise AssertionError(f"K4 {name}: max_abs_err {k_err:.4e} against "
+                                 f"float64, the plain version's {p_err:.4e} "
+                                 f"(+ half an ulp {half_ulp:.4e})")
+        del plain, exact
+        ns = [t] if lens is None else [min(n, t) for n in lens if n > 1]
+        if lens is None:
+            ns = ns * b
+        bound, by = k4_bound_ms(ns, offset, hq, hkv, d)
+
+        def call():
+            prefill_attention(q, k, v, offset, kv_lens)
+
+        k_ms, names = kernel_profile(call, reps=20)
+        if sum(round(n) for n in names.values()) != 1:
+            raise AssertionError(f"K4 {name}: the profiler shows {names} a call, "
+                                 f"expected one kernel")
+        ms = time_batch_ms(call, reps=20)
+        plain_ms = time_batch_ms(
+            lambda: prefill_attention_reference(q, k, v, offset, kv_lens), reps=3,
+            warmup=1)
+        res = dict(max_abs_err=k_err, plain_max_abs_err=p_err, mean_abs_err=k_mean,
+                   plain_mean_abs_err=p_mean, kernel_ms=k_ms, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+        lib = ""
+        if name == "burst 12/2/128":
+            # context: the library's fused causal attention over 8 full rows
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            res["library_kernel_ms"] = kernel_time_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                       enable_gqa=True))
+            res["library_bound_ms"] = k4_bound_ms([t] * b, 0, hq, hkv, d)[0]
+            lib = (f"; context: scaled_dot_product_attention(is_causal) over 8 "
+                   f"full rows {fmt_ms(res['library_kernel_ms'])} kernel time "
+                   f"against a bound of {res['library_bound_ms']:.4f} ms")
+        results[name] = res
+        share = "not measured" if k_ms is None else f"{100 * bound / k_ms:.2f}%"
+        log("K4", f"{name} {str(dtype)[6:]}: B={b} T={t} S={s} offset {offset} "
+                  f"lengths {lens}: max_abs_err vs float64 {k_err:.4e} (plain "
+                  f"{p_err:.4e}, + half an ulp {half_ulp:.4e} allowed), mean "
+                  f"{k_mean:.4e} (plain {p_mean:.4e}); kernel time "
+                  f"{fmt_ms(k_ms)} (profiler, one kernel a call), {ms:.4f} ms a "
+                  f"call by events; bound {bound:.4f} ms ({by}), share {share}; "
+                  f"plain {plain_ms:.4f} ms{lib}")
+    return results
 
 
 class IdTokenizer:
@@ -1770,6 +1919,7 @@ def phase_serve_15b(card):
     from fastvlm_tpu_torch.ops.cuda.ffn import fused_ffn
     from fastvlm_tpu_torch.ops.cuda.paged_decode_attention import (
         paged_decode_attention)
+    from fastvlm_tpu_torch.ops.cuda.prefill_attention import prefill_attention
     from fastvlm_tpu_torch.serve.batcher import BatchScheduler
     from fastvlm_tpu_torch.timeline import Timeline
 
@@ -1822,6 +1972,18 @@ def phase_serve_15b(card):
         fused_ffn.launches = 0
         decode_attention.launches = 0
         paged_decode_attention.launches = 0
+        prefill_attention.launches = 0
+        prefills = [0]
+        saved = {n: getattr(vlm, n) for n in ("prefill", "prefill_continue")}
+
+        def counted(fn):
+            def call(*a, **kw):
+                prefills[0] += 1
+                return fn(*a, **kw)
+            return call
+
+        for n, fn in saved.items():
+            setattr(vlm, n, counted(fn))
         clients = {}
         try:
             def wave(w):
@@ -1844,9 +2006,12 @@ def phase_serve_15b(card):
             last["C"] = [c.result(f"{name} wave C request {n}")
                          for n, c in enumerate(clients["C"])]
             launches = (fused_ffn.launches, decode_attention.launches,
-                        paged_decode_attention.launches)
+                        paged_decode_attention.launches,
+                        prefill_attention.launches, prefills[0])
         finally:
             sched.shutdown()
+            for n, fn in saved.items():
+                setattr(vlm, n, fn)
         t_end = max(c.t_closed for cs in clients.values() for c in cs)
         return sched, last, launches, t_end
 
@@ -1854,7 +2019,7 @@ def phase_serve_15b(card):
     serve_round("warm-up")
     log("serve-1.5b", f"warm-up round of the same traffic: "
                       f"{time.perf_counter() - t0:.1f} s")
-    sched, last, (k1, k2, k3), t_end = serve_round("serve-1.5b")
+    sched, last, (k1, k2, k3, k4, n_prefill), t_end = serve_round("serve-1.5b")
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     counters = dict(sched.counters)
     for w, ups in last.items():
@@ -1885,6 +2050,9 @@ def phase_serve_15b(card):
                              f"{counters['decode_steps']} decode steps")
     if k2 != 0:
         raise AssertionError(f"K2 launched {k2} times on the paged path")
+    if n_prefill == 0 or k4 != layers * n_prefill:
+        raise AssertionError(f"K4 launched {k4} times for {n_prefill} prefill "
+                             f"calls")
     pinned = {p for pages in sched.prefix.entries.values() for p in pages}
     if sched.pool.free_pages + len(pinned) != sched.pool.num_pages:
         raise AssertionError(f"{sched.pool.free_pages} free + {len(pinned)} "
@@ -1897,6 +2065,7 @@ def phase_serve_15b(card):
                       f"{counters['image_prefills']} prefill dispatches that "
                       f"encode images (of {counters['prefills']}); K3 {k3} = "
                       f"{layers} x {counters['decode_steps']} decode steps; "
+                      f"K4 {k4} = {layers} x {n_prefill} prefill calls; "
                       f"K2 0; pool {sched.pool.num_pages - len(pinned)} pages "
                       f"free + {len(pinned)} pinned by the prefix registry, "
                       f"all free once it clears")
@@ -1947,7 +2116,7 @@ def phase_serve_15b(card):
         _check_replay("serve-1.5b", what, engine, prompt, images[img],
                       u["text"], SYSTEM_15B)
     _admission_ab(engine, images, card)
-    return {"k1_launches": k1, "k3_launches": k3,
+    return {"k1_launches": k1, "k3_launches": k3, "k4_launches": k4,
             "decode_steps": counters["decode_steps"],
             "ttft_ms": ttft, "tok_s": served / wall_s, "peak_gib": peak_gb}
 
@@ -6002,6 +6171,12 @@ def main(argv) -> int:
                                      for (c, ch), r in routes.items()}}),
               flush=True)
         return 0
+    if argv == ["--k4-only"]:  # phase K4, then the serving path it runs on
+        k4 = phase_k4(gen)
+        serve15 = phase_serve_15b(card)
+        print(json.dumps({"k4": k4, "serve-1.5b": serve15}, default=str),
+              flush=True)
+        return 0
     if argv == ["--tp-only"]:  # phase tp alone, after the engine it needs
         main_res = phase_main(card)
         tp_res = phase_tp(card, main_res["engine"], main_res["prompts"],
@@ -6017,6 +6192,7 @@ def main(argv) -> int:
     k1_f32 = phase_k1_f32(gen)
     k2_err, k2 = phase_k2(gen)
     k3_err, k3 = phase_k3(gen)
+    k4 = phase_k4(gen)
     main_res = phase_main(card)
     engine = main_res.pop("engine")
     main_prompts, main_answers = main_res["prompts"], dict(main_res["answers"])
@@ -6199,6 +6375,14 @@ def main(argv) -> int:
                      "call",
          "llava_32_32_128_b4": worker_res["k3"],
          "tp_local_heads": tp_k["k3"]},
+        {"name": "prefill_attention", "route": "cuda",
+         "source": "fastvlm_tpu_torch/csrc/prefill_attention.cu",
+         "replaces": None,
+         "launches_by_path": {"serve-1.5b": serve15_res["k4_launches"]},
+         "max_abs_err": max(r["max_abs_err"] for r in k4.values()),
+         "timed_as": "per case of phase K4; bound: causal pairs of the "
+                     "real rows at 989 TFLOP/s or their bytes once",
+         "cases": k4},
     ]}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

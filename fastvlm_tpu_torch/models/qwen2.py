@@ -9,10 +9,13 @@ one path.
 
 Attention routes, over a dense ``KVCache`` or a paged ``PagedKVCache``:
   * prefill over an empty cache attends the prompt's own keys under a
-    (B, T, T) mask, with a plain f32 softmax (``_attend``); a prefill that
-    continues after ``prefill_offset`` cached tokens (``vlm.
-    prefill_continue``) attends the whole cache the same way, the paged
-    one gathered into each row's order first;
+    (B, T, T) mask; a prefill that continues after ``prefill_offset``
+    cached tokens (``vlm.prefill_continue``) attends the whole cache, the
+    paged one gathered into each row's order first. Where the caller gives
+    the mask's structure (``CausalMask``) and the decoder has no ALiBi bias
+    and no sliding window, a bf16 / fp16 prefill at head_dim 64 or 128
+    calls kernel K4 (``ops/cuda/prefill_attention.py``); any other prefill
+    runs the plain f32 softmax (``_attend``);
   * a T=1 decode step calls kernel K2 (``ops/cuda/decode_attention.py``) on
     the dense cache, or kernel K3 (``ops/cuda/paged_decode_attention.py``)
     on the pool in place, when the decoder has no ALiBi bias and no sliding
@@ -45,7 +48,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -54,8 +57,10 @@ import torch.utils.checkpoint
 from fastvlm_tpu_torch.config import Qwen2Config, resolve_dtype
 from fastvlm_tpu_torch.ops.conv import rms_norm
 from fastvlm_tpu_torch.ops.cuda.decode_attention import decode_attention
+from fastvlm_tpu_torch.ops.cuda import prefill_attention as k4
 from fastvlm_tpu_torch.ops.cuda.paged_decode_attention import (
     paged_decode_attention)
+from fastvlm_tpu_torch.ops.cuda.prefill_attention import attend as _attend
 from fastvlm_tpu_torch.ops.kv_cache import (
     KVCache, PagedKVCache, dequantize_view, gather_pages, pool_ownership,
     prompt_dest, token_dest, write_paged, write_prompt, write_token)
@@ -66,6 +71,16 @@ from fastvlm_tpu_torch.parallel.sharding import kv_heads
 Params = Dict[str, Any]
 
 NEG_INF = -1e30
+
+
+class CausalMask(NamedTuple):
+    """The structure of a prefill's mask, passed beside its dense form:
+    query i attends key k where k <= prefill_offset + i and k < kv_lens[b]
+    (no such limit where kv_lens is None). ``vlm.prefill`` (kv_lens =
+    seq_lens) and ``vlm.prefill_continue`` (None) pass it; without a
+    sliding window it is exactly the mask they build, and ``_layer`` hands
+    it to kernel K4."""
+    kv_lens: Optional[torch.Tensor] = None
 
 
 # ---------------------------------------------------------------------------
@@ -278,25 +293,6 @@ def pos_terms(cfg: Qwen2Config, positions, mask):
     return cos, sin, bias, mask[:, None]
 
 
-def _attend(q, k, v, mask, bias=None):
-    """Plain GQA attention. q: (B,T,Hq,D); k,v: (B,S,Hkv,D); mask:
-    (B,1,T,S) bool; bias: optional (B,Hq,T,S). Scores and softmax in f32,
-    probabilities rounded to v's dtype before P.V -> (B, T, Hq*D)."""
-    b, t, hq, d = q.shape
-    hkv = k.shape[2]
-    g = hq // hkv
-    qg = q.reshape(b, t, hkv, g, d)
-    scores = torch.einsum("bthgd,bshd->bhgts", qg.float(), k.float()) \
-        * (d ** -0.5)
-    if bias is not None:
-        scores = scores + bias.reshape(b, hkv, g, t, -1)
-    scores = torch.where(mask[:, :, None], scores,
-                         torch.full_like(scores, NEG_INF))
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("bhgts,bshd->bthgd", probs.float(), v.float())
-    return out.to(v.dtype).reshape(b, t, hq * d)
-
-
 def _attend_pool(q, k_pool, v_pool, owner, base, lengths, window=None):
     """Decode attention over the whole page pool in place, JAX's
     ``_attend_pool``: every row's query scores every pool token in one
@@ -387,7 +383,7 @@ def _take_heads(x, heads):
 def _layer(x, lp, cfg: Qwen2Config, cos, sin, cache_k, cache_v, mask,
            lengths, prefill, bias=None, prefill_offset=0, block_tables=None,
            dest=None, kv_lens=None, cache_ks=None, cache_vs=None, group=None,
-           seq=False, pool_owner=None, pool_base=None):
+           seq=False, pool_owner=None, pool_base=None, causal=None):
     """One decoder layer. cache_k/v: (B, S_max, Hkv, D) views of the dense
     cache, (P + 1, page, Hkv, D) pool slices when ``block_tables`` is given
     (the paged serving layout; ``dest`` holds the flat pool rows of this
@@ -405,7 +401,8 @@ def _layer(x, lp, cfg: Qwen2Config, cos, sin, cache_k, cache_v, mask,
     heads only. ``seq``: sequence parallelism, where ``x`` holds this
     rank's T/tp tokens. ``pool_owner`` / ``pool_base``: a paged decode
     step attends the pool's first len(pool_owner) pages in place under
-    their ownership mask (``_attend_pool``)."""
+    their ownership mask (``_attend_pool``). ``causal``: the prefill mask's
+    structure (``CausalMask``), which lets a prefill take kernel K4."""
     attn_tp = mlp_tp = whole_kv = False
     ln1, ln2 = lp["ln1"], lp["ln2"]
     if group is not None:
@@ -493,6 +490,12 @@ def _layer(x, lp, cfg: Qwen2Config, cos, sin, cache_k, cache_v, mask,
         else:
             keys = gather_pages(cache_k, block_tables)
             values = gather_pages(cache_v, block_tables)
+    if attn is None and prefill and cache_k is not None \
+            and causal is not None and bias is None \
+            and cfg.attn_window is None and q.dtype in k4.DTYPES \
+            and hd in k4.HEAD_DIMS:
+        attn = k4.prefill_attention(q, keys.to(q.dtype), values.to(q.dtype),
+                                    prefill_offset, causal.kv_lens)
     if attn is None:
         attn = _attend(q, keys.to(q.dtype), values.to(q.dtype), mask, bias)
     x = x + _exit(_project(attn, lp["o"]), attn_tp, seq, group)
@@ -569,6 +572,7 @@ def forward(
     gather=None,
     pool_inplace: bool = False,
     pool_bucket: Optional[int] = None,
+    causal: Optional[CausalMask] = None,
 ) -> Tuple[torch.Tensor, Optional[Union[KVCache, PagedKVCache]]]:
     """Run the decoder stack over embeddings; returns (hidden, cache).
 
@@ -590,7 +594,9 @@ def forward(
 
     ``pool_inplace`` (a paged decode step; ``vlm.decode_chunk_pool``):
     attend the whole pool under an ownership mask (``_attend_pool``), or
-    its first ``pool_bucket`` pages, instead of kernel K3."""
+    its first ``pool_bucket`` pages, instead of kernel K3. ``causal``: a
+    prefill's mask structure beside ``mask`` (``CausalMask``; the K4
+    route)."""
     x = inputs_embeds
     b, t, _ = x.shape
     if mask is None:
@@ -646,7 +652,8 @@ def forward(
             continue
         x = _layer(x, lp, cfg, cos, sin, ck, cv, mask, lengths, prefill, bias,
                    prefill_offset, tables, dest, new_lengths, cks, cvs,
-                   group=group, pool_owner=owner, pool_base=basep)
+                   group=group, pool_owner=owner, pool_base=basep,
+                   causal=causal)
     new_cache = None
     if cache is not None:
         new_cache = dataclasses.replace(cache, lengths=new_lengths)

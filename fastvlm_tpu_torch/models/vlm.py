@@ -247,7 +247,8 @@ def prefill(
     mask = qwen2.prefill_mask(seq_lens, t, t, window=cfg.decoder.attn_window)
     hidden, cache = qwen2.forward(params["decoder"], cfg.decoder, embeds,
                                   positions, cache=cache, mask=mask,
-                                  prefill=True, group=group)
+                                  prefill=True, group=group,
+                                  causal=qwen2.CausalMask(seq_lens))
     cache = dataclasses.replace(cache, lengths=seq_lens.to(torch.int32))
     last = (seq_lens.long() - 1).clamp(0, t - 1)
     last_hidden = hidden[torch.arange(b, device=hidden.device), last][:, None]
@@ -293,7 +294,7 @@ def prefill_continue(
     hidden, cache = qwen2.forward(params["decoder"], cfg.decoder, embeds,
                                   positions, cache=cache, mask=mask,
                                   prefill=True, prefill_offset=offset,
-                                  group=group)
+                                  group=group, causal=qwen2.CausalMask())
     cache = dataclasses.replace(
         cache, lengths=(offset + suffix_lens).to(torch.int32))
     last = (suffix_lens.long() - 1).clamp(0, t - 1)
