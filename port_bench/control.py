@@ -34,13 +34,14 @@ def readings(served, seed: int) -> dict:
     import numpy as np
     import torch
 
-    from port_bench import harness, weights
-    from port_bench.reference import Reference, gaps
+    from port_bench import family, harness, weights
+    from port_bench.reference import gaps
 
     cfg, dev = served.cfg, served.device
     images = served.plan.images
     tree = weights.draw(cfg, seed, dev, served.dtype)
-    ref, ctl = Reference(cfg, tree), Reference(cfg, tree, quant="fp8")
+    reference = family.of(cfg).Reference
+    ref, ctl = reference(cfg, tree), reference(cfg, tree, quant="fp8")
     rng = np.random.default_rng([int(seed), 3])
     victim = int(rng.integers(len(served.sample)))
     program, control = [], []

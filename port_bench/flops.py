@@ -80,31 +80,29 @@ def projector_flops(cfg: dict, images: int = 1) -> float:
 
 
 # -------------------------------------------------------------- decoder
+# A decoder's own counts are its family's (``family.py``); these count the
+# attention pairs that every family's causal attention shares.
 
 
-def _dims(cfg: dict):
-    h = cfg["hidden_size"]
-    hq = cfg["num_attention_heads"]
-    hkv = cfg["num_key_value_heads"]
-    d = cfg.get("head_dim") or h // hq
-    return h, hq, hkv, d, cfg["intermediate_size"], cfg["num_hidden_layers"]
+def causal_pairs(new: int, cached: int = 0, window: Optional[int] = None
+                 ) -> int:
+    """Σ keys seen a token, over ``new`` tokens after ``cached`` ones,
+    each token's own key included: all earlier keys, or under a window of
+    W keys the W latest (a query at p sees keys j with p - j < W)."""
+    lo, hi = cached + 1, cached + new  # keys seen by the first, last token
+    if window is None or hi <= window:
+        return (lo + hi) * new // 2
+    if lo >= window:
+        return window * new
+    return (lo + window) * (window - lo + 1) // 2 + window * (hi - window)
 
 
-def decoder_layer_params(cfg: dict) -> int:
-    """Weights of one decoder layer's products (no norms, no biases)."""
-    h, hq, hkv, d, ffn, _ = _dims(cfg)
-    return h * (hq + 2 * hkv) * d + hq * d * h + 3 * h * ffn
-
-
-def decoder_flops(cfg: dict, new: int, cached: int = 0,
-                  head_rows: int = 1) -> float:
-    """Operations of ``new`` tokens after ``cached`` ones: every product,
-    causal attention over the keys each token sees, and the LM head at
-    ``head_rows`` positions."""
-    h, hq, hkv, d, ffn, layers = _dims(cfg)
-    keys = new * cached + new * (new + 1) // 2  # Σ keys seen a token
-    per_layer = 2 * new * decoder_layer_params(cfg) + 4 * hq * d * keys
-    return layers * per_layer + 2.0 * head_rows * h * cfg["vocab_size"]
+def keys_read(new: int, cached: int = 0, window: Optional[int] = None
+              ) -> int:
+    """Distinct keys that ``new`` tokens after ``cached`` ones attend."""
+    if window is None:
+        return cached + new
+    return min(cached + new, window - 1 + new)
 
 
 # -------------------------------------------------------------- kernels

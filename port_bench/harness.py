@@ -21,8 +21,8 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from port_bench import flops, loadgen, readings, stats, trace, weights
-from port_bench.reference import Reference, gaps
+from port_bench import family, flops, loadgen, readings, stats, trace, weights
+from port_bench.reference import gaps
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FORBIDDEN = ("jax", "jaxlib", "flax", "fastvlm_tpu")
@@ -76,8 +76,11 @@ def forbidden_modules() -> List[str]:
 
 
 def port_config(cfg: dict, dtype: str = "bfloat16"):
-    """The port's FastVLMConfig for a configuration file."""
+    """The port's FastVLMConfig for a configuration file; the decoder's is
+    the port's own reading of the file (its ``model_type`` family, its
+    window)."""
     from fastvlm_tpu_torch import config as C
+    from fastvlm_tpu_torch.models import builder
 
     v = cfg["vision"]
     vision = C.FastViTConfig(
@@ -90,8 +93,8 @@ def port_config(cfg: dict, dtype: str = "bfloat16"):
         cls_ratio=v["cls_ratio"], attn_head_dim=v["attn_head_dim"],
         se_rd_ratio=v["se_rd_ratio"], ln_eps=v["ln_eps"],
         image_size=v["image_size"], param_dtype=dtype, compute_dtype=dtype)
-    decoder = C.decoder_from_hf_dict(cfg, param_dtype=dtype,
-                                     compute_dtype=dtype)
+    decoder = builder.build_decoder_config(cfg, param_dtype=dtype,
+                                           compute_dtype=dtype)
     return C.FastVLMConfig(
         vision=vision, decoder=decoder,
         projector=C.ProjectorConfig(projector_type=cfg["mm_projector_type"],
@@ -177,7 +180,7 @@ def sample_for_check(records, mix: dict, seed: int) -> list:
     return picked
 
 
-def teacher_force(ref: Reference, cfg: dict, rec, tokens, images, device):
+def teacher_force(ref, cfg: dict, rec, tokens, images, device):
     """The reference's f32 logits at the positions that chose each of
     ``tokens``, with the request's prompt and ``tokens`` as its context."""
     ids, at = loadgen.prompt_ids(rec.req.prompt, flops.image_tokens(cfg))
@@ -203,9 +206,10 @@ def numbers(per_request: List[List[float]]) -> Dict[str, float]:
 
 def check(cfg: dict, seed: int, sample, images, device, dtype):
     """Teacher-force each sampled request's prompt and served tokens
-    through the reference (weights drawn again from the seed): the
-    numbers of ``numbers``."""
-    ref = Reference(cfg, weights.draw(cfg, seed, device, dtype))
+    through the reference of the configuration's decoder family (weights
+    drawn again from the seed): the numbers of ``numbers``."""
+    ref = family.of(cfg).Reference(cfg, weights.draw(cfg, seed, device,
+                                                     dtype))
     per_request = []
     with torch.inference_mode():
         for rec in sample:

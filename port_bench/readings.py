@@ -8,7 +8,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-from port_bench import flops, stats, trace
+from port_bench import family, flops, stats, trace
 
 # kernel names of the program's hand-written kernel K1 (csrc/ffn.cu)
 K1 = r"\bffn_\w*kernel"
@@ -44,11 +44,13 @@ def prefill_mfu(ctx) -> Optional[float]:
     """Model operations of the window's prefill calls (the tower and
     projector for each row with an image, the decoder over each row's
     tokens past the cached offset) over those calls' wall time at the bf16
-    peak, in %. Padding rows (one token, no image) count nothing."""
+    peak, in %. Padding rows (one token, no image) count nothing; the
+    decoder's count is its family's."""
     spans = _spans(ctx, "prefill")
     if not spans or ctx.peak is None:
         return None
     work = wall = 0.0
+    decoder = family.of(ctx.cfg).flops
     for _, s, e, info in spans:
         wall += e - s
         for n, at in zip(info["lens"], info["starts"]):
@@ -56,7 +58,7 @@ def prefill_mfu(ctx) -> Optional[float]:
                 work += flops.tower_flops(ctx.cfg) \
                     + flops.projector_flops(ctx.cfg)
             if at >= 0 or n > 1:
-                work += flops.decoder_flops(ctx.cfg, n, info["offset"])
+                work += decoder(ctx.cfg, n, info["offset"])
     return 100.0 * work / (wall * ctx.peak["bf16_flops"])
 
 

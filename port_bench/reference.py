@@ -1,6 +1,12 @@
 """The plain reference of a FastVLM configuration: FastViTHD (inference
-form) -> mlp2x_gelu projector -> splice -> Qwen2 decoder with a tied head,
-in float32 plain PyTorch, with TF32 off. It imports nothing of the port.
+form) -> mlp2x_gelu projector -> splice -> the decoder, in float32 plain
+PyTorch, with TF32 off. It imports nothing of the port.
+
+``Base`` is the part every configuration shares: the tower, the projector,
+the splice of the image's rows into the embedded ids, ``logits``, and the
+products (``linear``, ``conv``, ``_w``) with the control's rounding. The
+decoder is its family's (``family.py``): a subclass that writes ``hidden``
+and ``head`` from the family's published description.
 
 It reads the benchmark's own weights (``weights.draw``: layer scales
 unfolded, q / k / v and gate / up apart) and works out again what the
@@ -24,7 +30,6 @@ reference runs after the program is freed, so the copies fit.
 
 from __future__ import annotations
 
-import math
 from typing import List, Optional, Sequence
 
 import torch
@@ -33,7 +38,7 @@ import torch.nn.functional as F
 FP8_MAX = 448.0
 
 
-def _q8(x: torch.Tensor, dims) -> torch.Tensor:
+def q8(x: torch.Tensor, dims) -> torch.Tensor:
     """x rounded to float8 e4m3 under a scale a slice (amax over ``dims``
     to 448), back in float32."""
     amax = x.abs().amax(dim=dims, keepdim=True).clamp_min(1e-30)
@@ -41,7 +46,10 @@ def _q8(x: torch.Tensor, dims) -> torch.Tensor:
     return (x / s).to(torch.float8_e4m3fn).float() * s
 
 
-class Reference:
+class Base:
+    """The shared part; a family's ``Reference`` adds ``hidden`` and
+    ``head``."""
+
     def __init__(self, cfg: dict, tree: dict, quant: Optional[str] = None):
         if quant not in (None, "fp8"):
             raise ValueError(f"quant {quant!r}")
@@ -62,7 +70,7 @@ class Reference:
         if hit is None or hit[0] is not t:
             w = t.float()
             if self.quant and q8_dims is not None:
-                w = _q8(w, q8_dims)
+                w = q8(w, q8_dims)
             hit = self._cast[key] = (t, w)
         return hit[1]
 
@@ -70,7 +78,7 @@ class Reference:
         """x (..., in) @ w (in, out) + b."""
         w = self._w(p["w"], 0)
         if self.quant:
-            x = _q8(x, -1)
+            x = q8(x, -1)
         y = torch.matmul(x, w)
         if bias and "b" in p:
             y = y + self._w(p["b"])
@@ -79,7 +87,7 @@ class Reference:
     def conv(self, x, p, stride=1, groups=1, wkey="w", bkey="b"):
         w = self._w(p[wkey], (1, 2, 3))
         if self.quant:
-            x = _q8(x, (1, 2, 3))
+            x = q8(x, (1, 2, 3))
         return F.conv2d(x, w, self._w(p[bkey]) if bkey in p else None,
                         stride=stride, padding=w.shape[-1] // 2,
                         groups=groups)
@@ -151,54 +159,13 @@ class Reference:
 
     # ------------------------------------------------------------- decoder
 
-    def _rms(self, x, w):
-        eps = self.cfg["rms_norm_eps"]
-        return x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps) \
-            * self._w(w)
-
     def hidden(self, embeds: torch.Tensor) -> torch.Tensor:
         """(T, hidden) input embeddings -> final-normed hidden states."""
-        cfg, p = self.cfg, self.tree["decoder"]
-        t = embeds.shape[0]
-        hq, hkv = cfg["num_attention_heads"], cfg["num_key_value_heads"]
-        d = cfg.get("head_dim") or cfg["hidden_size"] // hq
-        pos = torch.arange(t, device=embeds.device, dtype=torch.float32)
-        inv = 1.0 / cfg["rope_theta"] ** (
-            torch.arange(0, d // 2, device=embeds.device,
-                         dtype=torch.float32) / (d // 2))
-        ang = pos[:, None] * inv[None]
-        cos, sin = torch.cat([ang.cos()] * 2, -1), torch.cat([ang.sin()] * 2, -1)
-
-        def rope(x):  # (T, H, d), GPT-NeoX halves
-            rot = torch.cat([-x[..., d // 2:], x[..., :d // 2]], -1)
-            return x * cos[:, None] + rot * sin[:, None]
-
-        causal = torch.ones(t, t, dtype=torch.bool,
-                            device=embeds.device).tril()
-        x = embeds
-        for lp in p["layers"]:
-            y = self._rms(x, lp["ln1"])
-            q = rope(self.linear(y, lp["q"]).reshape(t, hq, d))
-            k = rope(self.linear(y, lp["k"]).reshape(t, hkv, d))
-            v = self.linear(y, lp["v"]).reshape(t, hkv, d)
-            k = k.repeat_interleave(hq // hkv, dim=1)
-            v = v.repeat_interleave(hq // hkv, dim=1)
-            s = torch.einsum("thd,shd->hts", q, k) / math.sqrt(d)
-            s = s.masked_fill(~causal, float("-inf"))
-            o = torch.einsum("hts,shd->thd", torch.softmax(s, -1), v)
-            x = x + self.linear(o.reshape(t, hq * d), lp["o"], bias=False)
-            y = self._rms(x, lp["ln2"])
-            g = F.silu(self.linear(y, lp["gate"], bias=False))
-            x = x + self.linear(g * self.linear(y, lp["up"], bias=False),
-                                lp["down"], bias=False)
-        return self._rms(x, p["final_norm"])
+        raise NotImplementedError
 
     def head(self, h: torch.Tensor) -> torch.Tensor:
-        p = self.tree["decoder"]
-        if self.cfg["tie_word_embeddings"]:
-            w = self._w(p["embed"], 1).t()
-            return torch.matmul(_q8(h, -1) if self.quant else h, w)
-        return self.linear(h, p["lm_head"], bias=False)
+        """(rows, hidden) -> (rows, vocab) logits."""
+        raise NotImplementedError
 
     def logits(self, ids: Sequence[int], image_u8: Optional[torch.Tensor],
                image_at: int, rows: Sequence[int]) -> torch.Tensor:

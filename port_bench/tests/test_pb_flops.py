@@ -9,15 +9,14 @@ import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from port_bench import flops, weights
-from port_bench.reference import Reference
+from port_bench import family, flops, weights
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 PEAK = {"bf16_flops": 1e12, "hbm_bytes": 1e9}
 
 
-def tiny():
-    with open(os.path.join(DATA, "tiny.json")) as f:
+def tiny(name="tiny.json"):
+    with open(os.path.join(DATA, name)) as f:
         return json.load(f)
 
 
@@ -45,7 +44,7 @@ def test_k1_encode_bound_sums_44_calls_at_1024():
 def test_tower_flops_match_torch_counter():
     cfg = tiny()
     tree = weights.draw(cfg, 1, "cpu", torch.float32)
-    ref = Reference(cfg, tree)
+    ref = family.of(cfg).Reference(cfg, tree)
     img = torch.zeros(cfg["vision"]["image_size"],
                       cfg["vision"]["image_size"], 3, dtype=torch.uint8)
     with FlopCounterMode(display=False) as fc:
@@ -56,11 +55,14 @@ def test_tower_flops_match_torch_counter():
     assert flops.tower_flops(cfg) == pytest.approx(counted, rel=1e-9)
 
 
-def test_decoder_flops_match_torch_counter_with_causal_keys():
-    cfg = tiny()
+# the Mistral family's 40-key window: 50 tokens, and a token after 100
+@pytest.mark.parametrize("name,t,window", [("tiny.json", 12, None),
+                                           ("tiny-mistral.json", 50, 40)])
+def test_decoder_flops_match_torch_counter_with_causal_keys(name, t, window):
+    cfg = tiny(name)
+    fam = family.of(cfg)
     tree = weights.draw(cfg, 1, "cpu", torch.float32)
-    ref = Reference(cfg, tree)
-    t = 12
+    ref = fam.Reference(cfg, tree)
     x = torch.zeros(t, cfg["hidden_size"])
     with FlopCounterMode(display=False) as fc:
         h = ref.hidden(x)
@@ -70,15 +72,18 @@ def test_decoder_flops_match_torch_counter_with_causal_keys():
         cfg["num_attention_heads"]
     layers = cfg["num_hidden_layers"]
     # the reference's attention products are full (t x t); the count is
-    # of the causal keys a token sees
+    # of the causal keys a token sees, the latest ``window`` of them
+    seen = sum(min(i + 1, window or t) for i in range(t))
     full = layers * 2 * 2 * hq * d * t * t
-    causal = layers * 2 * 2 * hq * d * (t * (t + 1) // 2)
-    assert flops.decoder_flops(cfg, t) == pytest.approx(
-        counted - full + causal, rel=1e-9)
-    # a token after 7 cached ones sees 8 keys, its own included
-    one = flops.decoder_flops(cfg, 1, 7)
-    assert one - flops.decoder_flops(cfg, 1, 0) == pytest.approx(
-        layers * 4 * hq * d * 7)
+    causal = layers * 2 * 2 * hq * d * seen
+    assert fam.flops(cfg, t) == pytest.approx(counted - full + causal,
+                                              rel=1e-9)
+    # a token after 7 cached ones sees 8 keys, its own included; after
+    # 100, the window's
+    for cached in (7, 100):
+        one = fam.flops(cfg, 1, cached)
+        assert one - fam.flops(cfg, 1, 0) == pytest.approx(
+            layers * 4 * hq * d * (min(cached + 1, window or cached + 1) - 1))
 
 
 def test_projector_by_hand():

@@ -2,6 +2,7 @@
 compares each loaded module's top-level name whole, since the port's
 name, fastvlm_tpu_torch, begins with the JAX package's."""
 
+import os
 import subprocess
 import sys
 
@@ -27,10 +28,14 @@ def test_a_run_loads_neither_jax_nor_the_jax_package():
         "import fastvlm_tpu_torch.engine, fastvlm_tpu_torch.serve.batcher\n"
         "import fastvlm_tpu_torch.models.vlm, fastvlm_tpu_torch.models.qwen2\n"
         "for m in {metrics!r}: harness.metric_reader(m)\n"
+        "for c in {configs!r}: harness.family.of(harness.load_json(c))\n"
         "print(harness.forbidden_modules())\n").format(
             root=harness.REPO,
             metrics=[m["name"] for m in harness.load_json(
-                harness.REPO + "/BENCHMARK.json")["per_layer"]])
+                harness.REPO + "/BENCHMARK.json")["per_layer"]],
+            configs=[os.path.join(harness.REPO, c["file"]) for c in
+                     harness.load_json(harness.REPO + "/BENCHMARK.json")[
+                         "configs"]])
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, cwd=harness.REPO)
     assert out.returncode == 0, out.stderr

@@ -7,7 +7,7 @@ import os
 
 import pytest
 
-from port_bench import flops, harness, loadgen, readings, trace
+from port_bench import family, flops, harness, loadgen, readings, trace
 
 PB = os.path.dirname(os.path.dirname(__file__))
 CFG = json.load(open(os.path.join(PB, "configs", "fastvlm-1.5b.json")))
@@ -51,7 +51,7 @@ def test_k1_roofline_by_hand():
     assert readings.k1_roofline(c) == pytest.approx(50.0)
     # the prefill's model work over its 1 s wall
     work = 2 * (flops.tower_flops(CFG) + flops.projector_flops(CFG)
-                + flops.decoder_flops(CFG, 400))
+                + family.of(CFG).flops(CFG, 400))
     assert readings.prefill_mfu(c) == pytest.approx(
         100 * work / peak["bf16_flops"])
     assert readings.k1_roofline(ctx_of(events, k1, kind="cpu")) is None

@@ -1,36 +1,42 @@
 """The plain reference against the port at a tiny size on the CPU, both
 in float32 on the same weights: the tower and projector, the prefill's
-logits and teacher-forced decode steps through the dense cache. (The test
-may import both; the reference module itself imports nothing of the
-port.)"""
+logits and teacher-forced decode steps through the dense cache, for the
+dense family and for the test's Mistral family (a sliding window). (The
+test may import both; the reference module and the family modules import
+nothing of the port.)"""
 
 import ast
 import json
 import os
 
 import numpy as np
+import pytest
 import torch
 
-from port_bench import harness, loadgen, weights
-from port_bench.reference import Reference, _q8
+from port_bench import family, harness, loadgen, weights
+from port_bench.reference import q8
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 
 
-def tiny():
-    with open(os.path.join(DATA, "tiny.json")) as f:
+def tiny(name="tiny.json"):
+    with open(os.path.join(DATA, name)) as f:
         return json.load(f)
 
 
-def test_reference_imports_nothing_of_the_port():
-    path = os.path.join(harness.HERE, "reference.py")
-    tree = ast.parse(open(path).read())
+@pytest.mark.parametrize("path", [
+    "port_bench/reference.py", family.DEFAULT,
+    tiny("tiny-mistral.json")["decoder"]])
+def test_reference_imports_nothing_of_the_port(path):
+    tree = ast.parse(open(os.path.join(harness.REPO, path)).read())
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
              for a in n.names]
     names += [n.module for n in ast.walk(tree)
               if isinstance(n, ast.ImportFrom)]
-    assert not [n for n in names if n.split(".")[0] in
-                ("fastvlm_tpu_torch", "fastvlm_tpu", "jax", "port_bench")]
+    banned = {"fastvlm_tpu_torch", "fastvlm_tpu", "jax"}
+    if path == "port_bench/reference.py":
+        banned.add("port_bench")
+    assert not [n for n in names if n.split(".")[0] in banned]
 
 
 def _port(cfg, seed):
@@ -45,7 +51,7 @@ def test_tower_and_projector_match_the_port():
 
     cfg = tiny()
     engine, tree = _port(cfg, 11)
-    ref = Reference(cfg, tree)
+    ref = family.of(cfg).Reference(cfg, tree)
     rng = np.random.default_rng(0)
     s = cfg["vision"]["image_size"]
     img = rng.integers(0, 256, (s, s, 3), dtype=np.uint8)
@@ -61,15 +67,19 @@ def test_tower_and_projector_match_the_port():
     assert float(feats.std()) > 1e-3
 
 
-def test_prefill_and_decode_logits_match_the_port():
+# the Mistral case's system text puts the question and answer past its
+# 40-key window
+@pytest.mark.parametrize("name,system", [("tiny.json", "sys"),
+                                         ("tiny-mistral.json", "sys " * 30)])
+def test_prefill_and_decode_logits_match_the_port(name, system):
     from fastvlm_tpu_torch.models import vlm
 
-    cfg = tiny()
+    cfg = tiny(name)
     engine, tree = _port(cfg, 12)
-    ref = Reference(cfg, tree)
+    ref = family.of(cfg).Reference(cfg, tree)
     s = cfg["vision"]["image_size"]
     img = np.random.default_rng(1).integers(0, 256, (s, s, 3), np.uint8)
-    prompt = loadgen.render("sys", "what is this?")
+    prompt = loadgen.render(system, "what is this?")
     steps = 5
     with torch.inference_mode():
         inputs = engine.prepare(prompt, img)
@@ -96,7 +106,7 @@ def test_prefill_and_decode_logits_match_the_port():
 
 def test_fp8_rounding_is_coarser_than_bf16():
     x = torch.randn(64, 128, generator=torch.Generator().manual_seed(0))
-    e8 = (_q8(x, -1) - x).abs().max() / x.abs().max()
+    e8 = (q8(x, -1) - x).abs().max() / x.abs().max()
     e16 = (x.bfloat16().float() - x).abs().max() / x.abs().max()
     assert e8 > 4 * e16
-    assert (_q8(x, -1).abs().amax(-1) <= x.abs().amax(-1) * 1.0001).all()
+    assert (q8(x, -1).abs().amax(-1) <= x.abs().amax(-1) * 1.0001).all()

@@ -6,7 +6,9 @@ apart, layer scales unfolded) and in the dtype the configuration is
 served in. Every random leaf is a view of one buffer drawn by a single
 ``torch.randn`` call on a generator seeded with the seed, so the same seed
 gives the same weights; the reference draws them again after the program
-is gone, rather than keeping a copy.
+is gone, rather than keeping a copy. The tower and the projector are drawn
+here; the decoder's leaves by its family's ``draw`` (``family.py``), into
+the same ``Plan``, after the projector's.
 
 How each leaf is drawn (the configuration's ``assumed`` repeats it):
   * tower convs and linears: N(0, 1 / fan_in), and a unit centre tap on
@@ -19,14 +21,14 @@ How each leaf is drawn (the configuration's ``assumed`` repeats it):
   * projector and decoder products: N(0, r), r the configuration's
     ``initializer_range`` (0.02 for Qwen2), the q / k / v biases too;
     norms 1 + N(0, r); biases of the tower 0;
-  * but the decoder's q and k weights at N(0, SCORE_STD / hidden), so an
-    attention score q.k / sqrt(d) over unit-RMS inputs has a std of
-    SCORE_STD: at r alone it is r^2 * hidden (0.36 at 0.5B), attention is
-    uniform over hundreds of keys, and greedy decoding repeats one token
-    from the first step (on the card, 1 distinct token of 32 at two seeds
-    of three), which leaves the check nothing to compare; at a std of 3
-    attention picks positions, as trained attention does, and the 32
-    tokens were all distinct.
+  * but the decoder's q and k weights at N(0, SCORE_STD / hidden)
+    (``qk_gain``), so an attention score q.k / sqrt(d) over unit-RMS
+    inputs has a std of SCORE_STD: at r alone it is r^2 * hidden (0.36 at
+    0.5B), attention is uniform over hundreds of keys, and greedy decoding
+    repeats one token from the first step (on the card, 1 distinct token
+    of 32 at two seeds of three), which leaves the check nothing to
+    compare; at a std of 3 attention picks positions, as trained attention
+    does, and the 32 tokens were all distinct.
 """
 
 from __future__ import annotations
@@ -35,11 +37,13 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
+from port_bench import family
+
 LS_LOW, LS_HIGH = 0.05, 0.5
 SCORE_STD = 3.0
 
 
-class _Plan:
+class Plan:
     """Leaves to draw: each random leaf takes the next slice of the buffer
     and is scaled by its own factor afterwards."""
 
@@ -57,6 +61,12 @@ class _Plan:
             self.numel += _numel(shape)
 
 
+def qk_gain(hidden: int, std: float) -> float:
+    """The ``gain`` on ``std`` that draws a decoder's q and k weights at
+    N(0, SCORE_STD / hidden), for ``linear``."""
+    return (SCORE_STD / hidden) ** 0.5 / std
+
+
 def _numel(shape) -> int:
     n = 1
     for s in shape:
@@ -72,8 +82,10 @@ def _conv(plan, node, key, cout, cin, k, tap=False):
     return p
 
 
-def _linear(plan, node, key, cin, cout, std, bias=True, bias_kind="zero",
-            gain=1.0):
+def linear(plan, node, key, cin, cout, std, bias=True, bias_kind="zero",
+           gain=1.0):
+    """``node[key]``: an (in, out) weight at N(0, (gain * std)^2) and, with
+    ``bias``, an (out,) bias of ``bias_kind`` at ``std``."""
     p = node.setdefault(key, {})
     plan.add(p, "w", (cin, cout), "normal", gain * std)
     if bias:
@@ -105,13 +117,13 @@ def _tower(plan, v: dict) -> dict:
             else:
                 plan.add(bp, "norm_scale", (c,), "one", 0.02)
                 plan.add(bp, "norm_bias", (c,), "zero")
-                _linear(plan, bp, "qkv", c, 3 * c, 1.0 / c ** 0.5, bias=False)
-                _linear(plan, bp, "proj", c, c, 1.0 / c ** 0.5)
+                linear(plan, bp, "qkv", c, 3 * c, 1.0 / c ** 0.5, bias=False)
+                linear(plan, bp, "proj", c, c, 1.0 / c ** 0.5)
                 scales = ["ls1", "ls2"]
             ffn: Dict[str, Any] = {}
             _conv(plan, ffn, "dw", c, 1, v["ffn_kernel"])
-            _linear(plan, ffn, "fc1", c, h, 1.0 / c ** 0.5)
-            _linear(plan, ffn, "fc2", h, c, 1.0 / h ** 0.5)
+            linear(plan, ffn, "fc1", c, h, 1.0 / c ** 0.5)
+            linear(plan, ffn, "fc2", h, c, 1.0 / h ** 0.5)
             bp["ffn"] = ffn
             for s in scales:
                 plan.add(bp, s, (c,), "uniform")
@@ -136,48 +148,19 @@ def _tower(plan, v: dict) -> dict:
     return tree
 
 
-def _decoder(plan, cfg: dict) -> dict:
-    h = cfg["hidden_size"]
-    hq, hkv = cfg["num_attention_heads"], cfg["num_key_value_heads"]
-    d = cfg.get("head_dim") or h // hq
-    ffn = cfg["intermediate_size"]
-    s = cfg["initializer_range"]
-    tree: Dict[str, Any] = {}
-    plan.add(tree, "embed", (cfg["vocab_size"], h), "normal", s)
-    layers = []
-    for _ in range(cfg["num_hidden_layers"]):
-        lp: Dict[str, Any] = {}
-        plan.add(lp, "ln1", (h,), "one", s)
-        qk = (SCORE_STD / h) ** 0.5 / s
-        _linear(plan, lp, "q", h, hq * d, s, bias_kind="normal", gain=qk)
-        _linear(plan, lp, "k", h, hkv * d, s, bias_kind="normal", gain=qk)
-        _linear(plan, lp, "v", h, hkv * d, s, bias_kind="normal")
-        _linear(plan, lp, "o", hq * d, h, s, bias=False)
-        plan.add(lp, "ln2", (h,), "one", s)
-        _linear(plan, lp, "gate", h, ffn, s, bias=False)
-        _linear(plan, lp, "up", h, ffn, s, bias=False)
-        _linear(plan, lp, "down", ffn, h, s, bias=False)
-        layers.append(lp)
-    tree["layers"] = layers
-    plan.add(tree, "final_norm", (h,), "one", s)
-    if not cfg["tie_word_embeddings"]:
-        _linear(plan, tree, "lm_head", h, cfg["vocab_size"], s, bias=False)
-    return tree
-
-
 def draw(cfg: dict, seed: int, device, dtype=torch.bfloat16) -> dict:
     """{"vision", "projector", "decoder"} weights of ``cfg`` from ``seed``."""
-    plan = _Plan()
+    plan = Plan()
     tree = {"vision": _tower(plan, cfg["vision"])}
     proj: Dict[str, Any] = {}
     layers = [{}, {}]
-    _linear(plan, layers[0], "l", cfg["mm_hidden_size"], cfg["hidden_size"],
-            cfg["initializer_range"])
-    _linear(plan, layers[1], "l", cfg["hidden_size"], cfg["hidden_size"],
-            cfg["initializer_range"])
+    linear(plan, layers[0], "l", cfg["mm_hidden_size"], cfg["hidden_size"],
+           cfg["initializer_range"])
+    linear(plan, layers[1], "l", cfg["hidden_size"], cfg["hidden_size"],
+           cfg["initializer_range"])
     proj["layers"] = [x["l"] for x in layers]
     tree["projector"] = proj
-    tree["decoder"] = _decoder(plan, cfg)
+    tree["decoder"] = family.of(cfg).draw(plan, cfg)
 
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
