@@ -53,6 +53,17 @@ non-zero):
               the plain version's plus half an ulp of the output; then per
               case its kernel time (one kernel a call), by events, bound
               and share, the plain version's time; SDPA as context
+  5c. K4w, K3w, K5  Mellum2's kernels at its 32/4/128 heads and expert
+              widths: K4 with a window (1024 at the vqa-doc3k burst, a
+              chunk far past the window and one across it, rows shorter
+              than it; 100; none) against float64 and its plain version,
+              as 5b; K3 with a window across its edges at pages 64 and 16
+              against its plain version, twice bitwise equal, then the
+              serving call with and without it; K5 (routed_experts)
+              against experts_reference at a burst's 27,200 tokens, a
+              row's, a decode step's and with padding rows (near-tie
+              tokens routed apart left out), each beside its bound
+              (port_bench's counts), torch._grouped_mm as context
   6. main     an Engine at full width (FastViTHD @1024, mlp2x_gelu
               3072->896, Qwen2-0.5B, bf16, random weights from a seed, byte
               tokenizer) answers 3 greedy requests of 32 new tokens; checks
@@ -192,6 +203,12 @@ non-zero):
               B = 4 (kernel time, bound, SDPA); S2 (336/672/1008, 14 crops,
               3072 channels) ms, its first 1024 channels against the
               single-scale features
+ 13b. serve-mellum  Mellum2-12B-A2.5B at full width (the benchmark's
+              bf16 draw) through the vqa-doc3k cell's scheduler after the
+              7B is freed: 12 requests of ~3.4k tokens; every prefill call
+              28 K4 (21 windowed) and 28 K5 calls, every decode step 28 K3
+              (21 windowed) and 28 K5, nothing through qwen2._attend or
+              _attend_pool; its 12B freed before the next phase
  14. worker   serve/worker.ModelWorker in process, pumped through
               generate_stream as the HTTP routes pump it (the card's machine
               has no aiohttp): (a) serially over phase 6's engine: base64
@@ -332,7 +349,11 @@ f32 bound is 3xTF32's: three TF32 products a product at 494.7 TFLOP/s,
 with the CUDA cores' 66.9 TFLOP/s beside it as context.
 
 Other modes: --k1-only (phases device, build, K1); --k4-only (phases
-device, build, K4, serve-1.5b); --k1-ab PARENT
+device, build, K4, serve-1.5b); --mellum-only (phases device, build, K4
+and K3 with a window at Mellum2's 32/4/128 heads, K5 at its expert
+widths); --serve-mellum-only (Mellum2-12B-A2.5B through the scheduler:
+every prefill call 28 K4 (21 windowed) and 28 K5, every decode step 28
+K3 (21 windowed) and 28 K5, no plain attention); --k1-ab PARENT
 (phase K1, bf16 and f32, against the kernel of the checkout at PARENT and
 of this one, in turns); --tp-only; --serve-view-only.
 
@@ -342,6 +363,7 @@ The line before last is a JSON object {"kernels": [...]}; the last line is
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import json
@@ -6098,6 +6120,375 @@ def _train_small():
     return {"loss_rel_err": loss_err, "param_rel_err": worst, "k1": k1}
 
 
+# ---------------------------------------------------------------------------
+# Mellum2-12B-A2.5B: K4 and K3 under a window, K5, and the served path
+# ---------------------------------------------------------------------------
+
+MELLUM_CFG = os.path.join(ROOT, "port_bench", "configs",
+                          "mellum2-12b-a2.5b.json")
+MELLUM_HEADS = (32, 4, 128)
+MELLUM_WINDOW = 1024
+# the vqa-doc3k cell's burst of 8: rows of ~3.4k tokens (a 3072-token
+# document, 256 image tokens, the question); a chunked admission's chunk
+# far past the window; rows shorter than the window
+K4W_BURST = [3400, 3361, 3380, 3395, 3372, 3410, 3350, 3388]
+K4W_CASES = (
+    ("burst w1024", 8, 3410, 3410, 0, K4W_BURST, MELLUM_WINDOW),
+    ("chunk @3072 w1024", 1, 256, 3328, 3072, None, MELLUM_WINDOW),
+    ("chunk @1100 w1024", 1, 256, 1356, 1100, None, MELLUM_WINDOW),
+    ("short w1024", 2, 700, 700, 0, [700, 650], MELLUM_WINDOW),
+    ("burst w100", 2, 1000, 1000, 0, [1000, 937], 100),
+    ("burst full", 8, 3410, 3410, 0, K4W_BURST, None),
+)
+
+
+def k4w_bound_ms(ns, offset, hq, hkv, d, window):
+    """K4's bound under a window: 4 D Hq FLOPs a key seen at the bf16 peak,
+    or q, out and the keys each row reads moved once, the larger (the
+    benchmark's counts, port_bench/flops.py)."""
+    from port_bench import flops as pb_flops
+
+    flops = 4 * d * hq * sum(pb_flops.causal_pairs(n, offset, window)
+                             for n in ns)
+    nbytes = 2 * sum(2 * n * hq * d
+                     + 2 * pb_flops.keys_read(n, offset, window) * hkv * d
+                     for n in ns)
+    f_ms, b_ms = flops / BF16_FLOPS * 1e3, nbytes / HBM_BPS * 1e3
+    return max(f_ms, b_ms), ("operations" if f_ms >= b_ms else "bytes")
+
+
+def _k4w_exact(q, k, v, offset, lens, window):
+    """The windowed attention in float64 from the same 16-bit inputs."""
+    b, t, hq, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    q_pos = offset + torch.arange(t, device=q.device)[:, None]
+    k_pos = torch.arange(s, device=q.device)[None, :]
+    out = []
+    for r in range(b):
+        m = k_pos <= q_pos
+        if window is not None:
+            m = m & (q_pos - k_pos < window)
+        if lens is not None:
+            m = m & (k_pos < lens[r])
+        o = torch.empty((t, hq * d), dtype=torch.float64, device=q.device)
+        for h0 in range(0, hkv):
+            qr = q[r, :, h0 * (hq // hkv):(h0 + 1) * (hq // hkv)].double()
+            sc = torch.einsum("tgd,sd->gts", qr, k[r, :, h0].double()) / math.sqrt(d)
+            sc = sc.masked_fill(~m, float("-inf"))
+            pr = torch.softmax(sc, dim=-1).nan_to_num(0.0)
+            g = hq // hkv
+            o[:, h0 * g * d:(h0 + 1) * g * d] = torch.einsum(
+                "gts,sd->tgd", pr, v[r, :, h0].double()).reshape(t, g * d)
+            del sc, pr
+        out.append(o)
+    return torch.stack(out)
+
+
+def phase_k4_window(gen):
+    """K4 with a window against its plain version and float64 at
+    Mellum2's 32/4/128 heads and the vqa-doc3k cell's shapes, on the real
+    queries of each row; tolerance as phase K4's; then timed beside its
+    bound (the causal pairs the window keeps)."""
+    from fastvlm_tpu_torch.ops.cuda.prefill_attention import (
+        prefill_attention, prefill_attention_reference)
+
+    hq, hkv, d = MELLUM_HEADS
+    results = {}
+    for name, b, t, s, offset, lens, window in K4W_CASES:
+        dtype = torch.bfloat16
+        q = (1.5 * torch.randn((b, t, hq, d), generator=gen, device="cuda")).to(dtype)
+        kv = torch.randn((b, s, 2 * hkv * d), generator=gen, device="cuda").to(dtype)
+        k = kv[..., :hkv * d].reshape(b, s, hkv, d)
+        v = kv[..., hkv * d:].reshape(b, s, hkv, d)
+        kv_lens = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                         device="cuda")
+        before = (prefill_attention.launches, prefill_attention.window_launches)
+        got = prefill_attention(q, k, v, offset, kv_lens, window)
+        torch.cuda.synchronize()
+        if (prefill_attention.launches - before[0],
+                prefill_attention.window_launches - before[1]) != \
+                (1, int(window is not None)):
+            raise AssertionError(f"K4 window {name}: launch counts")
+        plain = prefill_attention_reference(q, k, v, offset, kv_lens, window)
+        exact = _k4w_exact(q, k, v, offset, lens, window)
+        real = torch.ones((b, t), dtype=torch.bool, device="cuda")
+        if lens is not None:
+            real = torch.arange(t, device="cuda")[None] < kv_lens[:, None]
+        real = real[..., None]
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"K4 window {name}: non-finite output")
+        k_err = float(((got.double() - exact).abs() * real).max())
+        p_err = float(((plain.double() - exact).abs() * real).max())
+        top = float((exact.abs() * real).max())
+        half_ulp = 2.0 ** (math.floor(math.log2(top)) - 7) / 2
+        if k_err > p_err + half_ulp:
+            raise AssertionError(f"K4 window {name}: max_abs_err {k_err:.4e} "
+                                 f"against float64, the plain version's "
+                                 f"{p_err:.4e} (+ half an ulp {half_ulp:.4e})")
+        del plain, exact
+        ns = [t] * b if lens is None else [min(n, t) for n in lens]
+        bound, by = k4w_bound_ms(ns, offset, hq, hkv, d, window)
+
+        def call():
+            prefill_attention(q, k, v, offset, kv_lens, window)
+
+        k_ms, names = kernel_profile(call, reps=10)
+        ms = time_batch_ms(call, reps=10)
+        results[name] = dict(max_abs_err=k_err, plain_max_abs_err=p_err,
+                             kernel_ms=k_ms, ms=ms, bound_ms=bound, bound_by=by)
+        share = "not measured" if k_ms is None else f"{100 * bound / k_ms:.2f}%"
+        log("K4w", f"{name}: B={b} T={t} S={s} offset {offset} window {window}: "
+                   f"max_abs_err vs float64 {k_err:.4e} (plain {p_err:.4e}, + "
+                   f"half an ulp {half_ulp:.4e} allowed); kernel time "
+                   f"{fmt_ms(k_ms)} ({names}), {ms:.4f} ms a call by events; "
+                   f"bound {bound:.4f} ms ({by}), share {share}")
+    return results
+
+
+def phase_k3_window(gen):
+    """K3 with a window against its plain version at 32/4/128: rows across
+    the window's edges (shorter, equal, longer, far past), page 64 and 16,
+    bf16; then the serving call's time (batch 8 at ~3.4k keys) beside the
+    same call without a window."""
+    from fastvlm_tpu_torch.ops.cuda.paged_decode_attention import (
+        paged_decode_attention, paged_decode_attention_reference)
+
+    hq, hkv, d = MELLUM_HEADS
+    w = MELLUM_WINDOW
+    rng = np.random.RandomState(5)
+    out = {}
+    for page in (64, 16):
+        lens = [1, w - 1, w, w + 1, 2 * w + 7, 3411, 5, 4096]
+        args = _k3_case(gen, rng, hq, hkv, d, page, lens, torch.bfloat16,
+                        pad_rows=(6,))
+        before = paged_decode_attention.window_launches
+        got = paged_decode_attention(*args, window=w)
+        again = paged_decode_attention(*args, window=w)
+        torch.cuda.synchronize()
+        if paged_decode_attention.window_launches != before + 2:
+            raise AssertionError("K3 window: launch count")
+        if not torch.equal(got, again):
+            raise AssertionError("K3 window: a second call gave another result")
+        want = paged_decode_attention_reference(*args, window=w)
+        err, ratio = compare(got, want, K3_TOL[torch.bfloat16],
+                             f"K3 window page {page}")
+        full = paged_decode_attention_reference(*args)
+        differs = float((full.float() - want.float()).abs().max())
+        out[f"page {page}"] = dict(max_abs_err=err, ratio=ratio)
+        log("K3w", f"page {page} lengths {lens} (row 6 unmapped) window {w}: "
+                   f"max_abs_err {err:.3e} (ratio {ratio:.3f}), second call "
+                   f"bitwise equal; the window moves the result by {differs:.3e}")
+    lens = [3400, 3361, 3380, 3395, 3372, 3410, 3350, 3388]
+    args = _k3_case(gen, rng, hq, hkv, d, 64, lens, torch.bfloat16,
+                    width=4096 // 64)
+    for tag, win in (("window", w), ("no window", None)):
+        def call():
+            paged_decode_attention(*args, window=win)
+        k_ms, names = kernel_profile(call, reps=20)
+        keys = sum(min(n, win or n) for n in lens)
+        nbytes = 2 * keys * hkv * d * 2 + 2 * 2 * len(lens) * hq * d
+        bound = nbytes / HBM_BPS * 1e3
+        share = "not measured" if k_ms is None else f"{100 * bound / k_ms:.2f}%"
+        out[f"serving {tag}"] = dict(kernel_ms=k_ms, bound_ms=bound)
+        log("K3w", f"serving call B=8 ~3.4k keys {tag}: kernel time "
+                   f"{fmt_ms(k_ms)} ({names}); bound {bound:.5f} ms (bytes), "
+                   f"share {share}")
+    return out
+
+
+def phase_k5(gen):
+    """K5 (routed experts, Triton) against experts_reference at Mellum2's
+    widths (D 2304, 64 experts of 896, top 8) at a burst's rows, one
+    row's, a decode step's, and with padding rows, in bf16. A token whose
+    top 8 differ between the two (the router's products summed in another
+    order) is a near tie: its 8th and 9th probabilities must lie within
+    1e-3 of each other, relative, and it is left out of the comparison;
+    the others within 1e-2 of the largest output. Then timed beside its
+    bound (the benchmark's, port_bench/decoders/mellum2.py's k5_layer),
+    and, as context only, torch._grouped_mm's three products."""
+    from fastvlm_tpu_torch.ops.cuda import experts as k5
+    from port_bench import family, harness
+
+    cfg = harness.load_json(MELLUM_CFG)
+    fam = family.of(cfg)
+    d, _, _, _, e, top, inter, _ = fam.dims(cfg)
+    res = {}
+
+    def r(*shape, std):
+        return (torch.randn(shape, generator=gen, device="cuda") * std).to(
+            torch.bfloat16)
+
+    router = r(d, e, std=0.02)
+    gateup = r(e, d, 2 * inter, std=0.02)
+    down = r(e, inter, d, std=0.02)
+    for name, n, pad in (("burst", 27200, 0), ("one row", 3400, 0),
+                         ("decode", 8, 0), ("padded", 4096, 700),
+                         ("tiny", 3, 1)):
+        x = r(n, d, std=1.0)
+        valid = None
+        if pad:
+            valid = torch.ones((n,), dtype=torch.bool, device="cuda")
+            valid[-pad:] = False
+        before = k5.routed_experts.launches
+        got = k5.routed_experts(x, router, gateup, down, top, True, valid)
+        torch.cuda.synchronize()
+        if k5.routed_experts.launches != before + 1:
+            raise AssertionError("K5: launch count")
+        _, ids, _ = k5.launch(x, router, gateup, down, top, True, valid)
+        want = k5.experts_reference(x, router, gateup, down, top, True, valid)
+        probs = torch.softmax(x.float() @ router.float(), -1)
+        srt = probs.sort(-1, descending=True)
+        ref_ids = srt.indices[:, :top]
+        ids = ids.view(n, top).long()
+        same = (ids.sort(-1).values == ref_ids.sort(-1).values).all(-1)
+        if valid is not None:
+            if bool((ids[~valid] != -1).any()):
+                raise AssertionError("K5: a padding token was routed")
+            same = same | ~valid
+        gap = (srt.values[:, top - 1] - srt.values[:, top]) / srt.values[:, top - 1]
+        flips = ~same
+        if bool((gap[flips] > 1e-3).any()):
+            raise AssertionError(f"K5 {name}: {int(flips.sum())} tokens routed "
+                                 f"apart, some without a near tie")
+        keep = same[:, None]
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"K5 {name}: non-finite output")
+        err = float(((got.float() - want.float()).abs() * keep).max())
+        top_out = float((want.float().abs() * keep).max())
+        if err > 1e-2 * top_out:
+            raise AssertionError(f"K5 {name}: max_abs_err {err:.4e} against "
+                                 f"the plain version (largest {top_out:.4e})")
+        if valid is not None and bool(got[~valid].abs().max() > 0):
+            raise AssertionError("K5: a padding token's output is not zero")
+        real = n - pad
+        flops, nbytes = fam.k5_layer(cfg, real)
+        bound = max(flops / BF16_FLOPS, nbytes / HBM_BPS) * 1e3
+        by = "operations" if flops / BF16_FLOPS >= nbytes / HBM_BPS else "bytes"
+
+        def call():
+            k5.routed_experts(x, router, gateup, down, top, True, valid)
+
+        k_ms, names = kernel_profile(call, reps=5)
+        item = dict(max_abs_err=err, largest=top_out, near_tie_flips=int(flips.sum()),
+                    kernel_ms=k_ms, kernels=names, bound_ms=bound, bound_by=by)
+        lib = ""
+        grouped = getattr(torch, "_grouped_mm", None)
+        if grouped is not None and name in ("burst", "one row"):
+            try:
+                counts = torch.bincount(ref_ids.reshape(-1), minlength=e)
+                offs = counts.cumsum(0).to(torch.int32)
+                rows = x[torch.argsort(ref_ids.reshape(-1), stable=True) // top]
+                g_ms = kernel_time_ms(lambda: grouped(
+                    grouped(rows, gateup, offs=offs)[:, :inter].contiguous(),
+                    down, offs=offs), reps=5)
+                item["grouped_mm_ms"] = g_ms
+                lib = f"; context: torch._grouped_mm gate/up then down {fmt_ms(g_ms)}"
+            except Exception as exc:  # context only: its API varies by release
+                lib = f"; context: torch._grouped_mm not run ({type(exc).__name__})"
+        res[name] = item
+        share = "not measured" if k_ms is None else f"{100 * bound / k_ms:.2f}%"
+        log("K5", f"{name}: N={n} ({pad} padding) max_abs_err {err:.4e} (largest "
+                  f"{top_out:.4e}), {int(flips.sum())} near-tie tokens routed "
+                  f"apart; kernel time {fmt_ms(k_ms)} ({names}); bound "
+                  f"{bound:.4f} ms ({by}), share {share}{lib}")
+    return res
+
+
+def phase_serve_mellum(card):
+    """Mellum2-12B-A2.5B at full width (random bf16 weights from the
+    benchmark's draw) through Engine + BatchScheduler with the vqa-doc3k
+    mix's settings: 12 requests of ~3.4k tokens (8 at once, 4 admitted
+    later). Every prefill call launches 28 K4 kernels (21 windowed) and 28
+    K5 calls, every decode step 28 K3 kernels (21 windowed), and nothing
+    reaches qwen2._attend or qwen2._attend_pool."""
+    sys.path.insert(0, ROOT)
+    from fastvlm_tpu_torch.models import qwen2, vlm
+    from fastvlm_tpu_torch.ops.cuda import experts as k5
+    from fastvlm_tpu_torch.ops.cuda.paged_decode_attention import (
+        paged_decode_attention)
+    from fastvlm_tpu_torch.ops.cuda.prefill_attention import prefill_attention
+    from port_bench import harness, loadgen, weights
+
+    cfg = harness.load_json(MELLUM_CFG)
+    mix = harness.load_json(os.path.join(ROOT, "port_bench", "traffic",
+                                         "vqa-doc3k.json"))
+    t0 = time.perf_counter()
+    tree = weights.draw(cfg, 22, torch.device("cuda"), torch.bfloat16)
+    server = harness.build_server(cfg, mix, tree, "bfloat16")
+    del tree
+    log("serve-mellum", f"weights and engine in {time.perf_counter() - t0:.1f} s, "
+                        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    plain = {"attend": 0, "attend_pool": 0}
+    orig = {"_attend": qwen2._attend, "_attend_pool": qwen2._attend_pool}
+
+    def counted(name, key):
+        def f(*a, **kw):
+            plain[key] += 1
+            return orig[name](*a, **kw)
+        return f
+    qwen2._attend = counted("_attend", "attend")
+    qwen2._attend_pool = counted("_attend_pool", "attend_pool")
+    calls = []
+    saved = {n: getattr(vlm, n) for n in ("prefill", "prefill_continue",
+                                           "decode_step")}
+
+    def watched(name):
+        def f(*a, **kw):
+            b = (prefill_attention.launches, prefill_attention.window_launches,
+                 paged_decode_attention.launches,
+                 paged_decode_attention.window_launches,
+                 k5.routed_experts.launches)
+            out = saved[name](*a, **kw)
+            a_ = (prefill_attention.launches, prefill_attention.window_launches,
+                  paged_decode_attention.launches,
+                  paged_decode_attention.window_launches,
+                  k5.routed_experts.launches)
+            calls.append((name, tuple(x - y for x, y in zip(a_, b))))
+            return out
+        return f
+    try:
+        plan = loadgen.build(mix, cfg, 22, 30.0)
+        n_img = 256
+        longest = max(len(loadgen.prompt_ids(r.prompt, n_img)[0])
+                      for r in plan.requests[:12])
+        server.warm(longest, 8)
+        for n in saved:
+            setattr(vlm, n, watched(n))
+        plain.update(attend=0, attend_pool=0)
+        t1 = time.perf_counter()
+        streams = []
+        for i, req in enumerate(plan.requests[:12]):
+            streams.append(server.stream(req, plan.images))
+            if i == 7:
+                time.sleep(0.5)
+        finals = [list(s)[-1] for s in streams]
+        secs = time.perf_counter() - t1
+    finally:
+        for n, f in saved.items():
+            setattr(vlm, n, f)
+        qwen2._attend, qwen2._attend_pool = orig["_attend"], orig["_attend_pool"]
+    counters = server.counters()
+    server.close()
+    bad = [c for c in calls if (c[0] != "decode_step" and c[1] != (28, 21, 0, 0, 28))
+           or (c[0] == "decode_step" and c[1] != (0, 0, 28, 21, 28))]
+    kinds = dict(collections.Counter(c[0] for c in calls))
+    log("serve-mellum", f"12 requests in {secs:.2f} s; calls {kinds}; launch "
+                        f"deltas of the first calls {calls[:3]}; plain "
+                        f"attention calls {plain}; counters {counters}")
+    if bad or plain["attend"] or plain["attend_pool"]:
+        raise AssertionError(f"serve-mellum: calls off the kernels: {bad[:5]}, "
+                             f"plain {plain}")
+    if any("error" in f for f in finals):
+        raise AssertionError(f"serve-mellum: a request failed: {finals}")
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    # launches summed over the calls: K4, K4 windowed, K3, K3 windowed, K5
+    launches = [int(sum(c[1][j] for c in calls)) for j in range(5)]
+    return dict(calls=kinds, plain=plain, counters=dict(counters), seconds=secs,
+                launches=launches)
+
+
 AB_RUN = """
 import importlib.util, json, sys, torch
 sys.path.insert(0, {tree!r})
@@ -6177,6 +6568,15 @@ def main(argv) -> int:
         print(json.dumps({"k4": k4, "serve-1.5b": serve15}, default=str),
               flush=True)
         return 0
+    if argv == ["--mellum-only"]:  # K4 and K3 with a window, K5
+        res = {"k4_window": phase_k4_window(gen), "k3_window": phase_k3_window(gen),
+               "k5": phase_k5(gen)}
+        print(json.dumps(res, default=str), flush=True)
+        return 0
+    if argv == ["--serve-mellum-only"]:  # Mellum2 through the scheduler
+        print(json.dumps({"serve-mellum": phase_serve_mellum(card)}, default=str),
+              flush=True)
+        return 0
     if argv == ["--tp-only"]:  # phase tp alone, after the engine it needs
         main_res = phase_main(card)
         tp_res = phase_tp(card, main_res["engine"], main_res["prompts"],
@@ -6193,6 +6593,9 @@ def main(argv) -> int:
     k2_err, k2 = phase_k2(gen)
     k3_err, k3 = phase_k3(gen)
     k4 = phase_k4(gen)
+    k4w = phase_k4_window(gen)
+    k3w = phase_k3_window(gen)
+    k5_res = phase_k5(gen)
     main_res = phase_main(card)
     engine = main_res.pop("engine")
     main_prompts, main_answers = main_res["prompts"], dict(main_res["answers"])
@@ -6221,6 +6624,8 @@ def main(argv) -> int:
     del llava
     gc.collect()
     torch.cuda.empty_cache()
+    mellum = phase_serve_mellum(card)  # frees its 12B before it returns
+    m_k4, m_k4w, m_k3, m_k3w, m_k5 = mellum["launches"]
     quant_res = phase_quant(card, engine, main_res, gen)
     kv_res = phase_kv_int8(card, engine)
     export_res = phase_export(card, quant_res.pop("tower"),
@@ -6362,8 +6767,12 @@ def main(argv) -> int:
                               "worker-batch": worker_res["batch"][2],
                               "worker-llava": worker_res["llava"][2],
                               "kv-int8": int(kv_launches[2]),
-                              **_tp_launches(tp_res, 2)},
-         "max_abs_err": max(k3_err, worker_res["k3_err"], tp_k["k3_err"]),
+                              **_tp_launches(tp_res, 2),
+                              "serve-mellum": m_k3,
+                              "serve-mellum windowed": m_k3w},
+         "max_abs_err": max(k3_err, worker_res["k3_err"], tp_k["k3_err"],
+                            *(r["max_abs_err"] for r in k3w.values()
+                              if "max_abs_err" in r)),
          "ms": k3["ms"], "kernel_ms": k3["kernel_ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": "bytes", "library_ms": None,
          "host_us": k3["host_us"], "dense_k2_kernel_ms": k3["dense_k2_kernel_ms"],
@@ -6374,15 +6783,34 @@ def main(argv) -> int:
                      "max_abs_err also over the 7B worker's B=4 32/32/128 "
                      "call",
          "llava_32_32_128_b4": worker_res["k3"],
-         "tp_local_heads": tp_k["k3"]},
+         "tp_local_heads": tp_k["k3"],
+         "window": k3w},
         {"name": "prefill_attention", "route": "cuda",
          "source": "fastvlm_tpu_torch/csrc/prefill_attention.cu",
          "replaces": None,
-         "launches_by_path": {"serve-1.5b": serve15_res["k4_launches"]},
-         "max_abs_err": max(r["max_abs_err"] for r in k4.values()),
-         "timed_as": "per case of phase K4; bound: causal pairs of the "
-                     "real rows at 989 TFLOP/s or their bytes once",
-         "cases": k4},
+         "launches_by_path": {"serve-1.5b": serve15_res["k4_launches"],
+                              "serve-mellum": m_k4,
+                              "serve-mellum windowed": m_k4w},
+         "max_abs_err": max(r["max_abs_err"]
+                            for r in (*k4.values(), *k4w.values())),
+         "timed_as": "per case of phases K4 and K4w; bound: causal pairs "
+                     "of the real rows (within the window) at 989 TFLOP/s "
+                     "or their bytes once",
+         "cases": k4, "window_cases": k4w},
+        {"name": "routed_experts", "route": "triton",
+         "source": "fastvlm_tpu_torch/ops/cuda/experts.py",
+         "replaces": None,
+         "launches_by_path": {"serve-mellum": m_k5},
+         "max_abs_err": max(r["max_abs_err"] for r in k5_res.values()),
+         "kernel_ms": k5_res["burst"]["kernel_ms"],
+         "bound_ms": k5_res["burst"]["bound_ms"],
+         "bound_by": k5_res["burst"]["bound_by"],
+         "timed_as": "one sparse layer of Mellum2 (D 2304, 64 experts of "
+                     "896, top 8, bf16) over the vqa-doc3k burst's 27,200 "
+                     "tokens; max_abs_err over every case against "
+                     "experts_reference, near-tie tokens left out; "
+                     "launches: calls, four kernels each",
+         "cases": k5_res},
     ]}
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

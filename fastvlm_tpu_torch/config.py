@@ -128,6 +128,16 @@ class Qwen2Config:
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
     kv_cache_dtype: Optional[str] = None
+    # every layer alike, no routed experts: ``LayeredConfig``'s fields at
+    # the values that mean that (class attributes, not fields, so that a
+    # config of one kind of layer reads as it did before they existed)
+    layer_types = None
+    full_rope = None
+    num_experts = 0
+    num_experts_per_tok = 0
+    moe_intermediate_size = 0
+    norm_topk_prob = True
+    mlp_layer_types = None
 
     @property
     def q_dim(self) -> int:
@@ -136,6 +146,85 @@ class Qwen2Config:
     @property
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
+
+    @property
+    def layered(self) -> bool:
+        """Layers of more than one kind (attention kinds or routed
+        experts): the paths that build one mask or one FFN for every layer
+        refuse such a decoder (``require_uniform``)."""
+        return self.layer_types is not None or self.num_experts > 0
+
+    def window_of(self, i: int) -> Optional[int]:
+        """Layer i's attention window (None: full causal)."""
+        if self.layer_types is None:
+            return self.attn_window
+        return self.attn_window \
+            if self.layer_types[i] == "sliding_attention" else None
+
+    def full_layer(self, i: int) -> bool:
+        """Layer i is a "full_attention" layer of a ``layer_types``
+        decoder (its RoPE is ``full_rope``)."""
+        return self.layer_types is not None \
+            and self.layer_types[i] == "full_attention"
+
+    def sparse(self, i: int) -> bool:
+        """Layer i's FFN is routed experts."""
+        if self.num_experts <= 0:
+            return False
+        return self.mlp_layer_types is None \
+            or self.mlp_layer_types[i] == "sparse"
+
+    def require_uniform(self, what: str) -> None:
+        """Raise for a ``layered`` decoder on a path that ``what`` names
+        and that takes one kind of layer only."""
+        if self.layered:
+            raise NotImplementedError(
+                f"{what} does not take a decoder with per-layer attention "
+                f"kinds or routed experts (layer_types / num_experts)")
+
+
+@dataclass(frozen=True)
+class LayeredConfig(Qwen2Config):
+    """A decoder whose layers differ (``models/builder.build_decoder_config``
+    makes one where a config.json asks for it).
+
+    ``layer_types`` (HF ``layer_types``): "sliding_attention" layers take
+    ``attn_window`` and RoPE at ``rope_theta``, "full_attention" layers see
+    every earlier key and take ``full_rope`` where it is given; None:
+    every layer alike. Routed experts (HF Qwen2-MoE / Qwen3-MoE keys): a
+    "sparse" layer of ``mlp_layer_types`` (every layer where that is None)
+    replaces the SwiGLU FFN by ``num_experts`` SwiGLU experts of width
+    ``moe_intermediate_size``, ``num_experts_per_tok`` a token, under a
+    softmax router (top-k weights renormalised where ``norm_topk_prob``)."""
+    layer_types: Optional[Tuple[str, ...]] = None
+    full_rope: Optional["RopeParams"] = None
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_intermediate_size: int = 0
+    norm_topk_prob: bool = True
+    mlp_layer_types: Optional[Tuple[str, ...]] = None
+
+
+LAYERED_FIELDS = tuple(f.name for f in dataclasses.fields(LayeredConfig)
+                       if f.name not in Qwen2Config.__dataclass_fields__)
+
+
+@dataclass(frozen=True)
+class RopeParams:
+    """One RoPE of a ``layer_types`` decoder (an HF ``rope_parameters``
+    entry): "default" (inverse frequencies theta^(-2i/d)) or "yarn"
+    (transformers' ``_compute_yarn_parameters``: the frequencies blended
+    between interpolated by ``factor`` and extrapolated over the dims the
+    correction range of ``beta_fast`` / ``beta_slow`` rotations at
+    ``original_max_position_embeddings`` gives, and cos / sin scaled by
+    ``attention_factor``)."""
+    rope_type: str = "default"
+    theta: float = 10000.0
+    factor: float = 1.0
+    original_max_position_embeddings: Optional[int] = None
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    attention_factor: Optional[float] = None
 
 
 def qwen2_0_5b(**kw) -> Qwen2Config:
@@ -254,6 +343,8 @@ def decoder_from_hf_dict(d: Dict[str, Any], **overrides) -> Qwen2Config:
     elif "hidden_size" in kw and "num_heads" in kw:
         kw["head_dim"] = kw["hidden_size"] // kw["num_heads"]
     kw.update(overrides)
+    if any(k in kw for k in LAYERED_FIELDS):
+        return LayeredConfig(**kw)
     return Qwen2Config(**kw)
 
 

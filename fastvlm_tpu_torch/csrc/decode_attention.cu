@@ -47,7 +47,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   const DenseRows rows{(size_t)blockIdx.z * s_max * row_stride + (size_t)blockIdx.y * D,
                        row_stride};
   decode_body<T, D>(q, k, v, rows, lengths + blockIdx.z, s_max, part_acc, part_ml, counters,
-                    out, hq, hkv, split, scale);
+                    out, hq, hkv, split, scale, 0);
 }
 
 template <typename T, int D>

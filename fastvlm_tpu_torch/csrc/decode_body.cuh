@@ -6,7 +6,8 @@
 // template parameter (Rows).
 //
 // Semantics: q is pre-scaled by D^-0.5 in q's dtype; keys at or past the
-// row's length are masked with -1e30; softmax and the P.V sum in f32; the
+// row's length, and under a window W > 0 (K3's sliding-window layers) keys
+// below length - W, are masked with -1e30; softmax and the P.V sum in f32; the
 // denominator floored at 1e-30; output in q's dtype. GQA: query head h
 // reads KV head h / (Hq / Hkv).
 //
@@ -44,6 +45,11 @@
 //  * The split size is chosen on the host (pick_split): whole 64-key tiles
 //    a block, the fewest that keep the grid near one block per SM (split
 //    count <= 256).
+//  * Under a window a warp locates, copies and computes only the tiles
+//    that hold a key inside it; a split wholly before it makes only the
+//    two prefetch requests (issued before the length is known) and carries
+//    zero weight, as a split past the length does. W = 0 computes as
+//    before, bit for bit.
 
 #pragma once
 
@@ -244,16 +250,18 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // Online-softmax update of the warp's state with one tile's scores; keys at
-// or past kend (global index key0 + local key) are masked.
+// or past kend, or below kbeg (global index key0 + local key), are masked.
 template <int D>
 __device__ __forceinline__ void softmax_update(WarpState<D>& st, float (&s)[2][4], int key0,
-                                               int kend, int lane) {
+                                               int kbeg, int kend, int lane) {
   const int t = lane % 4;
 #pragma unroll
   for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (key0 + 8 * nt + 2 * t + e % 2 >= kend) s[nt][e] = NEG_INF;
+    for (int e = 0; e < 4; ++e) {
+      const int key = key0 + 8 * nt + 2 * t + e % 2;
+      if (key >= kend || key < kbeg) s[nt][e] = NEG_INF;
+    }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const float mx = quad_max(fmaxf(fmaxf(s[0][2 * h], s[0][2 * h + 1]),
@@ -291,7 +299,8 @@ __device__ __forceinline__ void softmax_update(WarpState<D>& st, float (&s)[2][4
 //                             (r < KT, key0 + r < kvalid).
 // tile() runs once per warp and tile, a tile ahead of the copies that use
 // it. s_cap: the positions that exist (rows past it are never read);
-// length: this row's valid key count. q: (B, Hq, D). part_acc: (B, Hkv,
+// length: this row's valid key count; window: 0, or W (keys below length
+// - W masked). q: (B, Hq, D). part_acc: (B, Hkv,
 // n_split, G, D) f32; part_ml: (B, Hkv, n_split, G, 2) f32; counters:
 // (B * Hkv,) int32, zero between calls.
 template <typename T, int D, typename Rows>
@@ -299,7 +308,7 @@ __device__ __forceinline__ void decode_body(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const Rows rows, const int* length, int s_cap, float* __restrict__ part_acc,
     float* __restrict__ part_ml, int* __restrict__ counters, T* __restrict__ out, int hq,
-    int hkv, int split, float scale) {
+    int hkv, int split, float scale, int window) {
   using S = Smem<T, D>;
   constexpr int LD = S::LD, CPR = D * (int)sizeof(T) / 16;  // 16-byte chunks a row
   constexpr int THREADS = S::THREADS, TILE = S::TILE;
@@ -319,13 +328,14 @@ __device__ __forceinline__ void decode_body(
   // rows only.
   using Tile = typename Rows::Tile;
   unsigned char* ring = smem + S::KV + warp * S::KV_WARP;
-  auto locate = [&](int tile, int kvalid) {
+  // kfirst: keys below it are neither located nor copied
+  auto locate = [&](int tile, int kfirst, int kvalid) {
     const int key0 = s0 + tile * TILE + warp * KT;
-    return key0 < kvalid ? rows.tile(key0, kvalid) : Tile{};
+    return key0 < kvalid && key0 + KT > kfirst ? rows.tile(key0, kvalid) : Tile{};
   };
-  auto load = [&](int tile, int kvalid, const Tile& at) {
+  auto load = [&](int tile, int kfirst, int kvalid, const Tile& at) {
     const int key0 = s0 + tile * TILE + warp * KT;
-    if (key0 < kvalid) {
+    if (key0 < kvalid && key0 + KT > kfirst) {
       const uint32_t kd = smem_u32(ring + (tile % 2) * S::KV_STAGE);
       for (int c = lane; c < KT * CPR; c += 32) {
         const int r = c / CPR, cc = c % CPR;
@@ -338,9 +348,9 @@ __device__ __forceinline__ void decode_body(
     cp_async_commit();
   };
   const int pre = min(s_cap, s0 + sub);
-  const Tile at0 = locate(0, pre), at1 = locate(1, pre);
-  load(0, pre, at0);
-  load(1, pre, at1);
+  const Tile at0 = locate(0, 0, pre), at1 = locate(1, 0, pre);
+  load(0, 0, pre, at0);
+  load(1, 0, pre, at1);
 
   // q * D^-0.5, rounded to q's dtype as the TPU kernel's pre-scale is; rows
   // past G are zero. bf16: straight into this lane's mma A fragments; f32:
@@ -371,6 +381,7 @@ __device__ __forceinline__ void decode_body(
   }
 
   const int kend = min(len, s0 + sub);
+  const int kbeg = window > 0 ? max(0, len - window) : 0;
   const int ntiles = kend > s0 ? (kend - s0 + TILE - 1) / TILE : 0;
   if constexpr (sizeof(T) != 2) __syncthreads();  // the scaled queries
 
@@ -383,7 +394,7 @@ __device__ __forceinline__ void decode_body(
     for (int e = 0; e < 4; ++e) st.acc[dn][e] = 0.f;
 
   for (int tile = 0; tile < ntiles; ++tile) {
-    const Tile next = locate(tile + 2, kend);  // in flight while this tile computes
+    const Tile next = locate(tile + 2, kbeg, kend);  // in flight while this tile computes
     cp_async_wait<1>();  // this tile's rows (the next tile's may still fly)
     __syncwarp();
     const int key0 = s0 + tile * TILE + warp * KT;
@@ -397,7 +408,7 @@ __device__ __forceinline__ void decode_body(
               make_uint4(0, 0, 0, 0);
       __syncwarp();
     }
-    if (key0 < kend) {  // warp-uniform: some of the warp's keys are valid
+    if (key0 < kend && key0 + KT > kbeg) {  // warp-uniform: some of its keys are valid
       const T* ks = reinterpret_cast<const T*>(ring + (tile % 2) * S::KV_STAGE);
       const T* vs = ks + KT * LD;
       float s[2][4];
@@ -405,11 +416,11 @@ __device__ __forceinline__ void decode_body(
         scores<D>(s, qa, ks, lane);
       else
         scores<D>(s, reinterpret_cast<const float*>(qs), ks, lane);
-      softmax_update<D>(st, s, key0, kend, lane);
+      softmax_update<D>(st, s, key0, kbeg, kend, lane);
       pv<D>(st, s, vs, lane);
     }
     __syncwarp();  // the stage is read; refill it two tiles on
-    load(tile + 2, kend, next);
+    load(tile + 2, kbeg, kend, next);
   }
   cp_async_wait<0>();
   __syncthreads();  // every warp is done with the ring: it becomes merge space

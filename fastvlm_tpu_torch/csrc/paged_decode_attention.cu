@@ -32,6 +32,10 @@
 // length read table entries of -1, which clamp to page 0 (valid memory);
 // K2's zeroing of V rows past the length keeps them out of the sums, so pad
 // rows (table all -1) stay finite. Requires lengths[b] >= 1.
+//
+// A window W > 0 (a sliding-window layer) masks the keys below lengths[b] -
+// W, and each warp walks only the pages that hold a key inside it: their
+// table entries are the only ones read after the two prefetched tiles.
 
 #include "decode_body.cuh"
 
@@ -73,18 +77,18 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                     const int* __restrict__ lengths, float* __restrict__ part_acc,
                     float* __restrict__ part_ml, int* __restrict__ counters,
                     T* __restrict__ out, int hq, int hkv, int shift, int pages_per_seq,
-                    int num_pages, int split, float scale) {
+                    int num_pages, int split, float scale, int window) {
   const PagedRows rows{block_tables + (size_t)blockIdx.z * pages_per_seq, (size_t)hkv * D,
                        (size_t)blockIdx.y * D, shift, num_pages};
   decode_body<T, D>(q, k_pages, v_pages, rows, lengths + blockIdx.z, pages_per_seq << shift,
-                    part_acc, part_ml, counters, out, hq, hkv, split, scale);
+                    part_acc, part_ml, counters, out, hq, hkv, split, scale, window);
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
                    const void* block_tables, const void* lengths, float* part_acc,
                    float* part_ml, int* counters, void* out, int b, int hq, int hkv, int shift,
-                   int pages_per_seq, int num_pages, cudaStream_t stream) {
+                   int pages_per_seq, int num_pages, int window, cudaStream_t stream) {
   static cudaError_t attr = cudaFuncSetAttribute(
       paged_decode_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       Smem<T, D>::BYTES);
@@ -96,7 +100,7 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
                               Smem<T, D>::BYTES, stream>>>(
       (const T*)q, (const T*)k_pages, (const T*)v_pages, (const int*)block_tables,
       (const int*)lengths, part_acc, part_ml, counters, (T*)out, hq, hkv, shift,
-      pages_per_seq, num_pages, split, 1.0f / sqrtf((float)D));
+      pages_per_seq, num_pages, split, 1.0f / sqrtf((float)D), window);
   return cudaGetLastError();
 }
 
@@ -104,11 +108,11 @@ template <typename T>
 cudaError_t dispatch(int d, const void* q, const void* kp, const void* vp, const void* bt,
                      const void* lengths, float* part_acc, float* part_ml, int* counters,
                      void* out, int b, int hq, int hkv, int shift, int pps, int num_pages,
-                     cudaStream_t s) {
+                     int window, cudaStream_t s) {
   switch (d) {
-    case 16: return launch<T, 16>(q, kp, vp, bt, lengths, part_acc, part_ml, counters, out, b, hq, hkv, shift, pps, num_pages, s);
-    case 64: return launch<T, 64>(q, kp, vp, bt, lengths, part_acc, part_ml, counters, out, b, hq, hkv, shift, pps, num_pages, s);
-    case 128: return launch<T, 128>(q, kp, vp, bt, lengths, part_acc, part_ml, counters, out, b, hq, hkv, shift, pps, num_pages, s);
+    case 16: return launch<T, 16>(q, kp, vp, bt, lengths, part_acc, part_ml, counters, out, b, hq, hkv, shift, pps, num_pages, window, s);
+    case 64: return launch<T, 64>(q, kp, vp, bt, lengths, part_acc, part_ml, counters, out, b, hq, hkv, shift, pps, num_pages, window, s);
+    case 128: return launch<T, 128>(q, kp, vp, bt, lengths, part_acc, part_ml, counters, out, b, hq, hkv, shift, pps, num_pages, window, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -139,18 +143,19 @@ long long fvlm_paged_decode_workspace(int b, int hq, int hkv, int d, int s_cap, 
 
 // dtype: 0 float32, 1 bfloat16; head_dim d: 16, 64 or 128; page a power of
 // two from 8 to 128. workspace: fvlm_paged_decode_workspace(...) f32
-// elements; counters: B * Hkv int32, zero (the kernel leaves them zero).
-// One launch on `stream`; returns its CUDA error code.
+// elements; counters: B * Hkv int32, zero (the kernel leaves them zero);
+// window: 0 for none, else W > 0. One launch on `stream`; returns its CUDA
+// error code.
 int fvlm_paged_decode_attention(const void* q, const void* k_pages, const void* v_pages,
                                 const void* block_tables, const void* lengths,
                                 void* workspace, void* counters, void* out, int b, int hq,
                                 int hkv, int d, int page, int pages_per_seq, int num_pages,
-                                int dtype, void* stream) {
+                                int window, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int shift = 3;
   while (shift < 7 && (1 << shift) != page) ++shift;
   if (hkv <= 0 || hq % hkv != 0 || hq / hkv > GMAX || (1 << shift) != page ||
-      pages_per_seq <= 0 || num_pages <= 0)
+      pages_per_seq <= 0 || num_pages <= 0 || window < 0)
     return (int)cudaErrorInvalidValue;
   const int s_cap = pages_per_seq * page;
   const int split = fvlm_paged_decode_split(b, hkv, d, s_cap, dtype);
@@ -161,8 +166,8 @@ int fvlm_paged_decode_attention(const void* q, const void* k_pages, const void* 
   int* cnt = static_cast<int*>(counters);
   cudaError_t err;
   switch (dtype) {
-    case 0: err = dispatch<float>(d, q, k_pages, v_pages, block_tables, lengths, part_acc, part_ml, cnt, out, b, hq, hkv, shift, pages_per_seq, num_pages, s); break;
-    case 1: err = dispatch<__nv_bfloat16>(d, q, k_pages, v_pages, block_tables, lengths, part_acc, part_ml, cnt, out, b, hq, hkv, shift, pages_per_seq, num_pages, s); break;
+    case 0: err = dispatch<float>(d, q, k_pages, v_pages, block_tables, lengths, part_acc, part_ml, cnt, out, b, hq, hkv, shift, pages_per_seq, num_pages, window, s); break;
+    case 1: err = dispatch<__nv_bfloat16>(d, q, k_pages, v_pages, block_tables, lengths, part_acc, part_ml, cnt, out, b, hq, hkv, shift, pages_per_seq, num_pages, window, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

@@ -12,7 +12,8 @@
 // Computes, for batch row b, query head h (kv head h / (Hq / Hkv)), query i:
 //     out[b, i, h] = softmax_k(q[b, i, h] . k[b, k, kvh] * D^-0.5) @ v[b, :, kvh]
 // over the keys k <= offset + i, k < kv_lens[b] (no such limit where
-// kv_lens is null) and k < S. Numerics as _attend's in bf16 / fp16: scores
+// kv_lens is null), k < S and, under a window W > 0, offset + i - k < W (a
+// sliding-window layer). Numerics as _attend's in bf16 / fp16: scores
 // from the 16-bit q and k with f32 accumulation, the softmax in f32 (a
 // running max and sum), probabilities rounded to the 16-bit type before P.V
 // with f32 accumulation, the output rounded once. The one difference: the
@@ -49,6 +50,11 @@
 //  * A block walks key tiles only up to min(offset + its last query + 1,
 //    kv_len, S); the element mask runs only on the tiles that reach past
 //    the keys its first query sees.
+//  * Under a window W the walk starts at the tile of the first key its
+//    first query sees (offset + q0 - W + 1), so a 128-query block reads at
+//    most ceil((W + 127) / 128) + 1 tiles, and the lower element mask runs
+//    only on the tiles that hold a key some query of the block no longer
+//    sees. W = 0 (no window) walks and masks as before, bit for bit.
 //  * q, k and v are (B, T | S, H, D) views with any batch, token and head
 //    strides (v is a slice of the fused qkv projection), D contiguous.
 
@@ -205,7 +211,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 prefill_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const int* __restrict__ kv_lens,
                          T* __restrict__ out, int t, int s, int hq, int group, int offset,
-                         long long qsb, long long qst, long long qsh, long long ksb,
+                         int window, long long qsb, long long qst, long long qsh, long long ksb,
                          long long kst, long long ksh, long long vsb, long long vst,
                          long long vsh, float scale_log2) {
   using C = Cfg<D>;
@@ -225,6 +231,11 @@ prefill_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int n_keys = max(0, min(offset + q_end, kv_lim));  // keys the block reads
   const int nt = (n_keys + BN - 1) / BN;
   const int clear = min(offset + q0 + 1, kv_lim);  // keys every query of it sees
+  // under a window: the first key the block's first query sees, and the
+  // first key its last query sees (below it, some query masks a key)
+  const int k_lo = window > 0 ? max(0, offset + q0 - window + 1) : 0;
+  const int lo_clear = window > 0 ? offset + q_end - window : 0;
+  const int j0 = min(k_lo / BN, nt);
 
   const T* kg = k + b * ksb + kvh * ksh;
   const T* vg = v + b * vsb + kvh * vsh;
@@ -237,9 +248,9 @@ prefill_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     cp_async_commit();  // an empty group past the end keeps the count
   };
-  load_kv(0);  // one group with the Q tile
+  load_kv(j0);  // one group with the Q tile
 #pragma unroll
-  for (int j = 1; j < STAGES - 2; ++j) load_kv(j);
+  for (int j = 1; j < STAGES - 2; ++j) load_kv(j0 + j);
 
   float o[D / 2];  // 64 rows x D over the warpgroup's 128 threads
 #pragma unroll
@@ -248,6 +259,7 @@ prefill_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // this thread's rows of the accumulators: queries row and row + 8
   const int row = q0 + 64 * wg + 16 * warp + lane / 4;
   const int lim[2] = {min(offset + row + 1, kv_lim), min(offset + row + 9, kv_lim)};
+  const int low[2] = {offset + row - window + 1, offset + row + 9 - window};
   const uint32_t qa = base + wg * 64 * 128;
   // P of the tile whose P.V is issued next: the accumulator's 8-key groups
   // 2ks and 2ks + 1 are the A fragments of P.V's k-step ks
@@ -262,7 +274,7 @@ prefill_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // Iteration j issues S(j) and P.V(j - 1) together; the softmax of S(j)
   // runs on the CUDA cores while P.V(j - 1) runs on the tensor cores.
 #pragma unroll 1
-  for (int j = 0; j < nt; ++j) {
+  for (int j = j0; j < nt; ++j) {
     cp_async_wait<STAGES - 3>();  // tile j has landed
     fence_async_smem();
     __syncthreads();  // ... for every thread; and P.V(j - 2) is done everywhere
@@ -275,7 +287,7 @@ prefill_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       wgmma_qk<T, BN>(sc, desc_sw128(qa + (ks / 4) * BM * 128 + (ks % 4) * 32, 16),
                       desc_sw128(k_s(j) + (ks / 4) * BN * 128 + (ks % 4) * 32, 16), ks);
     wgmma_commit();
-    if (j > 0) {
+    if (j > j0) {
       issue_pv(j - 1);
       wgmma_wait<1>();  // S(j) is done
     } else {
@@ -293,6 +305,16 @@ prefill_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const int key = k0 + 8 * c + 2 * quad + e;
           if (key >= lim[0]) sc[4 * c + e] = -INFINITY;
           if (key >= lim[1]) sc[4 * c + 2 + e] = -INFINITY;
+        }
+    }
+    if (window > 0 && k0 < lo_clear) {
+#pragma unroll
+      for (int c = 0; c < BN / 8; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = k0 + 8 * c + 2 * quad + e;
+          if (key < low[0]) sc[4 * c + e] = -INFINITY;
+          if (key < low[1]) sc[4 * c + 2 + e] = -INFINITY;
         }
     }
     float mx[2] = {m_run[0], m_run[1]};
@@ -338,7 +360,7 @@ prefill_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       p[c / 2][(c % 2) * 2 + 1] = pack2<T>(sc[4 * c + 2], sc[4 * c + 3]);
     }
   }
-  if (nt > 0) {  // the last tile's P.V
+  if (nt > j0) {  // the last tile's P.V
     wgmma_fence();
     issue_pv(nt - 1);
     wgmma_wait<0>();
@@ -367,8 +389,8 @@ prefill_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* kv_lens, void* out,
-                   int b, int t, int s, int hq, int hkv, int offset, const long long* st,
-                   cudaStream_t stream) {
+                   int b, int t, int s, int hq, int hkv, int offset, int window,
+                   const long long* st, cudaStream_t stream) {
   static cudaError_t attr = cudaFuncSetAttribute(
       prefill_attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<D>::SMEM);
   if (attr != cudaSuccess) return attr;
@@ -376,17 +398,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* kv_le
   const dim3 grid(hq, b, (t + BM - 1) / BM);
   prefill_attention_kernel<T, D><<<grid, THREADS, Cfg<D>::SMEM, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, kv_lens, (T*)out, t, s, hq, hq / hkv, offset,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale_log2);
+      window, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale_log2);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(int d, const void* q, const void* k, const void* v, const int* kv_lens,
-                     void* out, int b, int t, int s, int hq, int hkv, int offset,
+                     void* out, int b, int t, int s, int hq, int hkv, int offset, int window,
                      const long long* st, cudaStream_t stream) {
   switch (d) {
-    case 64: return launch<T, 64>(q, k, v, kv_lens, out, b, t, s, hq, hkv, offset, st, stream);
-    case 128: return launch<T, 128>(q, k, v, kv_lens, out, b, t, s, hq, hkv, offset, st, stream);
+    case 64: return launch<T, 64>(q, k, v, kv_lens, out, b, t, s, hq, hkv, offset, window, st, stream);
+    case 128: return launch<T, 128>(q, k, v, kv_lens, out, b, t, s, hq, hkv, offset, window, st, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -403,12 +425,13 @@ const char* fvlm_error_string(int err) {
 // strides[0..2] (q), [3..5] (k), [6..8] (v) for its first three dims, D
 // contiguous, rows 16-byte aligned; kv_lens: (B,) int32 or null; out: (B,
 // T, Hq * D) contiguous. dtype: 1 bfloat16, 2 float16; head_dim d: 64 or
-// 128. One launch on `stream` (none where T is 0); returns its CUDA error
-// code.
+// 128; window: 0 for none, else W > 0. One launch on `stream` (none where T
+// is 0); returns its CUDA error code.
 int fvlm_prefill_attention(const void* q, const void* k, const void* v, const void* kv_lens,
                            void* out, int b, int t, int s, int hq, int hkv, int d, int offset,
-                           const long long* strides, int dtype, void* stream) {
-  if (b <= 0 || t < 0 || s <= 0 || hkv <= 0 || hq % hkv != 0 || offset < 0 || b > 65535 ||
+                           int window, const long long* strides, int dtype, void* stream) {
+  if (b <= 0 || t < 0 || s <= 0 || hkv <= 0 || hq % hkv != 0 || offset < 0 || window < 0 ||
+      b > 65535 ||
       hq > 65535 || (t + BM - 1) / BM > 65535)
     return (int)cudaErrorInvalidValue;
   if (t == 0) return 0;
@@ -416,8 +439,8 @@ int fvlm_prefill_attention(const void* q, const void* k, const void* v, const vo
   const int* lens = static_cast<const int*>(kv_lens);
   cudaError_t err;
   switch (dtype) {
-    case 1: err = dispatch<bf16>(d, q, k, v, lens, out, b, t, s, hq, hkv, offset, strides, st); break;
-    case 2: err = dispatch<__half>(d, q, k, v, lens, out, b, t, s, hq, hkv, offset, strides, st); break;
+    case 1: err = dispatch<bf16>(d, q, k, v, lens, out, b, t, s, hq, hkv, offset, window, strides, st); break;
+    case 2: err = dispatch<__half>(d, q, k, v, lens, out, b, t, s, hq, hkv, offset, window, strides, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

@@ -227,6 +227,7 @@ class Engine:
         from fastvlm_tpu_torch.parallel.sharding import (
             kv_heads, serving_layout)
 
+        self.cfg.decoder.require_uniform("tensor-parallel serving")
         if axis_size(mesh, DATA_AXIS) != 1:
             raise ValueError(f"Engine(mesh=): serving takes a (data=1, "
                              f"model=tp) mesh, got data="

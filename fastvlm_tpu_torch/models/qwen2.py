@@ -12,14 +12,14 @@ Attention routes, over a dense ``KVCache`` or a paged ``PagedKVCache``:
     (B, T, T) mask; a prefill that continues after ``prefill_offset``
     cached tokens (``vlm.prefill_continue``) attends the whole cache, the
     paged one gathered into each row's order first. Where the caller gives
-    the mask's structure (``CausalMask``) and the decoder has no ALiBi bias
-    and no sliding window, a bf16 / fp16 prefill at head_dim 64 or 128
-    calls kernel K4 (``ops/cuda/prefill_attention.py``); any other prefill
+    the mask's structure (``CausalMask``) and the decoder has no ALiBi bias,
+    a bf16 / fp16 prefill at head_dim 64 or 128 calls kernel K4 (``ops/cuda/prefill_attention.py``); any other prefill
     runs the plain f32 softmax (``_attend``);
   * a T=1 decode step calls kernel K2 (``ops/cuda/decode_attention.py``) on
     the dense cache, or kernel K3 (``ops/cuda/paged_decode_attention.py``)
-    on the pool in place, when the decoder has no ALiBi bias and no sliding
-    window, as the JAX package's Pallas routes do;
+    on the pool in place, when the decoder has no ALiBi bias, as the JAX
+    package's Pallas routes do (K2 without a window; K3 with one in bf16 /
+    fp16);
   * a paged decode step of ``vlm.decode_chunk_pool`` (``pool_inplace``)
     attends the whole pool under an ownership mask (``_attend_pool``, plain
     torch, as JAX computes it in XLA);
@@ -34,6 +34,18 @@ Attention routes, over a dense ``KVCache`` or a paged ``PagedKVCache``:
     the scores and the probabilities, no dequantized copy), a continued
     prefill over ``dequantize_view``.
 The cache is updated in place (``ops/kv_cache.py``).
+
+Layers of several kinds (``Qwen2Config.layer_types``, e.g. Mellum2's three
+sliding-window layers to one full one): each layer takes its own window
+(``cfg.window_of``) and RoPE table (a full layer's ``full_rope``, YaRN
+included: ``rope_tables``). Windows never reach the mask the callers pass:
+a windowed layer hands its window to K4 and K3 in bf16 / fp16 (the kernels
+walk only the key tiles / pages inside it), to ``_attend_pool``, or, on a
+plain route, windows the mask by position (``window_mask``); K2 takes no
+window. Mistral's window in every layer goes the same way. A layer with
+routed experts (``cfg.sparse``) replaces the SwiGLU FFN by
+``ops/cuda/experts.routed_experts`` (kernel K5 on the card), whose router
+skips a prefill's padding tokens.
 
 Quantized linears (``ops/quant.py``: ``w_q`` / ``scale`` / ``a8`` leaves)
 run through ``quantized_matmul`` in ``_project`` and in an untied LM head.
@@ -54,8 +66,9 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from fastvlm_tpu_torch.config import Qwen2Config, resolve_dtype
+from fastvlm_tpu_torch.config import Qwen2Config, RopeParams, resolve_dtype
 from fastvlm_tpu_torch.ops.conv import rms_norm
+from fastvlm_tpu_torch.ops.cuda import experts as k5
 from fastvlm_tpu_torch.ops.cuda.decode_attention import decode_attention
 from fastvlm_tpu_torch.ops.cuda import prefill_attention as k4
 from fastvlm_tpu_torch.ops.cuda.paged_decode_attention import (
@@ -77,9 +90,8 @@ class CausalMask(NamedTuple):
     """The structure of a prefill's mask, passed beside its dense form:
     query i attends key k where k <= prefill_offset + i and k < kv_lens[b]
     (no such limit where kv_lens is None). ``vlm.prefill`` (kv_lens =
-    seq_lens) and ``vlm.prefill_continue`` (None) pass it; without a
-    sliding window it is exactly the mask they build, and ``_layer`` hands
-    it to kernel K4."""
+    seq_lens) and ``vlm.prefill_continue`` (None) pass it; it is exactly
+    the mask they build, and ``_layer`` hands it to kernel K4."""
     kv_lens: Optional[torch.Tensor] = None
 
 
@@ -96,7 +108,19 @@ def _dense(gen, cin, cout, dtype, device, bias, std=0.02):
     return p
 
 
-def _layer_init(gen, cfg: Qwen2Config, dtype, device):
+def _experts_init(gen, cfg: Qwen2Config, dtype, device, std=0.02):
+    """A sparse layer's router (H, E) and its experts' fused gate | up
+    (E, H, 2I) and down (E, I, H) products."""
+    d, e, i = cfg.hidden_size, cfg.num_experts, cfg.moe_intermediate_size
+
+    def draw(*shape):
+        return (torch.randn(shape, generator=gen, device=device)
+                * std).to(dtype)
+    return {"router": {"w": draw(d, e)},
+            "experts": {"gateup": draw(e, d, 2 * i), "down": draw(e, i, d)}}
+
+
+def _layer_init(gen, cfg: Qwen2Config, dtype, device, index=0):
     d = cfg.hidden_size
     p = {
         "ln1": torch.ones((d,), dtype=dtype, device=device),
@@ -106,6 +130,9 @@ def _layer_init(gen, cfg: Qwen2Config, dtype, device):
         "o": _dense(gen, cfg.q_dim, d, dtype, device, bias=False),
         "ln2": torch.ones((d,), dtype=dtype, device=device),
     }
+    if cfg.sparse(index):
+        p.update(_experts_init(gen, cfg, dtype, device))
+        return p
     if cfg.mlp_type == "swiglu":
         p["gate"] = _dense(gen, d, cfg.intermediate_size, dtype, device, False)
     p["up"] = _dense(gen, d, cfg.intermediate_size, dtype, device, False)
@@ -119,8 +146,8 @@ def init(gen: torch.Generator, cfg: Qwen2Config, device="cpu") -> Params:
     params: Params = {
         "embed": (torch.randn((cfg.vocab_size, cfg.hidden_size), generator=gen,
                               device=device) * 0.02).to(dtype),
-        "layers": [_layer_init(gen, cfg, dtype, device)
-                   for _ in range(cfg.num_layers)],
+        "layers": [_layer_init(gen, cfg, dtype, device, i)
+                   for i in range(cfg.num_layers)],
         "final_norm": torch.ones((cfg.hidden_size,), dtype=dtype,
                                  device=device),
     }
@@ -150,13 +177,19 @@ def _cat_linears(parts) -> Params:
 def fuse_decoder_params(params: Params, cfg: Qwen2Config) -> Params:
     """Concatenate q/k/v -> qkv and gate/up -> gateup in every layer: one
     product instead of three / two per layer at decode. Float and quantized
-    linears alike (``_cat_linears``). Returns a new tree."""
+    linears alike (``_cat_linears``). A sparse layer's experts keep their
+    leaves, their gate and up concatenated per expert where they come apart
+    ((E, H, I) each -> (E, H, 2I)). Returns a new tree."""
     layers = []
     for lp in params["layers"]:
         lp = dict(lp)
         lp["qkv"] = _cat_linears([lp.pop(k) for k in ("q", "k", "v")])
         if "gate" in lp:
             lp["gateup"] = _cat_linears([lp.pop("gate"), lp.pop("up")])
+        if "gate" in lp.get("experts", {}):
+            ex = dict(lp["experts"])
+            ex["gateup"] = torch.cat([ex.pop("gate"), ex.pop("up")], -1)
+            lp["experts"] = ex
         layers.append(lp)
     return {**params, "layers": layers}
 
@@ -196,6 +229,45 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
     angles = positions[..., None].float() * inv_freq
     angles = torch.cat([angles, angles], dim=-1)
     return torch.cos(angles), torch.sin(angles)
+
+
+def rope_inv_freq(head_dim: int, rope: RopeParams, device="cpu"):
+    """(head_dim / 2,) f32 inverse frequencies and the cos / sin scale of
+    ``rope``: theta^(-2i/d), or YaRN's blend as transformers'
+    ``_compute_yarn_parameters`` computes it."""
+    half = head_dim // 2
+    pos_freqs = rope.theta ** (torch.arange(0, half, dtype=torch.float32,
+                                            device=device) / half)
+    if rope.rope_type == "default":
+        return 1.0 / pos_freqs, 1.0
+    factor = rope.factor
+    scale = rope.attention_factor
+    if scale is None:
+        scale = 0.1 * math.log(factor) + 1.0 if factor > 1 else 1.0
+    orig = rope.original_max_position_embeddings
+
+    def corr_dim(rot):
+        return head_dim * math.log(orig / (rot * 2 * math.pi)) \
+            / (2 * math.log(rope.theta))
+    low = max(math.floor(corr_dim(rope.beta_fast)), 0)
+    high = min(math.ceil(corr_dim(rope.beta_slow)), head_dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(half, dtype=torch.float32, device=device) - low)
+            / (high - low)).clamp(0, 1)
+    extrapolate = 1 - ramp
+    inv = (1.0 / (factor * pos_freqs)) * (1 - extrapolate) \
+        + (1.0 / pos_freqs) * extrapolate
+    return inv, float(scale)
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int, rope: RopeParams):
+    """cos / sin (..., head_dim) f32 of ``rope`` (``rope_cos_sin``'s
+    layout), scaled by its attention factor."""
+    inv, scale = rope_inv_freq(head_dim, rope, positions.device)
+    angles = positions[..., None].float() * inv
+    angles = torch.cat([angles, angles], dim=-1)
+    return torch.cos(angles) * scale, torch.sin(angles) * scale
 
 
 def apply_rope(x, cos, sin):
@@ -249,6 +321,20 @@ def _project(x, p):
                     None if "b" not in p else p["b"].to(x.dtype))
 
 
+def _routed(h, lp, cfg: Qwen2Config, valid=None):
+    """A sparse layer's FFN: routed experts over (B, T, D) ``h`` (K5 on the
+    card); ``valid`` (B, T) bool marks the tokens to route (others give
+    0)."""
+    b, t, d = h.shape
+    ex = lp["experts"]
+    out = k5.routed_experts(
+        h.reshape(b * t, d), lp["router"]["w"].to(h.dtype),
+        ex["gateup"].to(h.dtype), ex["down"].to(h.dtype),
+        cfg.num_experts_per_tok, cfg.norm_topk_prob,
+        None if valid is None else valid.reshape(b * t))
+    return out.reshape(b, t, d)
+
+
 def _mlp(h, lp):
     """SwiGLU (gate * up) or plain up -> GELU -> down (MPT)."""
     if "gateup" in lp:
@@ -291,6 +377,16 @@ def pos_terms(cfg: Qwen2Config, positions, mask):
         slopes = alibi_slopes(cfg.num_heads, positions.device)
         bias = -slopes[None, :, None, None] * dist[:, None]
     return cos, sin, bias, mask[:, None]
+
+
+def window_mask(mask, positions, window):
+    """(B, 1, T, S) ``mask`` with the query at position p keeping key
+    column j only where p - j < ``window`` (key column j is position j);
+    ``mask`` itself for None."""
+    if window is None:
+        return mask
+    k_pos = torch.arange(mask.shape[-1], device=mask.device)
+    return mask & (positions[:, None, :, None] - k_pos < window)
 
 
 def _attend_pool(q, k_pool, v_pool, owner, base, lengths, window=None):
@@ -383,7 +479,8 @@ def _take_heads(x, heads):
 def _layer(x, lp, cfg: Qwen2Config, cos, sin, cache_k, cache_v, mask,
            lengths, prefill, bias=None, prefill_offset=0, block_tables=None,
            dest=None, kv_lens=None, cache_ks=None, cache_vs=None, group=None,
-           seq=False, pool_owner=None, pool_base=None, causal=None):
+           seq=False, pool_owner=None, pool_base=None, causal=None,
+           window=None, valid=None, positions=None):
     """One decoder layer. cache_k/v: (B, S_max, Hkv, D) views of the dense
     cache, (P + 1, page, Hkv, D) pool slices when ``block_tables`` is given
     (the paged serving layout; ``dest`` holds the flat pool rows of this
@@ -402,10 +499,16 @@ def _layer(x, lp, cfg: Qwen2Config, cos, sin, cache_k, cache_v, mask,
     rank's T/tp tokens. ``pool_owner`` / ``pool_base``: a paged decode
     step attends the pool's first len(pool_owner) pages in place under
     their ownership mask (``_attend_pool``). ``causal``: the prefill mask's
-    structure (``CausalMask``), which lets a prefill take kernel K4."""
+    structure (``CausalMask``), which lets a prefill take kernel K4.
+    ``window``: this layer's attention window (``mask`` holds none), by
+    the query ``positions`` (B, T); ``valid``: (B, T) tokens a sparse
+    layer routes."""
     attn_tp = mlp_tp = whole_kv = False
     ln1, ln2 = lp["ln1"], lp["ln2"]
     if group is not None:
+        if "experts" in lp:
+            raise NotImplementedError("tensor parallelism over routed "
+                                      "experts")
         attn_tp = _split(lp["o"], cfg.q_dim, 0)
         mlp_tp = _split(lp["down"], cfg.intermediate_size, 0)
         # whole k/v under split heads: used by this rank's heads only
@@ -440,7 +543,10 @@ def _layer(x, lp, cfg: Qwen2Config, cos, sin, cache_k, cache_v, mask,
 
     attn = None
     quant_kv = cache_k is not None and cache_k.dtype == torch.int8
-    use_kernel = t == 1 and bias is None and cfg.attn_window is None
+    # K2 takes no window; K3 and K4 take one in bf16 / fp16
+    use_kernel = t == 1 and bias is None and window is None
+    use_k3 = t == 1 and bias is None and (
+        window is None or q.dtype in k4.DTYPES)
     if cache_k is None:
         keys, values = k, v
     elif prefill:
@@ -464,7 +570,8 @@ def _layer(x, lp, cfg: Qwen2Config, cos, sin, cache_k, cache_v, mask,
     elif block_tables is None and quant_kv:  # dense int8 decode step
         write_token(cache_k, cache_v, k, v, lengths, cache_ks, cache_vs)
         if bias is None:
-            attn = _attend_quant(q, cache_k, cache_ks, cache_v, cache_vs, mask)
+            attn = _attend_quant(q, cache_k, cache_ks, cache_v, cache_vs,
+                                 window_mask(mask, positions, window))
         else:
             keys = dequantize_view(cache_k, cache_ks, q.dtype)
             values = dequantize_view(cache_v, cache_vs, q.dtype)
@@ -479,38 +586,40 @@ def _layer(x, lp, cfg: Qwen2Config, cos, sin, cache_k, cache_v, mask,
         write_paged(cache_k, cache_v, k, v, dest)
         n = pool_owner.shape[0]
         attn = _attend_pool(q, cache_k[:n], cache_v[:n], pool_owner,
-                            pool_base, lengths, cfg.attn_window)
+                            pool_base, lengths, window)
     else:  # paged decode step
         write_paged(cache_k, cache_v, k, v, dest)
-        if use_kernel:
+        if use_k3:
             out = paged_decode_attention(
                 q[:, 0].contiguous(), cache_k.to(q.dtype), cache_v.to(q.dtype),
-                block_tables, kv_lens)
+                block_tables, kv_lens, window)
             attn = out.reshape(b, 1, -1)
         else:
             keys = gather_pages(cache_k, block_tables)
             values = gather_pages(cache_v, block_tables)
     if attn is None and prefill and cache_k is not None \
             and causal is not None and bias is None \
-            and cfg.attn_window is None and q.dtype in k4.DTYPES \
-            and hd in k4.HEAD_DIMS:
+            and q.dtype in k4.DTYPES and hd in k4.HEAD_DIMS:
         attn = k4.prefill_attention(q, keys.to(q.dtype), values.to(q.dtype),
-                                    prefill_offset, causal.kv_lens)
+                                    prefill_offset, causal.kv_lens, window)
     if attn is None:
-        attn = _attend(q, keys.to(q.dtype), values.to(q.dtype), mask, bias)
+        attn = _attend(q, keys.to(q.dtype), values.to(q.dtype),
+                       window_mask(mask, positions, window), bias)
     x = x + _exit(_project(attn, lp["o"]), attn_tp, seq, group)
     h = _enter(_norm(x, ln2, cfg), mlp_tp, seq, group)
+    if "experts" in lp:
+        return x + _routed(h, lp, cfg, valid)
     return x + _exit(_mlp(h, lp), mlp_tp, seq, group)
 
 
 def _train_layer(x, lp, cfg: Qwen2Config, cos, sin, mask, bias, group, seq,
-                 gather):
+                 gather, window=None, positions=None):
     """``_layer`` without a cache; ``gather`` materializes the layer's FSDP
     leaves inside it, so a rematerialized layer gathers them again."""
     if gather is not None:
         lp = gather(lp)
     return _layer(x, lp, cfg, cos, sin, None, None, mask, None, True, bias,
-                  group=group, seq=seq)
+                  group=group, seq=seq, window=window, positions=positions)
 
 
 # ---------------------------------------------------------------------------
@@ -596,14 +705,28 @@ def forward(
     attend the whole pool under an ownership mask (``_attend_pool``), or
     its first ``pool_bucket`` pages, instead of kernel K3. ``causal``: a
     prefill's mask structure beside ``mask`` (``CausalMask``; the K4
-    route)."""
+    route).
+
+    ``mask`` holds no window: each windowed layer (``cfg.window_of``)
+    windows attention by ``positions`` itself (``_layer``). A
+    ``layer_types`` decoder's full layers take ``full_rope``'s table. A
+    sparse layer routes the prefill's real tokens only
+    (``causal.kv_lens``)."""
     x = inputs_embeds
     b, t, _ = x.shape
     if mask is None:
-        causal = torch.tril(torch.ones((t, t), dtype=torch.bool,
-                                       device=x.device))
-        mask = causal.expand(b, t, t)
+        tril = torch.tril(torch.ones((t, t), dtype=torch.bool,
+                                     device=x.device))
+        mask = tril.expand(b, t, t)
     cos, sin, bias, mask = pos_terms(cfg, positions, mask)
+    full_cs = None
+    if cfg.full_rope is not None and cfg.pos_emb == "rope":
+        full_cs = rope_tables(positions, cfg.head_dim, cfg.full_rope)
+    valid = None
+    if cfg.num_experts > 0 and causal is not None \
+            and causal.kv_lens is not None and prefill:
+        valid = torch.arange(t, device=x.device)[None, :] \
+            < causal.kv_lens.to(x.device)[:, None]
     if seq:
         x = coll.split_to(x, 1, group)
     lengths = None if cache is None else cache.lengths
@@ -641,19 +764,23 @@ def forward(
             ck, cv = cache.k[i], cache.v[i]
             if quant_kv:
                 cks, cvs = cache.k_scale[i], cache.v_scale[i]
+        c, s = full_cs if full_cs is not None and cfg.full_layer(i) \
+            else (cos, sin)
         if cache is None:  # the training path
-            args = (x, lp, cfg, cos, sin, mask, bias, group, seq,
-                    None if gather is None else functools.partial(gather, i))
+            args = (x, lp, cfg, c, s, mask, bias, group, seq,
+                    None if gather is None else functools.partial(gather, i),
+                    cfg.window_of(i), positions)
             if remat and torch.is_grad_enabled():
                 x = torch.utils.checkpoint.checkpoint(_train_layer, *args,
                                                       use_reentrant=False)
             else:
                 x = _train_layer(*args)
             continue
-        x = _layer(x, lp, cfg, cos, sin, ck, cv, mask, lengths, prefill, bias,
+        x = _layer(x, lp, cfg, c, s, ck, cv, mask, lengths, prefill, bias,
                    prefill_offset, tables, dest, new_lengths, cks, cvs,
                    group=group, pool_owner=owner, pool_base=basep,
-                   causal=causal)
+                   causal=causal, window=cfg.window_of(i), valid=valid,
+                   positions=positions)
     new_cache = None
     if cache is not None:
         new_cache = dataclasses.replace(cache, lengths=new_lengths)
@@ -664,26 +791,20 @@ def forward(
     return (coll.gather_from(h, 1, group) if seq else h), new_cache
 
 
-def prefill_mask(seq_lens: torch.Tensor, t: int, s_max: int,
-                 window: Optional[int] = None) -> torch.Tensor:
-    """(B, T, S_max) mask for right-padded prefill: causal AND k < seq_len,
-    optionally within a sliding window."""
+def prefill_mask(seq_lens: torch.Tensor, t: int, s_max: int
+                 ) -> torch.Tensor:
+    """(B, T, S_max) mask for right-padded prefill: causal AND k < seq_len
+    (a window is the layer's: ``window_mask``)."""
     dev = seq_lens.device
     q_pos = torch.arange(t, device=dev)[:, None]
     k_pos = torch.arange(s_max, device=dev)[None, :]
     causal = k_pos <= q_pos
-    if window is not None:
-        causal = causal & (q_pos - k_pos < window)
     valid = k_pos[None] < seq_lens[:, None, None]
     return causal[None] & valid
 
 
-def decode_mask(lengths: torch.Tensor, s_max: int,
-                window: Optional[int] = None) -> torch.Tensor:
+def decode_mask(lengths: torch.Tensor, s_max: int) -> torch.Tensor:
     """(B, 1, S_max) mask for one decode step: attend k <= lengths[b] (the
     new token is written at index lengths[b] before attending)."""
     k_pos = torch.arange(s_max, device=lengths.device)[None, None, :]
-    m = k_pos <= lengths[:, None, None]
-    if window is not None:
-        m = m & (lengths[:, None, None] - k_pos < window)
-    return m
+    return k_pos <= lengths[:, None, None]

@@ -84,6 +84,7 @@ def kv_cache_dtype(cfg: FastVLMConfig) -> torch.dtype:
     """The dense KV cache's storage type: int8 for a decoder with
     ``kv_cache_dtype="int8"``, else its compute dtype."""
     if cfg.decoder.kv_cache_dtype == "int8":
+        cfg.decoder.require_uniform("the dense int8 KV cache")
         return torch.int8
     return resolve_dtype(cfg.decoder.compute_dtype)
 
@@ -244,7 +245,7 @@ def prefill(
     tl = timeline.current()
     span = None if tl is None else tl.open("vlm.decoder", device=True)
     positions = torch.arange(t, device=embeds.device)[None, :].expand(b, t)
-    mask = qwen2.prefill_mask(seq_lens, t, t, window=cfg.decoder.attn_window)
+    mask = qwen2.prefill_mask(seq_lens, t, t)
     hidden, cache = qwen2.forward(params["decoder"], cfg.decoder, embeds,
                                   positions, cache=cache, mask=mask,
                                   prefill=True, group=group,
@@ -287,10 +288,7 @@ def prefill_continue(
     positions = offset + torch.arange(t, device=dev)[None, :].expand(b, t)
     q_pos = offset + torch.arange(t, device=dev)[:, None]
     k_pos = torch.arange(cache.max_len, device=dev)[None, :]
-    mask = k_pos <= q_pos
-    if cfg.decoder.attn_window is not None:
-        mask = mask & (q_pos - k_pos < cfg.decoder.attn_window)
-    mask = mask[None].expand(b, t, cache.max_len)
+    mask = (k_pos <= q_pos)[None].expand(b, t, cache.max_len)
     hidden, cache = qwen2.forward(params["decoder"], cfg.decoder, embeds,
                                   positions, cache=cache, mask=mask,
                                   prefill=True, prefill_offset=offset,
@@ -315,8 +313,7 @@ def decode_step(params: Params, cfg: FastVLMConfig, tokens: torch.Tensor,
     embeds = qwen2.embed(params["decoder"], tokens[:, None], cfg.decoder,
                          group).to(resolve_dtype(cfg.decoder.compute_dtype))
     positions = cache.lengths[:, None]
-    mask = qwen2.decode_mask(cache.lengths, cache.max_len,
-                             window=cfg.decoder.attn_window)
+    mask = qwen2.decode_mask(cache.lengths, cache.max_len)
     hidden, cache = qwen2.forward(params["decoder"], cfg.decoder, embeds,
                                   positions, cache=cache, mask=mask,
                                   prefill=False, group=group)
@@ -578,6 +575,7 @@ def _spec_verify_pass(params, cfg, last_tok, done, num, cache, hist, hist_len,
 
     Returns (g (B, k+1) verified tokens, count (B,) committed, done',
     last_tok', cache', hist', hist_len')."""
+    cfg.decoder.require_uniform("the speculative verify pass")
     dev = last_tok.device
     active = ~done
     draft = ngram_draft(hist, hist_len, k, n=ngram_n)
@@ -586,8 +584,7 @@ def _spec_verify_pass(params, cfg, last_tok, done, num, cache, hist, hist_len,
     lengths = cache.lengths
     steps = torch.arange(k + 1, dtype=torch.int32, device=dev)
     positions = lengths[:, None] + steps[None]
-    mask = spec_mask(lengths, k + 1, cache.max_len,
-                     window=cfg.decoder.attn_window)
+    mask = spec_mask(lengths, k + 1, cache.max_len)
     hidden, cache = qwen2.forward(params["decoder"], cfg.decoder, embeds,
                                   positions, cache=cache, mask=mask,
                                   prefill=False, group=group)

@@ -106,6 +106,7 @@ def beam_search(
     a tensor-parallel engine's "model" group (``vlm.decode_step``); each
     rank reorders its own cache's kv heads, on the same parents, since
     every rank holds the same logits."""
+    cfg.decoder.require_uniform("beam search")
     b, v = prefill_logits.shape
     w = num_beams
     n2 = min(2 * w, v)

@@ -28,10 +28,11 @@ NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def decode_attention_reference(q, k, v, lengths):
+def decode_attention_reference(q, k, v, lengths, window=None):
     """Plain version of the kernel. q: (B, Hq, D); k/v: (B, S_max, Hkv, D);
     lengths: (B,) valid key counts. q is scaled by D^-0.5 in its own dtype,
-    keys >= lengths[b] are masked with -1e30, softmax and P.V in f32, the
+    keys >= lengths[b] (and, with a ``window`` W, keys < lengths[b] - W: K3's
+    windowed route) are masked with -1e30, softmax and P.V in f32, the
     denominator floored at 1e-30; returns (B, Hq, D) in q's dtype."""
     b, hq, d = q.shape
     s_max, hkv = k.shape[1], k.shape[2]
@@ -40,8 +41,10 @@ def decode_attention_reference(q, k, v, lengths):
     qs = (q * scale).float()
     qs = qs.reshape(b, hkv, g, d)
     scores = torch.einsum("bhgd,bshd->bhgs", qs, k.float())
-    valid = (torch.arange(s_max, device=q.device)[None, :]
-             < lengths.to(q.device)[:, None])                    # (B, S)
+    k_pos = torch.arange(s_max, device=q.device)[None, :]
+    valid = k_pos < lengths.to(q.device)[:, None]                # (B, S)
+    if window is not None:
+        valid = valid & (k_pos >= lengths.to(q.device)[:, None] - window)
     scores = torch.where(valid[:, None, None, :], scores,
                          torch.full_like(scores, NEG_INF))
     p = torch.exp(scores - scores.amax(-1, keepdim=True))

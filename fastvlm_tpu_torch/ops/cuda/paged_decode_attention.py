@@ -13,17 +13,21 @@ are what the design spends. It is built at first use by ``_build.py`` and
 called through ctypes.
 ``paged_decode_attention_reference`` is the same function in plain PyTorch:
 ``gather_pages`` (-1 clamped to page 0) followed by K2's formula. It is the
-CPU path and the oracle the kernel is held against on the card.
+CPU path and the oracle the kernel is held against on the card. A window W
+(a sliding-window layer) masks the keys below lengths[b] - W; the kernel
+then reads only the pages inside it.
 
 Routing is by device only: a CPU tensor takes the reference; a CUDA tensor
 launches the kernel or raises. ``paged_decode_attention.launches`` counts
-kernel launches (one per call).
+kernel launches (one per call), ``paged_decode_attention.window_launches``
+those with a window.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -36,14 +40,15 @@ PAGE_SIZES = (8, 16, 32, 64, 128)
 
 
 def paged_decode_attention_reference(q, k_pages, v_pages, block_tables,
-                                     lengths):
+                                     lengths, window=None):
     """Plain version of the kernel. q: (B, Hq, D); k/v_pages: (P, page,
     Hkv, D); block_tables: (B, pages_per_seq) int32, -1 unmapped; lengths:
     (B,) valid key counts (past the table's capacity they count as the
-    capacity). Returns (B, Hq, D) in q's dtype."""
+    capacity); window: None, or W (keys below lengths - W masked). Returns
+    (B, Hq, D) in q's dtype."""
     return decode_attention_reference(q, gather_pages(k_pages, block_tables),
                                       gather_pages(v_pages, block_tables),
-                                      lengths)
+                                      lengths, window)
 
 
 def _check_cuda_args(q, k_pages, v_pages, block_tables, lengths):
@@ -94,22 +99,26 @@ def _check_cuda_args(q, k_pages, v_pages, block_tables, lengths):
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, block_tables: torch.Tensor,
-                           lengths: torch.Tensor) -> torch.Tensor:
+                           lengths: torch.Tensor,
+                           window: Optional[int] = None) -> torch.Tensor:
     """q: (B, Hq, D) single-step queries; k/v_pages: (P, page, Hkv, D) one
     layer's pool; block_tables: (B, pages_per_seq) int32 pool page ids (-1 =
     unmapped); lengths: (B,) int32 valid key counts, each >= 1 (they include
-    the token just written). Returns (B, Hq, D) in q's dtype. On a CUDA
+    the token just written); window: None, or W (keys below lengths - W
+    masked). Returns (B, Hq, D) in q's dtype. On a CUDA
     device the kernel runs on the current stream, unsynchronised; its grid
     spans pages_per_seq * page positions, so callers pass tables cut to the
     pages in flight. Its workspace and arrival counters are kept per
     (device, stream), as K2's are."""
     if q.device.type == "cpu":
         return paged_decode_attention_reference(q, k_pages, v_pages,
-                                                block_tables, lengths)
+                                                block_tables, lengths, window)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: no kernel for device "
                          f"{q.device}")
     _check_cuda_args(q, k_pages, v_pages, block_tables, lengths)
+    if window is not None and window < 1:
+        raise ValueError(f"paged_decode_attention: window {window} < 1")
     b, hq, d = q.shape
     num_pages, page, hkv = k_pages.shape[:3]
     pps = block_tables.shape[1]
@@ -122,13 +131,17 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     err = lib.fvlm_paged_decode_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(), ws, counters,
-        out.data_ptr(), b, hq, hkv, d, page, pps, num_pages, dtype, stream)
+        out.data_ptr(), b, hq, hkv, d, page, pps, num_pages, int(window or 0),
+        dtype, stream)
     _build.check(lib, err, "paged_decode_attention")
     paged_decode_attention.launches += 1
+    if window is not None:
+        paged_decode_attention.window_launches += 1
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.window_launches = 0
 
 # (device, stream) -> [f32 workspace, int32 arrival counters], as K2 keeps
 # its own; the counters are zeroed when made and each call leaves them zero.
@@ -150,7 +163,7 @@ def _workspace(lib, device, stream, b, hq, hkv, d, s_cap, dtype):
 def _load():
     lib = _build.load("paged_decode_attention")
     lib.fvlm_paged_decode_attention.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     lib.fvlm_paged_decode_attention.restype = ctypes.c_int
     lib.fvlm_paged_decode_workspace.argtypes = [ctypes.c_int] * 6
     lib.fvlm_paged_decode_workspace.restype = ctypes.c_longlong

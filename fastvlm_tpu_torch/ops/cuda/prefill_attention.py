@@ -12,13 +12,16 @@ The mask is given by its structure, not as a tensor: query i of row b
 attends key k where k <= offset + i and k < kv_lens[b] (no such limit where
 ``kv_lens`` is None). That is ``qwen2.prefill_mask(seq_lens, T, T)`` with
 kv_lens = seq_lens and offset 0, and ``vlm.prefill_continue``'s mask with
-kv_lens None and its cached offset. ``prefill_attention_reference``
+kv_lens None and its cached offset. A window W (a sliding-window layer)
+adds offset + i - k < W, and the kernel walks only the key tiles inside
+it. ``prefill_attention_reference``
 materialises that mask and runs ``attend``: the CPU path and the oracle the
 kernel is held against on the card.
 
 Routing is by device only: a CPU tensor takes the reference; a CUDA tensor
 launches the kernel or raises. ``prefill_attention.launches`` counts kernel
-launches (one per call).
+launches (one per call), ``prefill_attention.window_launches`` those with a
+window.
 """
 
 from __future__ import annotations
@@ -58,7 +61,8 @@ def attend(q, k, v, mask, bias=None):
 
 
 def prefill_attention_reference(q, k, v, offset: int = 0,
-                                kv_lens: Optional[torch.Tensor] = None):
+                                kv_lens: Optional[torch.Tensor] = None,
+                                window: Optional[int] = None):
     """Plain version of the kernel: the structured mask materialised as a
     (B, 1, T, S) tensor, then ``attend``. Arguments as
     ``prefill_attention``'s."""
@@ -67,7 +71,10 @@ def prefill_attention_reference(q, k, v, offset: int = 0,
     dev = q.device
     q_pos = offset + torch.arange(t, device=dev)[:, None]
     k_pos = torch.arange(s, device=dev)[None, :]
-    mask = (k_pos <= q_pos)[None]
+    mask = k_pos <= q_pos
+    if window is not None:
+        mask = mask & (q_pos - k_pos < window)
+    mask = mask[None]
     if kv_lens is not None:
         mask = mask & (k_pos[None] < kv_lens.to(dev)[:, None, None])
     return attend(q, k, v, mask.expand(b, t, s)[:, None])
@@ -108,19 +115,22 @@ def _check_cuda_args(q, k, v, offset, kv_lens):
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       offset: int = 0,
-                      kv_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      kv_lens: Optional[torch.Tensor] = None,
+                      window: Optional[int] = None) -> torch.Tensor:
     """q: (B, T, Hq, D) queries after RoPE; k / v: (B, S, Hkv, D) keys and
     values (views with any strides whose rows are 16-byte aligned, D
     contiguous: the qkv projection's slices); query i attends key k
     where k <= offset + i and k < kv_lens[b] ((B,) int, each >= 1; None: no
-    such limit). Returns (B, T, Hq * D) in q's dtype. On a CUDA device the
+    such limit) and, with a ``window`` W, offset + i - k < W. Returns (B, T, Hq * D) in q's dtype. On a CUDA device the
     kernel runs on the current stream, unsynchronised."""
     if q.device.type == "cpu":
-        return prefill_attention_reference(q, k, v, offset, kv_lens)
+        return prefill_attention_reference(q, k, v, offset, kv_lens, window)
     if q.device.type != "cuda":
         raise ValueError(f"prefill_attention: no kernel for device "
                          f"{q.device}")
     _check_cuda_args(q, k, v, offset, kv_lens)
+    if window is not None and window < 1:
+        raise ValueError(f"prefill_attention: window {window} < 1")
     b, t, hq, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
     lens = None if kv_lens is None else \
@@ -132,21 +142,25 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = lib.fvlm_prefill_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if lens is None else lens.data_ptr(), out.data_ptr(), b, t, s,
-        hq, hkv, d, int(offset), strides, _DTYPE_CODES[q.dtype],
+        hq, hkv, d, int(offset), int(window or 0), strides,
+        _DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "prefill_attention")
     prefill_attention.launches += 1
+    if window is not None:
+        prefill_attention.window_launches += 1
     return out
 
 
 prefill_attention.launches = 0
+prefill_attention.window_launches = 0
 
 
 @functools.cache
 def _load():
     lib = _build.load("prefill_attention")
     lib.fvlm_prefill_attention.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p])
     lib.fvlm_prefill_attention.restype = ctypes.c_int
     return lib

@@ -187,7 +187,10 @@ def quantize_decoder(params: Params, bits: int = 8, skip: tuple = (),
     """Quantize every linear of a decoder tree (the port's list of layers):
     q/k/v/o, gate/up/down, or the fused qkv / gateup, and an untied
     ``lm_head``. Embeddings and norms stay as they are (the embedding is
-    also the tied LM head). Returns a new tree sharing the other leaves."""
+    also the tied LM head). Returns a new tree sharing the other leaves.
+    A tree with routed experts is refused."""
+    if any("experts" in lp for lp in params["layers"]):
+        raise NotImplementedError("quantizing routed experts")
     layers = []
     for lp in params["layers"]:
         q = {}

@@ -22,7 +22,7 @@ so the clamps are written out here, exactly as JAX applies them:
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 
@@ -69,18 +69,14 @@ def ngram_draft(hist: torch.Tensor, hist_len: torch.Tensor, k: int,
     return torch.where(has[:, None], draft, tail[:, -1:].expand(b, k))
 
 
-def spec_mask(lengths: torch.Tensor, t: int, s_max: int,
-              window: Optional[int] = None) -> torch.Tensor:
+def spec_mask(lengths: torch.Tensor, t: int, s_max: int) -> torch.Tensor:
     """(B, T, S_max) verify-pass mask: query i of row b sits at position
     lengths[b] + i and attends keys k_pos <= lengths[b] + i (its own key
     was just written, as in ``qwen2.decode_mask``)."""
     q_pos = lengths[:, None, None] + torch.arange(
         t, device=lengths.device)[None, :, None]
     k_pos = torch.arange(s_max, device=lengths.device)[None, None, :]
-    m = k_pos <= q_pos
-    if window is not None:
-        m = m & (q_pos - k_pos < window)
-    return m
+    return k_pos <= q_pos
 
 
 def accept_counts(draft: torch.Tensor, verified: torch.Tensor) -> torch.Tensor:

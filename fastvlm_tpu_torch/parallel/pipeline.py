@@ -87,7 +87,8 @@ def forward_pipelined(
         cos, sin, bias, msk4 = qwen2.pos_terms(cfg, pos, msk)
         for lp in layers:
             x = qwen2._layer(x, lp, cfg, cos, sin, None, None, msk4, None,
-                             True, bias)
+                             True, bias, window=cfg.attn_window,
+                             positions=pos)
         return x
 
     emb = coll.copy_to(embeds, group)

@@ -162,6 +162,7 @@ import numpy as np
 import torch
 
 from fastvlm_tpu_torch import timeline
+from fastvlm_tpu_torch.ops.cuda import experts as k5
 from fastvlm_tpu_torch.models import vlm
 from fastvlm_tpu_torch.ops.cuda.paged_decode_attention import PAGE_SIZES
 from fastvlm_tpu_torch.ops.kv_cache import PagedKVCache
@@ -199,13 +200,18 @@ class _Request:
 
 def _decoder_param_count(dec) -> int:
     """Rough decoder parameter count from the config, for the scale-aware
-    defaults (only the 0.5B vs 1.5B-and-up split matters)."""
-    h, n_layers = dec.hidden_size, dec.num_layers
+    defaults (only the 0.5B vs 1.5B-and-up split matters): a sparse layer
+    counts its router and all its routed experts."""
+    h = dec.hidden_size
     qh = dec.num_heads * dec.head_dim
     kvh = dec.num_kv_heads * dec.head_dim
-    per_layer = h * qh + 2 * h * kvh + qh * h + 3 * h * dec.intermediate_size
+    attn = h * qh + 2 * h * kvh + qh * h
+    experts = h * dec.num_experts \
+        + dec.num_experts * 3 * h * dec.moe_intermediate_size
+    ffn = sum(experts if dec.sparse(i) else 3 * h * dec.intermediate_size
+              for i in range(dec.num_layers))
     embed = dec.vocab_size * h * (1 if dec.tie_word_embeddings else 2)
-    return n_layers * per_layer + embed
+    return dec.num_layers * attn + ffn + embed
 
 
 def _round_batch(n: int, caps=(1, 2, 4, 8)) -> int:
@@ -432,6 +438,10 @@ class BatchScheduler:
                 and page_size not in PAGE_SIZES:
             raise ValueError(f"page_size {page_size} not in {PAGE_SIZES}, the "
                              f"sizes kernel K3 takes")
+        if chunk_view or persist_view:
+            engine.cfg.decoder.require_uniform("the batcher's view modes")
+        if spec:
+            engine.cfg.decoder.require_uniform("speculative chunks")
         self.engine = engine
         self.paged = paged
         if chunk_view is None:
@@ -1654,31 +1664,46 @@ class BatchScheduler:
                     cached=batch_cached,
                     images=sum(imgs[i] is not None and starts_l[i] >= 0
                                for i in range(n_real)))
-            if batch_cached:
-                # every row extends the cached prefix: prefill the suffixes
-                sfx = [rows[i][batch_cached:] for i in range(n_real)]
-                w = max(len(x) for x in sfx)
-                sids = np.zeros((b, -(-w // engine.bucket) * engine.bucket),
-                                np.int32)
-                slens = np.zeros((b,), np.int32)
-                sstarts = np.full((b,), -1, np.int32)
-                for i, x in enumerate(sfx):
-                    sids[i, :len(x)] = x
-                    slens[i] = len(x)
-                    if starts_l[i] >= 0:
-                        sstarts[i] = starts_l[i] - batch_cached
-                logits, cache = engine.prefill_suffix(
-                    images, torch.from_numpy(sids).to(dev),
-                    torch.from_numpy(slens).to(dev),
-                    torch.from_numpy(sstarts).to(dev), batch_cached, cache)
-            else:
-                logits, cache = engine.call(
-                    "prefill", images, torch.from_numpy(ids).to(dev),
-                    torch.from_numpy(lens).to(dev),
-                    torch.from_numpy(starts).to(dev), cache)
+            # a sparse decoder's routed rows and busiest expert's rows of
+            # each layer, summed on the device and read with the first
+            # tokens
+            moe = torch.zeros((2,), dtype=torch.int64, device=dev) \
+                if cfg.decoder.num_experts > 0 else None
+            with k5.counting(moe):
+                if batch_cached:
+                    # every row extends the cached prefix: prefill the
+                    # suffixes
+                    sfx = [rows[i][batch_cached:] for i in range(n_real)]
+                    w = max(len(x) for x in sfx)
+                    sids = np.zeros(
+                        (b, -(-w // engine.bucket) * engine.bucket), np.int32)
+                    slens = np.zeros((b,), np.int32)
+                    sstarts = np.full((b,), -1, np.int32)
+                    for i, x in enumerate(sfx):
+                        sids[i, :len(x)] = x
+                        slens[i] = len(x)
+                        if starts_l[i] >= 0:
+                            sstarts[i] = starts_l[i] - batch_cached
+                    logits, cache = engine.prefill_suffix(
+                        images, torch.from_numpy(sids).to(dev),
+                        torch.from_numpy(slens).to(dev),
+                        torch.from_numpy(sstarts).to(dev), batch_cached,
+                        cache)
+                else:
+                    logits, cache = engine.call(
+                        "prefill", images, torch.from_numpy(ids).to(dev),
+                        torch.from_numpy(lens).to(dev),
+                        torch.from_numpy(starts).to(dev), cache)
             self._count_prefill(True)
             tok = sample_rows(self._gen, logits, row_samp())
+            if moe is not None:
+                moe_host = torch.empty((2,), dtype=torch.int64,
+                                       pin_memory=dev.type == "cuda")
+                moe_host.copy_(moe, non_blocking=True)
             host_tok = tok.cpu().numpy()  # the host read waits for the device
+            if moe is not None:
+                self.counters["moe_routed_tokens"] += int(moe_host[0])
+                self.counters["moe_max_expert_tokens"] += int(moe_host[1])
             ttft_ms = (time.perf_counter() - t0) * 1000
             if tl is not None:
                 tl.close(prefill_span)

@@ -48,6 +48,10 @@ def add_lora(
     packed int4 weights hide cin. A fused tree (qkv, gateup) gets adapters
     only where ``targets`` names its linears (o and down by default), as in
     JAX. Returns a new tree sharing the base leaves."""
+    if cfg is not None:
+        cfg.require_uniform("LoRA")
+    if any("experts" in lp for lp in decoder_params["layers"]):
+        raise NotImplementedError("LoRA does not take routed experts")
     layers = [dict(lp) for lp in decoder_params["layers"]]
     for name in targets:
         if name not in layers[0]:

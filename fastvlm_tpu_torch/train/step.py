@@ -99,6 +99,7 @@ def loss_fn(
     rank's pieces; the batch holds this data rank's rows). seq_sharding:
     ``parallel.mesh.seq_sharding(mesh)`` for sequence parallelism (with
     unsharded params when no layout is given)."""
+    cfg.decoder.require_uniform("training")
     if layout is None and seq_sharding is not None:
         layout = replicated_layout(params, seq_sharding.mesh)
     mg = dg = None
@@ -136,8 +137,7 @@ def loss_fn(
     b, t, _ = embeds.shape
     positions = torch.arange(t, device=ids.device)[None].expand(b, t)
     # causal mask restricted to real tokens (right padding)
-    mask = qwen2.prefill_mask(batch["attn_lens"], t, t,
-                              window=cfg.decoder.attn_window)
+    mask = qwen2.prefill_mask(batch["attn_lens"], t, t)
     hidden, _ = qwen2.forward(dec, cfg.decoder, embeds, positions, mask=mask,
                               remat=remat, group=mg, seq=seq, gather=gather)
     logits = qwen2.logits_from_hidden(dec, hidden, cfg.decoder, mg)
@@ -455,6 +455,7 @@ def loss_fn_pp(params: Any, cfg: FastVLMConfig,
     stage in ``params``); the tower, projector, embedding and head whole on
     every rank; the batch is this data rank's rows, split into ``n_micro``
     microbatches. The same function as ``loss_fn``."""
+    cfg.decoder.require_uniform("training")
     from fastvlm_tpu_torch.parallel import pipeline as pp
 
     embeds = vlm._spliced_prompt_embeds(
@@ -464,8 +465,7 @@ def loss_fn_pp(params: Any, cfg: FastVLMConfig,
         raise ValueError(f"batch {b} not divisible by {n_micro} "
                          f"microbatches")
     positions = torch.arange(t, device=embeds.device)[None].expand(b, t)
-    mask = qwen2.prefill_mask(batch["attn_lens"], t, t,
-                              window=cfg.decoder.attn_window)
+    mask = qwen2.prefill_mask(batch["attn_lens"], t, t)
     hidden = pp.forward_pipelined(
         params["decoder"], cfg.decoder, embeds.reshape(n_micro, -1, t, d),
         positions.reshape(n_micro, -1, t), mask.reshape(n_micro, -1, t, t),

@@ -132,6 +132,7 @@ class Trainer:
                  dataset: SupervisedDataset, args: TrainingArguments,
                  mesh=None, pp_micro=None, seq_parallel=False,
                  device="cuda"):
+        cfg.decoder.require_uniform("training")
         self.cfg = cfg
         self.args = args
         self.dataset = dataset

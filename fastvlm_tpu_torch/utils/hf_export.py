@@ -190,6 +190,7 @@ def export_decoder_mpt(params: Params, cfg, sd: Dict[str, Array],
 
 
 def export_state_dict(params: Params, cfg: FastVLMConfig) -> Dict[str, Array]:
+    cfg.decoder.require_uniform("hf_export")
     sd: Dict[str, Array] = {}
     if cfg.decoder.mlp_type == "gelu":
         # llava_mpt layout: everything under `transformer.`

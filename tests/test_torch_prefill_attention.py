@@ -139,17 +139,19 @@ def _run(case, dec):
     ("train", {}, []),
     ("verify", {}, [(0, True)] * 2),  # the prefill before it only
     ("alibi", {"pos_emb": "alibi"}, []),
-    ("window", {"attn_window": 4}, []),
+    # a window goes to K4 too (its sliding-window route), window and all
+    ("window", {"attn_window": 4}, [(0, True)] * 2),
     ("f32", {"param_dtype": "float32", "compute_dtype": "float32"}, []),
     ("prefill", {"head_dim": 32, "num_heads": 8}, []),
 ])
 def test_layer_routes_prefill_to_k4(monkeypatch, case, dec, k4_calls):
-    calls, plain = [], []
+    calls, plain, windows = [], [], []
     real_k4, real_plain = k4.prefill_attention, qwen2._attend
 
-    def kernel(q, k, v, offset=0, kv_lens=None):
+    def kernel(q, k, v, offset=0, kv_lens=None, window=None):
         calls.append((offset, kv_lens is not None))
-        return real_k4(q, k, v, offset, kv_lens)
+        windows.append(window)
+        return real_k4(q, k, v, offset, kv_lens, window)
 
     def attend(*a, **kw):
         plain.append(a[0].shape[1])
@@ -159,6 +161,7 @@ def test_layer_routes_prefill_to_k4(monkeypatch, case, dec, k4_calls):
     monkeypatch.setattr(qwen2, "_attend", attend)
     _run(case, dec)
     assert calls == k4_calls
+    assert windows == [dec.get("attn_window")] * len(calls)
     # every attention the route did not take ran the plain version
     layers = 2
     passes = {"prefill": 1, "continue": 2, "train": 1, "verify": 2,

@@ -81,15 +81,16 @@ def test_prefill_and_decode_match_jax(fused, family):
     # port
     cache = kv_cache.init_cache(2, b, s_max, 2, 16, dtype=torch.float32)
     tpos = torch.arange(t)[None].expand(b, t)
-    tmask = qwen2.prefill_mask(torch.from_numpy(seq_lens), t, t,
-                               tc.attn_window)
+    # the port's masks hold no window: the decoder windows each windowed
+    # layer by position, as JAX's windowed masks do
+    tmask = qwen2.prefill_mask(torch.from_numpy(seq_lens), t, t)
     th, cache = qwen2.forward(tp, tc, torch.from_numpy(embeds), tpos,
                               cache=cache, mask=tmask, prefill=True)
     cache = kv_cache.KVCache(cache.k, cache.v, torch.from_numpy(seq_lens))
     tlogits = [qwen2.logits_from_hidden(tp, th, tc).numpy()]
     for step in range(steps):
         e = qwen2.embed(tp, torch.from_numpy(tokens[step])[:, None])
-        m = qwen2.decode_mask(cache.lengths, s_max, tc.attn_window)
+        m = qwen2.decode_mask(cache.lengths, s_max)
         h, cache = qwen2.forward(tp, tc, e, cache.lengths[:, None],
                                  cache=cache, mask=m, prefill=False)
         tlogits.append(qwen2.logits_from_hidden(tp, h, tc).numpy())
@@ -125,12 +126,19 @@ def test_fuse_decoder_params_is_exact():
 
 @pytest.mark.parametrize("window", [None, 3])
 def test_masks_match_jax(window):
+    # the port's masks, windowed by position as a windowed layer does
     lens = np.array([5, 2, 9], np.int32)
+    tl = torch.from_numpy(lens)
+    pos = torch.arange(7)[None].expand(3, 7)
+    got = qwen2.window_mask(qwen2.prefill_mask(tl, 7, 9)[:, None], pos,
+                            window)[:, 0]
     np.testing.assert_array_equal(
-        qwen2.prefill_mask(torch.from_numpy(lens), 7, 9, window).numpy(),
+        got.numpy(),
         np.asarray(jqwen2.prefill_mask(jnp.asarray(lens), 7, 9, window)))
+    got = qwen2.window_mask(qwen2.decode_mask(tl, 12)[:, None], tl[:, None],
+                            window)[:, 0]
     np.testing.assert_array_equal(
-        qwen2.decode_mask(torch.from_numpy(lens), 12, window).numpy(),
+        got.numpy(),
         np.asarray(jqwen2.decode_mask(jnp.asarray(lens), 12, window)))
 
 

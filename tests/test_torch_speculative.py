@@ -89,8 +89,11 @@ def test_ngram_draft_past_history_end_like_jax():
 
 @pytest.mark.parametrize("window", [None, 3])
 def test_spec_mask_matches_jax(window):
+    # the port's mask, windowed by position as a windowed layer does
     lengths = np.array([0, 3, 7], np.int32)
-    got = spec_mask(_t(lengths), 4, 12, window=window).numpy()
+    pos = _t(lengths)[:, None] + torch.arange(4)[None]
+    got = tqwen2.window_mask(spec_mask(_t(lengths), 4, 12)[:, None], pos,
+                             window)[:, 0].numpy()
     want = np.asarray(jspec.spec_mask(jnp.asarray(lengths), 4, 12,
                                       window=window))
     np.testing.assert_array_equal(got, want)
