@@ -9,7 +9,7 @@ tagged with its name and raising on failure (so the exit code is
 non-zero):
 
   1. device   the card's name; nvidia-smi's name and power limit
-  2. build    nvcc builds kernels K1-K4 from fastvlm_tpu_torch/csrc/,
+  2. build    nvcc builds kernels K1-K5 from fastvlm_tpu_torch/csrc/,
               one process per source, all started together
   3. K1       fused_ffn vs ffn_reference at the five FastViTHD stage shapes
               of a 1024 px image (bf16, with ls and with ls=None) and ragged
@@ -61,9 +61,12 @@ non-zero):
               against its plain version, twice bitwise equal, then the
               serving call with and without it; K5 (routed_experts)
               against experts_reference at a burst's 27,200 tokens, a
-              row's, a decode step's and with padding rows (near-tie
-              tokens routed apart left out), each beside its bound
-              (port_bench's counts), torch._grouped_mm as context
+              row's, 1024 and 512 tokens, a 256-token chunk's, a decode
+              step's, with padding rows and with experts that get no token
+              (near-tie tokens routed apart left out), on the route each
+              shape takes and, but for the last three, on the other route
+              too; each kernel's time beside the call's bound (port_bench's
+              counts), torch._grouped_mm as context
   6. main     an Engine at full width (FastViTHD @1024, mlp2x_gelu
               3072->896, Qwen2-0.5B, bf16, random weights from a seed, byte
               tokenizer) answers 3 greedy requests of 32 new tokens; checks
@@ -208,7 +211,9 @@ non-zero):
               7B is freed: 12 requests of ~3.4k tokens; every prefill call
               28 K4 (21 windowed) and 28 K5 calls, every decode step 28 K3
               (21 windowed) and 28 K5, nothing through qwen2._attend or
-              _attend_pool; its 12B freed before the next phase
+              _attend_pool; a gathered prefill's 28 K5 calls on the
+              grouped route, a decode step's on the Triton one; its 12B
+              freed before the next phase
  14. worker   serve/worker.ModelWorker in process, pumped through
               generate_stream as the HTTP routes pump it (the card's machine
               has no aiohttp): (a) serially over phase 6's engine: base64
@@ -353,7 +358,8 @@ device, build, K4, serve-1.5b); --mellum-only (phases device, build, K4
 and K3 with a window at Mellum2's 32/4/128 heads, K5 at its expert
 widths); --serve-mellum-only (Mellum2-12B-A2.5B through the scheduler:
 every prefill call 28 K4 (21 windowed) and 28 K5, every decode step 28
-K3 (21 windowed) and 28 K5, no plain attention); --k1-ab PARENT
+K3 (21 windowed) and 28 K5, no plain attention, the gathered prefills' K5
+on the grouped route); --k1-ab PARENT
 (phase K1, bf16 and f32, against the kernel of the checkout at PARENT and
 of this one, in turns); --tp-only; --serve-view-only.
 
@@ -369,6 +375,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -531,7 +538,7 @@ def phase_build():
     from fastvlm_tpu_torch.ops.cuda import _build
 
     names = ("ffn", "decode_attention", "paged_decode_attention",
-             "prefill_attention")
+             "prefill_attention", "experts")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(_build.load, names))
@@ -782,6 +789,16 @@ def kernel_profile(fn, reps: int = 20, complete: bool = False):
     whole number of launches a call counts (a session can drop records:
     on an H100 one held 3 of a call's 50 launches); (None, {}) where five
     sessions hold none."""
+    split, launches = kernel_split_ms(fn, reps, complete)
+    if not split:
+        return None, {}
+    return sum(split.values()), launches
+
+
+def kernel_split_ms(fn, reps: int = 20, complete: bool = False):
+    """({kernel: device ms of one call's launches of it}, {kernel: launches
+    a call}) by torch.profiler, or ({}, {}); ``complete`` as
+    ``kernel_profile``'s."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -799,11 +816,11 @@ def kernel_profile(fn, reps: int = 20, complete: bool = False):
             continue
         # each kernel's mean time, times its launches a call: a session
         # that drops some records still reads one call's kernel time
-        us = sum(e.self_device_time_total / e.count * max(1, round(e.count / reps))
-                 for e in rows)
-        if us > 0:
-            return us / 1000, {e.key: e.count / reps for e in rows}
-    return None, {}
+        split = {e.key: e.self_device_time_total / e.count
+                 * max(1, round(e.count / reps)) / 1000 for e in rows}
+        if sum(split.values()) > 0:
+            return split, {e.key: e.count / reps for e in rows}
+    return {}, {}
 
 
 def kernel_time_ms(fn, reps: int = 20):
@@ -6296,16 +6313,33 @@ def phase_k3_window(gen):
     return out
 
 
+def _k5_split(split):
+    """A K5 call's kernel times by kernel: {moe_k5_*: ms}, the count fill
+    as "fill"."""
+    out = {}
+    for name, ms in split.items():
+        m = re.search(r"moe_k5_[a-z_]+", name)
+        key = m.group(0) if m else "fill"
+        out[key] = out.get(key, 0.0) + ms
+    return out
+
+
 def phase_k5(gen):
-    """K5 (routed experts, Triton) against experts_reference at Mellum2's
-    widths (D 2304, 64 experts of 896, top 8) at a burst's rows, one
-    row's, a decode step's, and with padding rows, in bf16. A token whose
-    top 8 differ between the two (the router's products summed in another
-    order) is a near tie: its 8th and 9th probabilities must lie within
-    1e-3 of each other, relative, and it is left out of the comparison;
-    the others within 1e-2 of the largest output. Then timed beside its
-    bound (the benchmark's, port_bench/decoders/mellum2.py's k5_layer),
-    and, as context only, torch._grouped_mm's three products."""
+    """K5 (routed experts) against experts_reference at Mellum2's widths (D
+    2304, 64 experts of 896, top 8) in bf16: a burst's 27,200 tokens, one
+    row's 3,400, an admission chunk's 256, a decode step's 8, with padding
+    rows, with three experts (the first, one inside, the last) that get no
+    token, and a tiny call. A token whose top 8 differ between the two (the
+    router's products summed in another order) is a near tie: its 8th and
+    9th probabilities must lie within 1e-3 of each other, relative, and it
+    is left out of the comparison; the others within 1e-2 of the largest
+    output. Each case records the route its products took (grouped:
+    csrc/experts.cu; triton) and its kernel times kernel by kernel beside
+    its bound (the benchmark's, port_bench/decoders/mellum2.py's
+    k5_layer); at the burst, one row, 1024 and 512 tokens (128 and 64 rows
+    an expert), chunk and decode shapes the other route too, held to the
+    same checks and timed (the threshold's evidence); torch._grouped_mm's
+    products as context."""
     from fastvlm_tpu_torch.ops.cuda import experts as k5
     from port_bench import family, harness
 
@@ -6321,76 +6355,109 @@ def phase_k5(gen):
     router = r(d, e, std=0.02)
     gateup = r(e, d, 2 * inter, std=0.02)
     down = r(e, inter, d, std=0.02)
-    for name, n, pad in (("burst", 27200, 0), ("one row", 3400, 0),
-                         ("decode", 8, 0), ("padded", 4096, 700),
-                         ("tiny", 3, 1)):
+    no_rows = (0, 31, e - 1)
+    for name, n, pad, both in (("burst", 27200, 0, True),
+                               ("one row", 3400, 0, True),
+                               ("1024", 1024, 0, True), ("512", 512, 0, True),
+                               ("chunk", 256, 0, True), ("decode", 8, 0, True),
+                               ("padded", 4096, 700, False),
+                               ("no rows", 4096, 0, False),
+                               ("tiny", 3, 1, False)):
         x = r(n, d, std=1.0)
+        rw = router
+        if name == "no rows":  # three experts' logits at -100
+            x[:, 0] = 1.0
+            rw = router.clone()
+            rw[:, list(no_rows)] = 0.0
+            rw[0, list(no_rows)] = -100.0
         valid = None
         if pad:
             valid = torch.ones((n,), dtype=torch.bool, device="cuda")
             valid[-pad:] = False
-        before = k5.routed_experts.launches
-        got = k5.routed_experts(x, router, gateup, down, top, True, valid)
+        before = (k5.routed_experts.launches, k5.routed_experts.grouped)
+        got = k5.routed_experts(x, rw, gateup, down, top, True, valid)
         torch.cuda.synchronize()
-        if k5.routed_experts.launches != before + 1:
+        if k5.routed_experts.launches != before[0] + 1:
             raise AssertionError("K5: launch count")
-        _, ids, _ = k5.launch(x, router, gateup, down, top, True, valid)
-        want = k5.experts_reference(x, router, gateup, down, top, True, valid)
-        probs = torch.softmax(x.float() @ router.float(), -1)
+        route = "grouped" if k5.routed_experts.grouped > before[1] else "triton"
+        if (route == "grouped") != k5.grouped_route(n, top, e):
+            raise AssertionError(f"K5 {name}: took the {route} route")
+        want = k5.experts_reference(x, rw, gateup, down, top, True, valid)
+        probs = torch.softmax(x.float() @ rw.float(), -1)
         srt = probs.sort(-1, descending=True)
         ref_ids = srt.indices[:, :top]
-        ids = ids.view(n, top).long()
-        same = (ids.sort(-1).values == ref_ids.sort(-1).values).all(-1)
-        if valid is not None:
-            if bool((ids[~valid] != -1).any()):
-                raise AssertionError("K5: a padding token was routed")
-            same = same | ~valid
         gap = (srt.values[:, top - 1] - srt.values[:, top]) / srt.values[:, top - 1]
-        flips = ~same
-        if bool((gap[flips] > 1e-3).any()):
-            raise AssertionError(f"K5 {name}: {int(flips.sum())} tokens routed "
-                                 f"apart, some without a near tie")
-        keep = same[:, None]
-        if not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"K5 {name}: non-finite output")
-        err = float(((got.float() - want.float()).abs() * keep).max())
-        top_out = float((want.float().abs() * keep).max())
-        if err > 1e-2 * top_out:
-            raise AssertionError(f"K5 {name}: max_abs_err {err:.4e} against "
-                                 f"the plain version (largest {top_out:.4e})")
-        if valid is not None and bool(got[~valid].abs().max() > 0):
-            raise AssertionError("K5: a padding token's output is not zero")
         real = n - pad
         flops, nbytes = fam.k5_layer(cfg, real)
         bound = max(flops / BF16_FLOPS, nbytes / HBM_BPS) * 1e3
         by = "operations" if flops / BF16_FLOPS >= nbytes / HBM_BPS else "bytes"
-
-        def call():
-            k5.routed_experts(x, router, gateup, down, top, True, valid)
-
-        k_ms, names = kernel_profile(call, reps=5)
-        item = dict(max_abs_err=err, largest=top_out, near_tie_flips=int(flips.sum()),
-                    kernel_ms=k_ms, kernels=names, bound_ms=bound, bound_by=by)
-        lib = ""
-        grouped = getattr(torch, "_grouped_mm", None)
-        if grouped is not None and name in ("burst", "one row"):
+        item = dict(route=route, bound_ms=bound, bound_by=by)
+        routes = [route] + ([{"grouped": "triton", "triton": "grouped"}[route]]
+                            if both else [])
+        for rt in routes:
+            grouped = rt == "grouped"
+            out, ids, _ = k5.launch(x, rw, gateup, down, top, True, valid,
+                                    grouped)
+            torch.cuda.synchronize()
+            if rt == route and not torch.equal(out, got):
+                raise AssertionError(f"K5 {name}: two calls differ")
+            ids = ids.view(n, top).long()
+            same = (ids.sort(-1).values == ref_ids.sort(-1).values).all(-1)
+            if valid is not None:
+                if bool((ids[~valid] != -1).any()):
+                    raise AssertionError("K5: a padding token was routed")
+                same = same | ~valid
+            if name == "no rows" and bool(
+                    (ids[..., None] == torch.tensor(no_rows, device="cuda")).any()):
+                raise AssertionError("K5: a token reached an expert at -100")
+            flips = ~same
+            if bool((gap[flips] > 1e-3).any()):
+                raise AssertionError(f"K5 {name} ({rt}): {int(flips.sum())} "
+                                     f"tokens routed apart, some without a "
+                                     f"near tie")
+            keep = same[:, None]
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"K5 {name} ({rt}): non-finite output")
+            err = float(((out.float() - want.float()).abs() * keep).max())
+            top_out = float((want.float().abs() * keep).max())
+            if err > 1e-2 * top_out:
+                raise AssertionError(f"K5 {name} ({rt}): max_abs_err {err:.4e} "
+                                     f"against the plain version (largest "
+                                     f"{top_out:.4e})")
+            if valid is not None and bool(out[~valid].abs().max() > 0):
+                raise AssertionError("K5: a padding token's output is not zero")
+            split = _k5_split(kernel_split_ms(
+                lambda: k5.launch(x, rw, gateup, down, top, True, valid,
+                                  grouped), reps=5)[0])
+            k_ms = sum(split.values()) if split else None
+            item[rt] = dict(max_abs_err=err, largest=top_out,
+                            near_tie_flips=int(flips.sum()), kernel_ms=k_ms,
+                            split_ms=split)
+            share = "not measured" if k_ms is None else f"{100 * bound / k_ms:.2f}%"
+            parts = ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+            log("K5", f"{name}: N={n} ({pad} padding), {rt} route"
+                      f"{' (taken)' if rt == route else ''}: max_abs_err "
+                      f"{err:.4e} (largest {top_out:.4e}), {int(flips.sum())} "
+                      f"near-tie tokens routed apart; kernel time "
+                      f"{fmt_ms(k_ms)} ({parts}); bound {bound:.4f} ms ({by}), "
+                      f"share {share}")
+        item.update(max_abs_err=max(item[rt]["max_abs_err"] for rt in routes),
+                    kernel_ms=item[route]["kernel_ms"])
+        grouped_mm = getattr(torch, "_grouped_mm", None)
+        if grouped_mm is not None and name in ("burst", "one row"):
             try:
                 counts = torch.bincount(ref_ids.reshape(-1), minlength=e)
                 offs = counts.cumsum(0).to(torch.int32)
                 rows = x[torch.argsort(ref_ids.reshape(-1), stable=True) // top]
-                g_ms = kernel_time_ms(lambda: grouped(
-                    grouped(rows, gateup, offs=offs)[:, :inter].contiguous(),
+                item["grouped_mm_ms"] = kernel_time_ms(lambda: grouped_mm(
+                    grouped_mm(rows, gateup, offs=offs)[:, :inter].contiguous(),
                     down, offs=offs), reps=5)
-                item["grouped_mm_ms"] = g_ms
-                lib = f"; context: torch._grouped_mm gate/up then down {fmt_ms(g_ms)}"
+                log("K5", f"{name}: context: torch._grouped_mm gate/up then "
+                          f"down {fmt_ms(item['grouped_mm_ms'])}")
             except Exception as exc:  # context only: its API varies by release
-                lib = f"; context: torch._grouped_mm not run ({type(exc).__name__})"
+                log("K5", f"{name}: context: torch._grouped_mm not run "
+                          f"({type(exc).__name__})")
         res[name] = item
-        share = "not measured" if k_ms is None else f"{100 * bound / k_ms:.2f}%"
-        log("K5", f"{name}: N={n} ({pad} padding) max_abs_err {err:.4e} (largest "
-                  f"{top_out:.4e}), {int(flips.sum())} near-tie tokens routed "
-                  f"apart; kernel time {fmt_ms(k_ms)} ({names}); bound "
-                  f"{bound:.4f} ms ({by}), share {share}{lib}")
     return res
 
 
@@ -6399,8 +6466,10 @@ def phase_serve_mellum(card):
     benchmark's draw) through Engine + BatchScheduler with the vqa-doc3k
     mix's settings: 12 requests of ~3.4k tokens (8 at once, 4 admitted
     later). Every prefill call launches 28 K4 kernels (21 windowed) and 28
-    K5 calls, every decode step 28 K3 kernels (21 windowed), and nothing
-    reaches qwen2._attend or qwen2._attend_pool."""
+    K5 calls, every decode step 28 K3 kernels (21 windowed) and 28 K5
+    calls, and nothing reaches qwen2._attend or qwen2._attend_pool. A
+    gathered prefill's K5 calls all take the grouped route, a decode
+    step's none, an admission chunk's all or none."""
     sys.path.insert(0, ROOT)
     from fastvlm_tpu_torch.models import qwen2, vlm
     from fastvlm_tpu_torch.ops.cuda import experts as k5
@@ -6432,18 +6501,17 @@ def phase_serve_mellum(card):
     saved = {n: getattr(vlm, n) for n in ("prefill", "prefill_continue",
                                            "decode_step")}
 
+    def counts():
+        return (prefill_attention.launches, prefill_attention.window_launches,
+                paged_decode_attention.launches,
+                paged_decode_attention.window_launches,
+                k5.routed_experts.launches, k5.routed_experts.grouped)
+
     def watched(name):
         def f(*a, **kw):
-            b = (prefill_attention.launches, prefill_attention.window_launches,
-                 paged_decode_attention.launches,
-                 paged_decode_attention.window_launches,
-                 k5.routed_experts.launches)
+            b = counts()
             out = saved[name](*a, **kw)
-            a_ = (prefill_attention.launches, prefill_attention.window_launches,
-                  paged_decode_attention.launches,
-                  paged_decode_attention.window_launches,
-                  k5.routed_experts.launches)
-            calls.append((name, tuple(x - y for x, y in zip(a_, b))))
+            calls.append((name, tuple(x - y for x, y in zip(counts(), b))))
             return out
         return f
     try:
@@ -6469,8 +6537,12 @@ def phase_serve_mellum(card):
         qwen2._attend, qwen2._attend_pool = orig["_attend"], orig["_attend_pool"]
     counters = server.counters()
     server.close()
-    bad = [c for c in calls if (c[0] != "decode_step" and c[1] != (28, 21, 0, 0, 28))
-           or (c[0] == "decode_step" and c[1] != (0, 0, 28, 21, 28))]
+    # a gathered prefill's 28 K5 calls take the grouped route, a decode
+    # step's the Triton one; an admission chunk's all one route
+    want = {"prefill": [(28, 21, 0, 0, 28, 28)],
+            "prefill_continue": [(28, 21, 0, 0, 28, 0), (28, 21, 0, 0, 28, 28)],
+            "decode_step": [(0, 0, 28, 21, 28, 0)]}
+    bad = [c for c in calls if c[1] not in want[c[0]]]
     kinds = dict(collections.Counter(c[0] for c in calls))
     log("serve-mellum", f"12 requests in {secs:.2f} s; calls {kinds}; launch "
                         f"deltas of the first calls {calls[:3]}; plain "
@@ -6483,8 +6555,12 @@ def phase_serve_mellum(card):
     del server
     gc.collect()
     torch.cuda.empty_cache()
-    # launches summed over the calls: K4, K4 windowed, K3, K3 windowed, K5
-    launches = [int(sum(c[1][j] for c in calls)) for j in range(5)]
+    # launches summed over the calls: K4, K4 windowed, K3, K3 windowed, K5,
+    # K5 on the grouped route
+    launches = [int(sum(c[1][j] for c in calls)) for j in range(6)]
+    by_kind = {k: sum(c[1][5] for c in calls if c[0] == k) for k in kinds}
+    log("serve-mellum", f"K5 calls on the grouped route: {launches[5]} of "
+                        f"{launches[4]}; by kind {by_kind}")
     return dict(calls=kinds, plain=plain, counters=dict(counters), seconds=secs,
                 launches=launches)
 
@@ -6625,7 +6701,7 @@ def main(argv) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mellum = phase_serve_mellum(card)  # frees its 12B before it returns
-    m_k4, m_k4w, m_k3, m_k3w, m_k5 = mellum["launches"]
+    m_k4, m_k4w, m_k3, m_k3w, m_k5, m_k5g = mellum["launches"]
     quant_res = phase_quant(card, engine, main_res, gen)
     kv_res = phase_kv_int8(card, engine)
     export_res = phase_export(card, quant_res.pop("tower"),
@@ -6797,10 +6873,12 @@ def main(argv) -> int:
                      "of the real rows (within the window) at 989 TFLOP/s "
                      "or their bytes once",
          "cases": k4, "window_cases": k4w},
-        {"name": "routed_experts", "route": "triton",
-         "source": "fastvlm_tpu_torch/ops/cuda/experts.py",
+        {"name": "routed_experts", "route": "cuda (grouped products) / triton",
+         "source": "fastvlm_tpu_torch/csrc/experts.cu, "
+                   "fastvlm_tpu_torch/ops/cuda/experts.py",
          "replaces": None,
-         "launches_by_path": {"serve-mellum": m_k5},
+         "launches_by_path": {"serve-mellum": m_k5,
+                              "serve-mellum grouped": m_k5g},
          "max_abs_err": max(r["max_abs_err"] for r in k5_res.values()),
          "kernel_ms": k5_res["burst"]["kernel_ms"],
          "bound_ms": k5_res["burst"]["bound_ms"],
@@ -6808,8 +6886,9 @@ def main(argv) -> int:
          "timed_as": "one sparse layer of Mellum2 (D 2304, 64 experts of "
                      "896, top 8, bf16) over the vqa-doc3k burst's 27,200 "
                      "tokens; max_abs_err over every case against "
-                     "experts_reference, near-tie tokens left out; "
-                     "launches: calls, four kernels each",
+                     "experts_reference on both routes, near-tie tokens "
+                     "left out; launches: calls, four kernels each; "
+                     "grouped: the calls whose products took csrc/experts.cu",
          "cases": k5_res},
     ]}
     print(json.dumps(kernels), flush=True)

@@ -391,41 +391,6 @@ constexpr int G_STAGE = G_A_BYTES + G_BK * G_BN * 2;
 constexpr int G_BARS = G_STAGES * G_STAGE;
 constexpr int G_SMEM = 1024 + G_BARS + 2 * G_STAGES * 8;
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-// Wait for the phase of the given parity to complete. A wait that outlasts
-// any real pipeline stall (a fault in the pipeline) traps instead of
-// hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  for (long long spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (spins > (1ll << 22)) __trap();
-  }
-}
-// 2-D TMA load of a box at (c0 inner, c1 outer) into shared memory,
-// completing on the barrier
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
 // Pass 2: C (m x n) = A (m x K, row-major) @ B (K x n, row-major) over the
 // depth slice [z * kps, (z + 1) * kps) of grid z, then the epilogue:
 //  EPI_OUT:     out = bf16(res + ls * (C + bias))   (ls may be null)
@@ -669,17 +634,6 @@ ffn_reduce_kernel(const float* __restrict__ partial, int splits,
 // host side of the bf16 route
 // ---------------------------------------------------------------------------
 
-int sm_count() {
-  static int count = 0;
-  if (count == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-    if (count <= 0) count = 1;
-  }
-  return count;
-}
-
 // The route of each bf16 width (Ch = 4C): fused for C = 96 / 192, two
 // passes for C % 128 == 0; none for any other C.
 bool fused_width(int c) { return c == 96 || c == 192; }
@@ -722,32 +676,6 @@ cudaError_t launch_fused(const void* t, const void* res, const void* w1, const v
       (const bf16*)t, (const bf16*)res, (const bf16*)w1, (const bf16*)b1, (const bf16*)w2,
       (const bf16*)b2, (const bf16*)ls, (bf16*)out, n);
   return cudaGetLastError();
-}
-
-// A row-major (rows, cols) bf16 matrix as a TMA tensor map of (box_cols x
-// box_rows) boxes with the 128-byte swizzle. cuTensorMapEncodeTiled is a
-// driver call, reached through the runtime once; encoding is host work
-// only (no device call), a few per launch, since the pointers change.
-cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                              cudaEnableDefault, &q);
-    if (err != cudaSuccess) return err;
-    if (fn == nullptr || q != cudaDriverEntryPointSuccess) return cudaErrorNotSupported;
-    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
-  }
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <int EPI>
@@ -866,12 +794,6 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
-}
-
-// 16-byte cp.async; ok = false fills the 16 bytes with zeros
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(ok ? 16 : 0));
 }
 
 // A warp's tile product in 3xTF32: acc[i][j] (the 16 x 8 output tile i, j)

@@ -87,20 +87,6 @@ struct Cfg {
   static_assert(SMEM <= 227 * 1024, "tiles exceed shared memory");
 };
 
-// two floats rounded to a packed pair of T, the first in the low half
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(float lo, float hi);
-template <>
-__device__ __forceinline__ uint32_t pack2<bf16>(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-template <>
-__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
-  const __half2 v = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // keeps the registers of P, which an in-flight P.V reads, live and in place
 // until the wait
 template <int N>

@@ -3,43 +3,68 @@ Qwen3-MoE / Mellum2 numerics): a softmax router over E experts, the top k
 of each token with their weights renormalised to sum 1 (``norm_topk_prob``),
 and each token's output the weighted sum of its k SwiGLU experts.
 
-No Pallas kernel stands behind it: the JAX package has no expert layer. The
-kernels are Triton (built at first call, on the card only; this module
-imports ``triton`` inside ``_kernels``), four launches a layer whatever the
-number of experts, against 3 products x E experts for a loop over experts:
+No TPU kernel stands behind it: the JAX package has no expert layer. Four
+launches a layer whatever the number of experts, against 3 products x E
+experts for a loop over experts:
 
-  * ``moe_k5_route``: a block of tokens' router logits (x @ W_r, f32
-    accumulation), softmax, top-k by repeated argmax (ties to the lower
+  * ``moe_k5_route`` (Triton): a block of tokens' router logits (x @ W_r,
+    f32 accumulation), softmax, top-k by repeated argmax (ties to the lower
     expert), the weights renormalised, and a counting sort of the (token,
     slot) pairs by expert: each pair takes its rank in its expert from an
     atomic count, and its pair index lands at ``sorted[e * N + rank]``;
-  * ``moe_k5_gate_up``: one grouped launch over every expert's rows. A
-    program finds its (expert, row tile) from the counts (a cumulative sum
-    over E tiles counts), so an expert that receives no token costs no
-    tile; it gathers its tokens' rows of x, multiplies by the expert's gate
-    and up columns (f32 accumulation) and writes SiLU(gate) * up, rounded
-    once, to the expert's rows of a compact (N * k, I) buffer;
-  * ``moe_k5_down``: the same schedule over the compact rows times the
-    expert's down product, each row scaled by its routing weight and
-    written, rounded, at its pair's row of a (N * k, D) buffer;
-  * ``moe_k5_combine``: each token's k rows summed in f32 in slot order,
-    rounded once.
+  * ``moe_k5_gate_up``: one grouped launch over every expert's rows. It
+    gathers its tokens' rows of x, multiplies by the expert's gate and up
+    columns (f32 accumulation) and writes SiLU(gate) * up, rounded once, to
+    the expert's rows of a compact (N * k, I) buffer; an expert that
+    receives no token costs no tile;
+  * ``moe_k5_down``: the compact rows times the expert's down product, each
+    row scaled by its routing weight and written, rounded, at its pair's
+    row of a (N * k, D) buffer;
+  * ``moe_k5_combine`` (Triton): each token's k rows summed in f32 in slot
+    order, rounded once.
 
 The order within an expert comes from atomics and varies, but no row's
 result depends on it: every sum runs in a fixed order, so the output is the
 same bits on every call.
 
 What bounds it on this card: at a prefill's thousands of tokens the
-products, 2 x 3 x D x I x k operations a token (compute); at decode's few
-routed rows the experts' weights, 3 x D x I x 2 bytes each one touched
-(memory). The tile height follows the rows an expert gets (16 to 128).
+products, 2 x 3 x D x I x k operations a token (compute: Mellum2's burst of
+27,200 tokens is 2.70 TFLOP, 2.73 ms at 989 TFLOP/s, two thirds of it
+gate/up); at decode's few routed rows the experts' weights, 3 x D x I x 2
+bytes each one touched (memory).
+
+The two products have two routes, picked by the one shape the wrapper
+sees without a read, the routed rows an expert gets on average, N k / E
+(``grouped_route``):
+
+  * at GROUPED_MIN_ROWS or more (a prefill): ``csrc/experts.cu``, CUDA C++
+    for sm_90a, a persistent wgmma grouped GEMM a product. Two-block
+    clusters, one block an SM, walk 128-row x 256-column output tiles that
+    they derive on the device from the router's counts (``tile_walk`` is
+    the walk's Python twin), with all column tiles of one row tile
+    consecutive, so the blocks running at once share a few row tiles and
+    each row tile's A operand (gathered rows of x, or h) comes from device
+    memory about once; a cluster's two blocks take adjacent row tiles of
+    one expert and share each weight tile by TMA multicast. A producer
+    warpgroup gathers x's rows by cp.async and loads the weights by TMA
+    into a ring of stages, two consumer warpgroups run wgmma, and the
+    weights are read as stored (transposed-B operand). gate/up computes 128
+    gate and 128 up columns a tile; down stores its rows through shared
+    memory by bulk copies under the next tile's products. Needs D % 256 ==
+    0, I % 128 == 0, E <= 256 (checked);
+  * below it (decode steps, admission chunks): Triton products on a grid of
+    (row tiles, column tiles), the tile height following the rows an
+    expert gets (16 to 128). There the weights, not the products, bound
+    the call (~1 row an expert at decode): a 128-row tile would be mostly
+    padding, and the Triton route reads each touched expert once.
 
 ``experts_reference`` is the same function in plain PyTorch (a loop over
 experts, each on the rows routed to it, products in f32): the CPU path and
 the oracle the kernels are held against on the card. ``routed_experts``
 routes by device: a CPU tensor takes the reference; a CUDA tensor launches
 the kernels or raises. ``routed_experts.launches`` counts calls (four
-kernels each). ``counting(stats)`` adds, on the device and without a read,
+kernels each), ``routed_experts.grouped`` those whose products took the
+grouped route. ``counting(stats)`` adds, on the device and without a read,
 each call's routed rows and its busiest expert's rows to ``stats`` (two
 int64), for the scheduler's counters.
 """
@@ -47,14 +72,24 @@ int64), for the scheduler's counters.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 import threading
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from fastvlm_tpu_torch.ops.cuda import _build
+
 _LOCAL = threading.local()
+_DTYPE_CODES = {torch.bfloat16: 1, torch.float16: 2}  # csrc/experts.cu's
+GROUPED_BM = 128  # rows of a grouped-route tile (csrc/experts.cu's BM)
+GROUPED_PAIR = 2  # blocks of a grouped-route cluster (csrc/experts.cu's PAIR)
+# The average routed rows an expert from which a call takes the grouped
+# route: one whole row tile. At Mellum2's widths the grouped route led at
+# 128 rows an expert and trailed at 64 and 32 (PERF.md, section 6).
+GROUPED_MIN_ROWS = 128
 
 
 @contextlib.contextmanager
@@ -127,7 +162,8 @@ def _count(ids, e):
     stats += torch.stack([counts.sum(), counts.max()]).to(stats.dtype)
 
 
-def _check_cuda_args(x, router_w, gateup, down, top_k, valid):
+def _check_cuda_args(x, router_w, gateup, down, top_k, valid,
+                     grouped: bool):
     n, d = x.shape
     e = router_w.shape[1]
     if router_w.shape != (d, e) or gateup.dim() != 3 or \
@@ -153,13 +189,57 @@ def _check_cuda_args(x, router_w, gateup, down, top_k, valid):
     if valid is not None and (valid.shape != (n,) or valid.device
                               != x.device):
         raise ValueError("routed_experts: valid must be (N,) on x's device")
+    if grouped and (d % 256 or inter % GROUPED_BM or e > 256 or any(
+            t.data_ptr() % 16 for t in (x, gateup, down))):
+        raise ValueError(f"routed_experts: the grouped route needs D % 256 "
+                         f"== 0, I % 128 == 0, at most 256 experts and "
+                         f"16-byte aligned x, gateup and down; got D {d}, I "
+                         f"{inter}, {e} experts")
 
 
 def tile_rows(n: int, top_k: int, e: int) -> int:
-    """The row tile of the grouped products for N tokens: the routed rows
+    """The row tile of the Triton products for N tokens: the routed rows
     an expert gets on average, rounded up to 16, 64 or 128."""
     avg = n * top_k / e
     return 16 if avg <= 16 else 64 if avg <= 64 else 128
+
+
+def grouped_route(n: int, top_k: int, e: int) -> bool:
+    """Whether N tokens' products take the grouped route: the routed rows
+    an expert gets on average, N k / E, at least GROUPED_MIN_ROWS."""
+    return n * top_k >= GROUPED_MIN_ROWS * e
+
+
+def tile_walk(counts, col_tiles: int,
+              clusters: int) -> List[List[Tuple[int, int, int, int, int]]]:
+    """The grouped route's tiles, block by block (blockIdx order), as
+    csrc/experts.cu's ``build_tables`` and ``walk_tile`` derive them from the
+    router's counts. Each expert has ceil(count / GROUPED_BM) row tiles,
+    taken in pairs (ceil of half; none for an expert with no rows),
+    experts in order; a cluster's tile q is column tile q % col_tiles of
+    pair q // col_tiles, cluster c takes q = c, c + clusters, ..., and its
+    block of rank r the r-th row tile of each pair. A tile is (expert, its first row
+    in the expert, the expert's rows, the expert's first compact row,
+    column tile); first row >= rows: the empty second tile of an expert's
+    odd last pair, which its block walks without writing."""
+    bm, pair = GROUPED_BM, GROUPED_PAIR
+    pair0, row0 = [0], [0]
+    for c in counts:
+        pair0.append(pair0[-1] + triton_cdiv(triton_cdiv(int(c), bm), pair))
+        row0.append(row0[-1] + int(c))
+    total = pair0[-1] * col_tiles
+    blocks = []
+    for c in range(clusters):
+        for rank in range(pair):
+            e, mine = 0, []
+            for q in range(c, total, clusters):
+                pr = q // col_tiles
+                while pair0[e + 1] <= pr:
+                    e += 1
+                mine.append((e, (pair * (pr - pair0[e]) + rank) * bm,
+                             row0[e + 1] - row0[e], row0[e], q % col_tiles))
+            blocks.append(mine)
+    return blocks
 
 
 def routed_experts(x: torch.Tensor, router_w: torch.Tensor,
@@ -176,18 +256,26 @@ def routed_experts(x: torch.Tensor, router_w: torch.Tensor,
         raise ValueError(f"routed_experts: no kernel for device {x.device}")
     if x.shape[0] == 0:
         return torch.empty_like(x)
-    _check_cuda_args(x, router_w, gateup, down, top_k, valid)
-    out = launch(x, router_w, gateup, down, top_k, norm_topk, valid)[0]
+    x, router_w = x.contiguous(), router_w.contiguous()
+    gateup, down = gateup.contiguous(), down.contiguous()
+    grouped = grouped_route(x.shape[0], top_k, router_w.shape[1])
+    _check_cuda_args(x, router_w, gateup, down, top_k, valid, grouped)
+    out = launch(x, router_w, gateup, down, top_k, norm_topk, valid,
+                 grouped)[0]
     routed_experts.launches += 1
+    routed_experts.grouped += grouped
     return out
 
 
 routed_experts.launches = 0
+routed_experts.grouped = 0
 
 
 def launch(x, router_w, gateup, down, top_k: int, norm_topk: bool = True,
-           valid: Optional[torch.Tensor] = None):
-    """The four launches of ``routed_experts`` on checked CUDA arguments:
+           valid: Optional[torch.Tensor] = None,
+           grouped: Optional[bool] = None):
+    """The four launches of ``routed_experts`` on checked CUDA arguments
+    (``grouped``: the products' route, None for ``grouped_route``'s):
     (out (N, D), each (token, slot)'s expert (N * k,) int32, -1 where not
     routed, and its weight (N * k,) f32)."""
     x, router_w = x.contiguous(), router_w.contiguous()
@@ -208,19 +296,30 @@ def launch(x, router_w, gateup, down, top_k: int, norm_topk: bool = True,
         x, router_w, counts if valid is None else valid.view(torch.int8),
         counts, ids, wts, order, n, d, E=e, K=top_k, BT=bt, BD=64, NORM=norm_topk,
         HAS_VALID=valid is not None, num_warps=4)
-    bm = tile_rows(n, top_k, e)
-    m_tiles = triton_cdiv(n * top_k, bm) + e
-    warps, stages = (8, 3) if bm == 128 else (4, 4)
     h = torch.empty((n * top_k, inter), dtype=x.dtype, device=dev)
-    bn = 128 if inter % 128 == 0 else 64
-    gate_up[(m_tiles, triton_cdiv(inter, bn))](
-        x, gateup, counts, order, h, stats if stats is not None else counts,
-        n, d, inter, E=e, K=top_k, BM=bm, BN=bn, BK=64,
-        HAS_STATS=stats is not None, num_warps=warps, num_stages=stages)
     y = torch.empty((n * top_k, d), dtype=x.dtype, device=dev)
-    down_k[(m_tiles, triton_cdiv(d, 128))](
-        h, down, counts, order, wts, y, n, d, inter, E=e, K=top_k, BM=bm,
-        BN=128, BK=64, num_warps=warps, num_stages=stages)
+    if grouped_route(n, top_k, e) if grouped is None else grouped:
+        lib = _load()
+        err = lib.fvlm_moe_k5_grouped(
+            x.data_ptr(), gateup.data_ptr(), down.data_ptr(),
+            counts.data_ptr(), order.data_ptr(), wts.data_ptr(), h.data_ptr(),
+            y.data_ptr(), None if stats is None else stats.data_ptr(), n, d,
+            inter, e, top_k, _DTYPE_CODES[x.dtype],
+            torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(lib, err, "routed_experts")
+    else:
+        bm = tile_rows(n, top_k, e)
+        m_tiles = triton_cdiv(n * top_k, bm) + e
+        warps, stages = (8, 3) if bm == 128 else (4, 4)
+        bn = 128 if inter % 128 == 0 else 64
+        gate_up[(m_tiles, triton_cdiv(inter, bn))](
+            x, gateup, counts, order, h,
+            stats if stats is not None else counts, n, d, inter, E=e,
+            K=top_k, BM=bm, BN=bn, BK=64, HAS_STATS=stats is not None,
+            num_warps=warps, num_stages=stages)
+        down_k[(m_tiles, triton_cdiv(d, 128))](
+            h, down, counts, order, wts, y, n, d, inter, E=e, K=top_k,
+            BM=bm, BN=128, BK=64, num_warps=warps, num_stages=stages)
     combine[(n, triton_cdiv(d, 512))](y, ids, out, d, K=top_k, BH=512,
                                       num_warps=4)
     return out, ids, wts
@@ -231,8 +330,17 @@ def triton_cdiv(a: int, b: int) -> int:
 
 
 @functools.cache
+def _load():
+    lib = _build.load("experts")
+    lib.fvlm_moe_k5_grouped.argtypes = (
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.fvlm_moe_k5_grouped.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
 def _kernels():
-    """The four Triton kernels, defined (and so compiled) at first use.
+    """The Triton kernels, defined (and so compiled) at first use.
     Triton resolves a kernel's names in its module's globals, not in this
     function's scope, so ``triton``, ``tl`` and the shared ``_k5_tile``
     are bound there, here."""

@@ -264,6 +264,101 @@ def test_experts_reference_against_a_loop(top_k):
     assert stats.tolist() == [19 * top_k, int(counts.max())]
 
 
+# Mellum2's experts at a burst's rows (27,200 tokens, top 8 of 64): uneven,
+# with experts that get no row and tiles that end ragged
+_COUNTS = [0, 3400, 128, 1, 0, 127, 129, 5000, 256, 0, 77, 3400]
+
+
+@pytest.mark.parametrize("clusters, col_tiles", [(1, 7), (66, 7), (66, 9),
+                                                 (5, 3)])
+def test_tile_walk_covers_every_tile_once(clusters, col_tiles):
+    """The grouped route's walk (csrc/experts.cu's walk_tile, through its
+    Python twin): every (expert, row tile, column tile) exactly once over
+    the blocks, none for an expert with no rows, the ragged last tile of
+    each expert holding its remainder, each tile's compact row the rows of
+    the experts before it, and an empty tile only as the second of an
+    expert's odd last pair."""
+    bm = k5.GROUPED_BM
+    blocks = k5.tile_walk(_COUNTS, col_tiles, clusters)
+    assert len(blocks) == 2 * clusters
+    seen = [t for mine in blocks for t in mine]
+    real = [(e, m0, col) for e, m0, rows, _, col in seen if m0 < rows]
+    want = {(e, m0, col) for e, c in enumerate(_COUNTS)
+            for m0 in range(0, c, bm) for col in range(col_tiles)}
+    assert len(real) == len(set(real)) and set(real) == want
+    empty = sorted((e, m0, col) for e, m0, rows, _, col in seen if m0 >= rows)
+    tiles = [-(-c // bm) for c in _COUNTS]
+    assert empty == sorted((e, t * bm, col) for e, t in enumerate(tiles)
+                           if t % 2 for col in range(col_tiles))
+    starts = np.concatenate([[0], np.cumsum(_COUNTS)])
+    for e, m0, rows, start, _ in seen:
+        assert _COUNTS[e] > 0 and rows == _COUNTS[e] and start == starts[e]
+    for e, c in enumerate(_COUNTS):
+        if c:
+            last = max(m0 for e2, m0, rows, *_ in seen if e2 == e and m0 < rows)
+            assert c - last == (c % bm or bm)
+
+
+def test_tile_walk_keeps_a_pair_in_step_and_columns_together():
+    """The two blocks of a cluster walk the same experts and column tiles
+    in step, on vertically adjacent row tiles (they share each weight
+    tile); a row tile's column tiles are consecutive, 0 to nt - 1, so the
+    blocks running at once share a few row tiles; row tiles go expert by
+    expert, rows upward; cluster c takes the one walk's tiles c, c +
+    clusters, ..."""
+    bm = k5.GROUPED_BM
+    one = k5.tile_walk(_COUNTS, 7, 1)
+    for a, b in zip(*one):
+        assert (a[0], a[4]) == (b[0], b[4]) and b[1] == a[1] + bm
+    walk = one[0]
+    for i in range(0, len(walk), 7):
+        group = walk[i:i + 7]
+        assert [t[4] for t in group] == list(range(7))
+        assert len({t[:2] for t in group}) == 1
+    rows = [t[:2] for t in walk[::7]]
+    assert rows == sorted(rows)
+    many = k5.tile_walk(_COUNTS, 7, 5)
+    for c in range(5):
+        for rank in range(2):
+            assert many[2 * c + rank] == one[rank][c::5]
+    assert k5.tile_walk([0, 0, 0], 7, 2) == [[], [], [], []]
+
+
+@pytest.mark.parametrize("n, grouped", [(27200, True), (3400, True),
+                                        (1024, True), (512, False),
+                                        (256, False), (8, False), (1, False)])
+def test_grouped_route_by_rows_an_expert(n, grouped):
+    """Mellum2's bursts (27,200 tokens) and one-request prefills (3,400)
+    take the grouped products, its 256-token admission chunks (32 rows an
+    expert) and decode steps (8 tokens) the Triton ones: the route follows
+    N k / E against GROUPED_MIN_ROWS, one whole 128-row tile an expert."""
+    assert k5.grouped_route(n, 8, 64) is grouped
+    assert (n * 8 / 64 >= k5.GROUPED_MIN_ROWS) is grouped
+
+
+@pytest.mark.parametrize("what", ["width", "inter", "experts", "aligned"])
+def test_grouped_route_refuses_what_the_kernel_cannot_take(what):
+    """The wrapper's checks refuse, on the grouped route, a width that is
+    not a multiple of 256, an expert width not a multiple of 128, more than
+    256 experts and an operand off 16 bytes; the Triton route takes them."""
+    d, inter, e = 256, 128, 8
+    if what == "width":
+        d = 320
+    elif what == "inter":
+        inter = 96
+    elif what == "experts":
+        e = 512
+    bf = torch.bfloat16
+    x = torch.zeros(9 * d, dtype=bf)[1:].view(-1)[:8 * d].view(8, d) \
+        if what == "aligned" else torch.zeros(8, d, dtype=bf)
+    args = (x, torch.zeros(d, e, dtype=bf),
+            torch.zeros(e, d, 2 * inter, dtype=bf),
+            torch.zeros(e, inter, d, dtype=bf), 2, None)
+    k5._check_cuda_args(*args, grouped=False)
+    with pytest.raises(ValueError, match="grouped route"):
+        k5._check_cuda_args(*args, grouped=True)
+
+
 # ------------------------------------------------------- the served paths
 
 
